@@ -1,0 +1,421 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py            # the full run, n = 2**20, d = 64
+    python3 chip_smoke.py --quick    # the same phases at n = 2**14
+
+Phases, in order; the first failure stops the run with a nonzero exit:
+
+1. **build**: compile the four CUDA kernels from ``src/repro_torch/csrc``
+   (one ``nvcc`` per source, all at once) and print ``ptxas``'s register
+   and spill report.
+2. **serving** (the main path): ``repro_torch.launch.serve``'s
+   ``serve_spmm_stream`` on each ``serving_suite`` structure (moe-block,
+   banded, scale-free, uniform) at n = 2**20, d = 64, 8 requests each,
+   plus scale-free forced onto the binned kernel (``--spmm-strategy
+   binned``), the scale-free regime's own kernel, which the roofline does
+   not pick there.  Every kernel's launch counter is zeroed before the
+   phase and read after it; each run's chosen kernel must have launched,
+   and every kernel must have launched in the phase.  The last request's
+   C is held against the port's ``"torch"`` backend on the card.
+3. **kernels**: each kernel against its plain PyTorch version on the
+   card, on the layout the serving phase packed for it (f32i32) and at
+   every other precision its spec declares (bf16i32 at full n, bf16i16 at
+   n = 32760, where the slab fits int16 indices); kernel, plain-version
+   and ``torch.sparse.mm`` times (CUDA events, warm, median); the
+   banded kernel also at block edges t = 1, 2, 4.
+
+Tolerance: each side of a comparison is allowed ``4 * eps * (|A| @ |B|)
++ 5e-4 + 5e-4 * |C|`` (eps of the value dtype), the bound of
+``tests/test_differential.py``; a comparison of two computed sides is
+allowed the sum of both.
+
+The last lines are the ``{"kernels": [...]}`` record, the card's name and
+power limit from ``nvidia-smi``, and ``{"ok": true, "device": ...}``.
+Without a GPU, or without the port beside it, the script exits nonzero
+and prints no result.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+#: Published H100 SXM peaks (vendor data sheet, dense): HBM bytes/s and
+#: FLOP/s by operand type (fp32 on CUDA cores, bf16 on tensor cores).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+
+ATOL = RTOL = 5e-4
+D = 64
+STEPS = 8
+#: n for the bf16i16 rows: int16 slab-local indices need n <= 32767.
+N_INT16 = 32760
+
+#: The serving phase: (structure, forced strategy or "auto").
+SERVE_RUNS = (("moe-block", "auto"), ("banded", "auto"),
+              ("scale-free", "auto"), ("uniform", "auto"),
+              ("scale-free", "binned"))
+
+#: Kernel name -> (its CUDA source, the TPU kernel it replaces, the
+#: serving run whose layout the kernel phase measures, its formats).
+KERNELS = {
+    "csr_spmm": ("src/repro_torch/csrc/csr_spmm.cu",
+                 "src/repro/kernels/csr_spmm.py:172", ("uniform", "auto"),
+                 ("csr", "ell", "ell_coo")),
+    "binned_spmm": ("src/repro_torch/csrc/binned_spmm.cu",
+                    "src/repro/kernels/binned_spmm.py:142",
+                    ("scale-free", "binned"), ("binned",)),
+    "bcsr_spmm": ("src/repro_torch/csrc/bcsr_spmm.cu",
+                  "src/repro/kernels/bcsr_spmm.py:49", ("moe-block", "auto"),
+                  ("bcsr",)),
+    "banded_spmm": ("src/repro_torch/csrc/banded_spmm.cu",
+                    "src/repro/kernels/banded_spmm.py:36", ("banded", "auto"),
+                    ("dia",)),
+}
+
+
+class SmokeFailure(RuntimeError):
+    """A phase found the port wrong."""
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def median_ms(fn, runs: int) -> float:
+    """Median of ``runs`` CUDA-event timings of ``fn`` after one warm call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def abs_product(m, b):
+    """``|A| @ |B|`` in fp32 on B's device, from the row-major COO."""
+    import torch
+    from repro_torch.sparse.spmm import segment_sum
+    dev = b.device
+    out = torch.zeros(m.n, b.shape[1], dtype=torch.float32, device=dev)
+    return segment_sum(
+        out, b.abs().to(torch.float32), torch.from_numpy(m.cols).to(dev),
+        torch.from_numpy(abs(m.vals).astype("float32")).to(dev),
+        torch.from_numpy(m.rows).to(dev))
+
+
+def check_close(what: str, got, ref, absprod, eps: float) -> tuple:
+    """Hold ``got`` against ``ref``; both computed, so the bound is the sum
+    of both sides' bounds.  Returns ``(max_abs_err, worst_margin)``."""
+    import torch
+    if tuple(got.shape) != tuple(ref.shape):
+        raise SmokeFailure(f"{what}: shape {tuple(got.shape)} vs "
+                           f"{tuple(ref.shape)}")
+    g, r = got.to(torch.float32), ref.to(torch.float32)
+    if not bool(torch.isfinite(g).all()):
+        raise SmokeFailure(f"{what}: non-finite values")
+    err = (g - r).abs()
+    bound = 2 * (4 * eps * absprod + ATOL) + RTOL * (g.abs() + r.abs())
+    worst = float((err - bound).max())
+    max_err = float(err.max())
+    if worst > 0:
+        raise SmokeFailure(f"{what}: max |err| {max_err:.3e} exceeds the "
+                           f"bound by {worst:.3e}")
+    return max_err, worst
+
+
+def layout_bytes(layout) -> int:
+    """Bytes of the tensor fields of a packed layout the kernel reads."""
+    import dataclasses
+    import torch
+    return sum(v.numel() * v.element_size()
+               for f in dataclasses.fields(layout) if f.name not in UNREAD
+               for v in [getattr(layout, f.name)]
+               if isinstance(v, torch.Tensor))
+
+
+def torch_csr(m, dev):
+    """A as a ``torch.sparse`` CSR tensor (fp32): the library yardstick."""
+    import numpy as np
+    import torch
+    crow = torch.from_numpy(m.row_ptr().astype(np.int64)).to(dev)
+    col = torch.from_numpy(m.cols.astype(np.int64)).to(dev)
+    val = torch.from_numpy(m.vals.astype(np.float32)).to(dev)
+    return torch.sparse_csr_tensor(crow, col, val, size=(m.n, m.n))
+
+
+def serve_phase(n: int, steps: int, dev) -> dict:
+    """The main path: serve every run, hold C against the torch backend."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.precision import as_precision
+    from repro_torch.kernels import registry
+    from repro_torch.launch import serve
+    from repro_torch.sparse.dispatch import Dispatcher
+
+    matrices, dispatchers, runs = {}, {}, {}
+    kernels.reset_launch_counts()
+    for structure, strategy in SERVE_RUNS:
+        if structure not in matrices:
+            t0 = time.perf_counter()
+            matrices[structure] = serve.build_stream_matrix(structure, n)
+            dispatchers[structure] = Dispatcher(device=dev)
+            log(f"[serve] built {structure} n={n} "
+                f"nnz={matrices[structure].nnz} in "
+                f"{time.perf_counter() - t0:.1f}s")
+        args = serve.parser().parse_args(
+            ["--spmm-stream", "--spmm-structure", structure,
+             "--spmm-n", str(n), "--spmm-d", str(D),
+             "--spmm-steps", str(steps), "--spmm-strategy", strategy,
+             "--device", str(dev)])
+        before = kernels.launch_counts()
+        log(f"[serve] === {structure} (strategy {strategy}) ===")
+        rec = serve.serve_spmm_stream(args, dispatcher=dispatchers[structure],
+                                      matrix=matrices[structure])
+        after = kernels.launch_counts()
+        plan = rec["plan"]
+        kernel = next(k for k, v in KERNELS.items()
+                      if plan.chosen in v[3])
+        delta = after[kernel] - before[kernel]
+        log(f"[serve] {structure}/{strategy}: chosen {plan.chosen} @ "
+            f"{plan.precision} -> kernel {kernel}, launches +{delta}; "
+            f"startup {rec['startup_ms']:.1f} ms, p50 {rec['p50_us']:.1f} "
+            f"us, p99 {rec['p99_us']:.1f} us, {rec['gflops']:.2f} GFLOP/s")
+        if delta <= 0:
+            raise SmokeFailure(f"{structure}: kernel {kernel} of the chosen "
+                               f"format {plan.chosen} never launched")
+        # Hold the last request's C against the torch backend on the card.
+        m = matrices[structure]
+        b, c = rec["last"]
+        prec = as_precision(plan.precision)
+        disp = dispatchers[structure]
+        ctx = registry.KernelContext(
+            bcsr_block=disp.bcsr_block, plan_d=D, precision=prec,
+            convert=lambda mm, f, _p=prec: disp.convert(mm, f, precision=_p),
+            device=dev)
+        ref = registry.get(plan.chosen, "torch").bind(m, ctx)(b)
+        err, _ = check_close(f"{structure}/{strategy} C vs torch backend",
+                             c, ref, abs_product(m, b), prec.eps)
+        log(f"[serve] {structure}/{strategy}: C {tuple(c.shape)} finite, "
+            f"max |C - torch| = {err:.3e} within bound")
+        runs[(structure, strategy)] = dict(rec, kernel=kernel,
+                                           launches=delta)
+        del ref
+        empty_cache(dev)
+    counts = kernels.launch_counts()
+    log(f"[serve] launches on the main path: {counts}")
+    missing = [k for k, v in counts.items() if v <= 0]
+    if missing:
+        raise SmokeFailure(f"kernels never launched on the main path: "
+                           f"{missing}")
+    return {"runs": runs, "counts": counts, "matrices": matrices,
+            "dispatchers": dispatchers}
+
+
+def empty_cache(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+#: Layout fields a kernel does not read (the plain version's owner ids).
+UNREAD = {"tile_ids", "chunk_visits", "block_rows"}
+
+
+def kernel_row(name, layout, m, b, runs: int, plain_runs: int,
+               library: bool) -> dict:
+    """One kernel against its plain version on one layout, with times."""
+    import torch
+    from repro_torch import kernels
+    mod = kernels.KERNEL_MODULES[name]
+    wrapper = getattr(mod, name)
+    plain = getattr(mod, f"{name}_plain")
+    out = wrapper(layout, b)
+    ref = plain(layout, b)
+    eps = float(torch.finfo(b.dtype).eps)
+    err, margin = check_close(f"{name} vs plain ({b.dtype})", out, ref,
+                              abs_product(m, b), eps)
+    del out, ref
+    ms = median_ms(lambda: wrapper(layout, b), runs)
+    plain_ms = median_ms(lambda: plain(layout, b), plain_runs)
+    lib_ms = None
+    if library:
+        a = torch_csr(m, b.device)
+        lib_ms = median_ms(lambda: torch.sparse.mm(a, b), runs)
+        del a
+    nbytes = layout_bytes(layout) + 2 * b.numel() * b.element_size()
+    # Stored value slots (padding included) per true nonzero.
+    stored = next(getattr(layout, f).numel() for f in ("vals", "blocks",
+                                                       "band")
+                  if hasattr(layout, f))
+    flops = 2.0 * m.nnz * b.shape[1]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(b.dtype).split(".")[-1]] * 1e3
+    empty_cache(b.device)
+    return {"max_abs_err": err, "margin": margin, "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms, "bytes": nbytes, "flops": flops,
+            "stored_per_nnz": stored / max(m.nnz, 1)}
+
+
+def kernel_phase(served: dict, quick: bool, dev) -> list:
+    """Each kernel vs its plain version at every declared precision."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.launch import serve
+    from repro_torch.sparse import stream
+    from repro_torch.sparse.dispatch import Dispatcher
+
+    runs, plain_runs = (3, 2) if quick else (10, 3)
+    rng = np.random.default_rng(7)
+    records = []
+    for name, (source, replaces, run_key, formats) in KERNELS.items():
+        # The designated serving run, else the first that chose a format
+        # of this kernel.
+        keys = [run_key] + [k for k in SERVE_RUNS if k != run_key]
+        run_key = next(k for k in keys
+                       if served["runs"][k]["plan"].chosen in formats)
+        structure, _ = run_key
+        run = served["runs"][run_key]
+        m = served["matrices"][structure]
+        disp = served["dispatchers"][structure]
+        fmt_name = run["plan"].chosen
+        spec = registry.get(fmt_name, "cuda")
+        rows = []
+        for token in spec.supported_precisions:
+            if token == run["plan"].precision:
+                mm, layout = m, run["plan"].layout
+            else:
+                small = token == "bf16i16"
+                mm = serve.build_stream_matrix(structure, N_INT16) \
+                    if small else m
+                dd = Dispatcher(device=dev) if small else disp
+                layout = stream.plan(mm, stream.BSpec(d=D, reuse=STEPS),
+                                     strategy=fmt_name, precision=token,
+                                     dispatcher=dd).layout
+            dtype = torch.bfloat16 if token.startswith("bf16") \
+                else torch.float32
+            b = torch.from_numpy(rng.normal(size=(mm.n, D))
+                                 .astype(np.float32)).to(dev, dtype)
+            row = kernel_row(name, layout, mm, b, runs, plain_runs,
+                             library=token == "f32i32")
+            row.update(precision=token, n=mm.n, format=fmt_name)
+            log(f"[kernel] {name} {token} n={mm.n} ({structure}, layout "
+                f"{fmt_name}): max|err| {row['max_abs_err']:.3e} (worst "
+                f"err - bound {row['margin']:.3e} <= 0), kernel "
+                f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                f"torch.sparse.mm {row['library_ms']} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}); stored "
+                f"values per nonzero {row['stored_per_nnz']:.2f}")
+            rows.append(row)
+            del b
+        main = rows[0]
+        records.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": served["counts"][name],
+            "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "stored_per_nnz": main["stored_per_nnz"],
+            "precision": main["precision"], "n": main["n"], "d": D,
+            "structure": structure, "format": main["format"],
+            "other_precisions": [
+                {k: r[k] for k in ("precision", "n", "max_abs_err", "ms",
+                                   "plain_ms", "bound_ms", "bound_by",
+                                   "stored_per_nnz")}
+                for r in rows[1:]]})
+    # The banded kernel at the smallest block edges (n = t * odd).
+    from repro_torch.kernels.banded_spmm import banded_spmm, banded_spmm_plain
+    for nn in (1001, 1002, 1004):
+        mm = serve.build_stream_matrix("banded", nn)
+        layout = stream.plan(mm, D, strategy="dia",
+                             dispatcher=Dispatcher(device=dev)).layout
+        b = torch.from_numpy(rng.normal(size=(nn, D)).astype(np.float32)
+                             ).to(dev)
+        err, _ = check_close(f"banded_spmm t={layout.t}",
+                             banded_spmm(layout, b),
+                             banded_spmm_plain(layout, b),
+                             abs_product(mm, b), 2.0 ** -23)
+        log(f"[kernel] banded_spmm t={layout.t} n={nn}: max|err| "
+            f"{err:.3e} within bound")
+    return records
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--quick", action="store_true",
+                    help="n = 2**14 instead of 2**20 (a short check)")
+    args = ap.parse_args(argv)
+    n = 2 ** 14 if args.quick else 2 ** 20
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch" / "csrc").is_dir():
+        print(f"chip_smoke: the port is not beside this script "
+              f"({SRC / 'repro_torch'} missing)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    smi = nvidia_smi()
+    log(f"[gpu] {smi}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    build.build(verbose=True)
+    log(f"[build] {len(build.KERNELS)} kernels built in "
+        f"{time.perf_counter() - t0:.1f}s into {build.build_dir()}")
+    for name, text in build.LAST_LOG.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+    log(f"kernels: {' '.join(KERNELS)}")
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    served = serve_phase(n, STEPS, dev)
+    log(f"[serve] phase took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    records = kernel_phase(served, args.quick, dev)
+    log(f"[kernel] phase took {time.perf_counter() - t0:.1f}s; total "
+        f"{time.perf_counter() - t_start:.1f}s")
+    print(json.dumps({"kernels": records}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,275 @@
+"""Two-phase binned SpMM for the scale-free regime (CUDA kernel).
+
+The counterpart of the reference's ``binned_spmm_pallas``.  Phase one
+(host, :func:`csr_to_slab_bins`) bins the nonzeros by the B row slab they
+gather from and orders them column-major inside each slab; a *visit* is
+one (slab, row tile) pair with nonzeros, and visits run slab-major.  Phase
+two (:func:`binned_spmm`) walks the chunks with the CSR kernel's body,
+the visit as the owner, into fp32 partials of ``row_tile`` rows each; an
+fp32 ``index_add_`` folds the partials into their row tiles and C is cast
+once.  ``index_add_`` on a CUDA tensor sums with atomics, so the order in
+which a tile's partials are added, and the last bits of C, can change
+from run to run.
+
+:func:`pack_rowsplit_chunks` (the row-split packer) is here for its
+packer test; its kernel is not ported yet.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.csr_spmm import (
+    ROW_TILE, accumulate_chunks, check_operands, chunk_positions,
+    index_code, index_extent_check, owner_ptr, value_code)
+
+#: Kernel launches made by :func:`binned_spmm` (a plain counter).
+LAUNCHES = 0
+
+
+def csr_to_slab_bins(indptr: np.ndarray, indices: np.ndarray,
+                     data: np.ndarray, *, n: int, row_tile: int = 8,
+                     chunk: int = 128, b_tile: Optional[int] = None,
+                     index_dtype=np.int32
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                np.ndarray, np.ndarray, np.ndarray]:
+    """Bin CSR nonzeros by B row slab (phase one of the binned kernel).
+
+    Returns ``(visit_tiles[V], chunk_visits[C], chunk_slabs[C],
+    cols[C, chunk], row_slots[C, chunk], vals[C, chunk])``.  Visits are
+    ordered slab-major, then by row tile; within a visit entries are
+    sorted by column, then row.  ``cols`` are slab-local and
+    ``row_slots`` are rows within the tile, both at ``index_dtype``.  An
+    empty matrix still produces one all-zero visit.  The arrays are
+    byte-identical to the reference packer's.
+    """
+    indptr = np.asarray(indptr)
+    indices = np.asarray(indices).astype(np.int64)
+    data = np.asarray(data)
+    index_extent_check(n if b_tile is None else b_tile, index_dtype)
+    nnz = int(indptr[-1])
+    rows = np.repeat(np.arange(n, dtype=np.int64),
+                     np.diff(indptr).astype(np.int64))
+    cols = indices[:nnz]
+    vals = data[:nnz]
+    bt = n if b_tile is None else b_tile
+    slabs = cols // bt
+    tiles = rows // row_tile
+    order = np.lexsort((rows, cols, tiles, slabs))
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    slabs, tiles = slabs[order], tiles[order]
+    if nnz == 0:
+        g_tile = g_slab = g_count = np.zeros(1, np.int64)
+    else:
+        keys = slabs * ((n + row_tile - 1) // row_tile + 1) + tiles
+        starts = np.flatnonzero(np.diff(keys, prepend=-1))
+        g_tile, g_slab = tiles[starts], slabs[starts]
+        g_count = np.diff(np.append(starts, nnz))
+    chunks, pos = chunk_positions(g_count, chunk)
+    total = int(chunks.sum()) * chunk
+    out_cols = np.zeros(total, dtype=index_dtype)
+    out_slots = np.zeros(total, dtype=index_dtype)
+    out_vals = np.zeros(total, dtype=data.dtype)
+    out_cols[pos] = (cols - slabs * bt).astype(index_dtype)
+    out_slots[pos] = (rows - tiles * row_tile).astype(index_dtype)
+    out_vals[pos] = vals
+    return (g_tile.astype(np.int32),
+            np.repeat(np.arange(g_tile.shape[0]), chunks).astype(np.int32),
+            np.repeat(g_slab, chunks).astype(np.int32),
+            out_cols.reshape(-1, chunk), out_slots.reshape(-1, chunk),
+            out_vals.reshape(-1, chunk))
+
+
+def pack_rowsplit_chunks(indptr: np.ndarray, indices: np.ndarray,
+                         data: np.ndarray, *, n: int, chunk: int = 128,
+                         index_dtype=np.int32
+                         ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                    np.ndarray]:
+    """Cut the row-major nonzero stream into equal-``chunk`` work units.
+
+    Returns ``(row_map[C, W], cols[C, chunk], row_slots[C, chunk],
+    vals[C, chunk])``: slot ``w`` of chunk ``c`` is global row
+    ``row_map[c, w]`` (the sentinel ``n`` past the chunk's last row), and
+    ``W`` is the widest chunk's row span rounded up to a multiple of 8.
+    Columns are global, so int16 is legal only when ``n`` fits.
+    """
+    indptr = np.asarray(indptr)
+    indices = np.asarray(indices)
+    data = np.asarray(data)
+    index_extent_check(n, index_dtype)
+    nnz = int(indptr[-1])
+    rows = np.repeat(np.arange(n, dtype=np.int64),
+                     np.diff(indptr).astype(np.int64))
+    num_chunks = max(1, -(-nnz // chunk))
+    padded = num_chunks * chunk
+    cols_p = np.zeros(padded, dtype=index_dtype)
+    vals_p = np.zeros(padded, dtype=data.dtype)
+    cols_p[:nnz] = indices[:nnz]
+    vals_p[:nnz] = data[:nnz]
+    nonempty = np.flatnonzero(np.diff(indptr) > 0).astype(np.int64)
+    ranks = np.searchsorted(nonempty, rows)
+    ranks_p = np.zeros(padded, dtype=np.int64)
+    ranks_p[:nnz] = ranks
+    ranks_p[nnz:] = ranks_p[nnz - 1] if nnz else 0
+    ranks_c = ranks_p.reshape(num_chunks, chunk)
+    rank_lo = ranks_c[:, 0]
+    slots = (ranks_c - rank_lo[:, None]).astype(index_dtype)
+    span = int((slots.max() + 1)) if nnz else 1
+    window = max(8, -(-span // 8) * 8)
+    flat = rank_lo[:, None] + np.arange(window)[None, :]
+    row_map = np.where(flat < nonempty.shape[0],
+                       nonempty[np.minimum(flat, nonempty.shape[0] - 1)]
+                       if nonempty.shape[0] else 0,
+                       n).astype(np.int32)
+    if nonempty.shape[0] == 0:
+        row_map[:] = n
+    return (row_map, cols_p.reshape(num_chunks, chunk), slots,
+            vals_p.reshape(num_chunks, chunk))
+
+
+@dataclasses.dataclass(frozen=True)
+class SlabBinLayout:
+    """The packed operand of :func:`binned_spmm`, on one device.
+
+    ``visit_ptr[V + 1]`` is the chunk range of each visit, computed once
+    from the non-decreasing ``chunk_visits``; the other arrays are
+    :func:`csr_to_slab_bins`'s, unchanged.
+    """
+
+    visit_ptr: torch.Tensor     # [V + 1] int32
+    visit_tiles: torch.Tensor   # [V] int32 row tile of each visit
+    chunk_visits: torch.Tensor  # [C] int32
+    chunk_slabs: torch.Tensor   # [C] int32
+    cols: torch.Tensor          # [C, chunk] int32 or int16, slab-local
+    slots: torch.Tensor         # [C, chunk] int32 or int16
+    vals: torch.Tensor          # [C, chunk] float32 or bfloat16
+    n: int
+    b_tile: Optional[int]
+    row_tile: int = ROW_TILE
+
+    @property
+    def num_visits(self) -> int:
+        """Number of (slab, row tile) visits."""
+        return int(self.visit_tiles.shape[0])
+
+    @property
+    def num_tiles(self) -> int:
+        """Row tiles covering the ``n`` rows."""
+        return (self.n + self.row_tile - 1) // self.row_tile
+
+    @property
+    def device(self) -> torch.device:
+        """The device the layout lives on."""
+        return self.vals.device
+
+
+def slab_bin_layout(visit_tiles, chunk_visits, chunk_slabs, cols, slots,
+                    vals, *, n: int, b_tile: Optional[int],
+                    row_tile: int = ROW_TILE, device=None) -> SlabBinLayout:
+    """Move :func:`csr_to_slab_bins`'s arrays to ``device`` as a layout."""
+    from repro_torch.sparse.formats import tensor_from_host
+    visit_tiles = np.asarray(visit_tiles)
+    return SlabBinLayout(
+        visit_ptr=tensor_from_host(
+            owner_ptr(chunk_visits, visit_tiles.shape[0]), device),
+        visit_tiles=tensor_from_host(visit_tiles, device),
+        chunk_visits=tensor_from_host(np.asarray(chunk_visits), device),
+        chunk_slabs=tensor_from_host(np.asarray(chunk_slabs), device),
+        cols=tensor_from_host(np.asarray(cols), device),
+        slots=tensor_from_host(np.asarray(slots), device),
+        vals=tensor_from_host(np.asarray(vals), device),
+        n=n, b_tile=b_tile, row_tile=row_tile)
+
+
+def fold_visits(layout: SlabBinLayout, partials: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """The epilogue: fp32 sum of the visit partials per row tile, cast."""
+    rt, d = layout.row_tile, partials.shape[1]
+    rows = (layout.visit_tiles.long()[:, None] * rt
+            + torch.arange(rt, device=partials.device)).reshape(-1)
+    out = torch.zeros(layout.num_tiles * rt, d, dtype=torch.float32,
+                      device=partials.device)
+    out.index_add_(0, rows, partials)
+    return out[:layout.n].to(dtype)
+
+
+def binned_partials_plain(layout: SlabBinLayout,
+                          b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch phase two: the fp32 visit partials ``[V*rt, d]``."""
+    out = torch.zeros(layout.num_visits * layout.row_tile, b.shape[1],
+                      dtype=torch.float32, device=b.device)
+    return accumulate_chunks(out, layout.chunk_visits, layout.chunk_slabs,
+                             layout.cols, layout.slots, layout.vals, b,
+                             b_tile=layout.b_tile, row_tile=layout.row_tile)
+
+
+def binned_spmm_plain(layout: SlabBinLayout, b: torch.Tensor
+                      ) -> torch.Tensor:
+    """The plain PyTorch version of the binned kernel on the same layout."""
+    return fold_visits(layout, binned_partials_plain(layout, b), b.dtype)
+
+
+_P = ctypes.c_void_p
+_ARGTYPES = (ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P,
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+             ctypes.c_int, _P)
+
+
+def _kernel():
+    fn = build.library("binned_spmm").binned_spmm_launch
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    return fn
+
+
+def binned_partials_cuda(layout: SlabBinLayout,
+                         b: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel (``csrc/binned_spmm.cu``): fp32 partials."""
+    global LAUNCHES
+    if layout.row_tile != ROW_TILE:
+        raise ValueError(f"the binned kernel is built for row_tile="
+                         f"{ROW_TILE}, got {layout.row_tile}")
+    check_operands("binned_spmm", (layout.visit_ptr, layout.chunk_slabs,
+                                   layout.cols, layout.slots, layout.vals),
+                   b, layout.vals)
+    if b.shape[0] != layout.n:
+        raise ValueError(f"binned_spmm: b has {b.shape[0]} rows, the "
+                         f"layout {layout.n}")
+    if layout.slots.dtype != layout.cols.dtype:
+        raise TypeError("binned_spmm: cols and slots must share a dtype")
+    d = b.shape[1]
+    partials = torch.empty(layout.num_visits * layout.row_tile, d,
+                           dtype=torch.float32, device=b.device)
+    fn = _kernel()
+    err = fn(value_code(b.dtype), index_code(layout.cols.dtype),
+             build.ptr(layout.visit_ptr), build.ptr(layout.chunk_slabs),
+             build.ptr(layout.cols), build.ptr(layout.slots),
+             build.ptr(layout.vals), build.ptr(b), build.ptr(partials),
+             layout.num_visits, d,
+             layout.n if layout.b_tile is None else layout.b_tile,
+             layout.cols.shape[1], build.stream_ptr(b.device))
+    LAUNCHES += 1
+    build.check(err, "binned_spmm")
+    return partials
+
+
+def binned_spmm(layout: SlabBinLayout, b: torch.Tensor) -> torch.Tensor:
+    """``C = A @ B`` with A as slab-binned chunks: the CUDA kernel plus
+    the fold for a CUDA operand, :func:`binned_spmm_plain` for a CPU one.
+
+    Args:
+        layout: the packed operand, on ``b``'s device.
+        b: ``[n, d]`` float32 or bfloat16, the layout's value dtype.
+
+    Returns:
+        ``C`` as ``[n, d]`` in ``b``'s dtype.
+    """
+    if b.device.type == "cuda":
+        return fold_visits(layout, binned_partials_cuda(layout, b), b.dtype)
+    if b.device.type == "cpu":
+        return binned_spmm_plain(layout, b)
+    raise ValueError(f"binned_spmm runs on CUDA or the CPU, not {b.device}")

@@ -1,0 +1,312 @@
+"""CSR row-gather / segment-sum SpMM over row-tiled chunks (CUDA kernel).
+
+The counterpart of the reference's ``csr_spmm_pallas``.  The host packer
+:func:`csr_to_row_tiles` cuts each tile of ``row_tile`` rows into chunks of
+``chunk`` nonzeros, grouped by the B row slab they gather from (``b_tile``
+rows per slab, slab-local column ids), exactly as the reference packs them
+(the port's packer is vectorised with numpy and byte-identical).
+
+:func:`csr_spmm` runs ``C = A @ B`` on a :class:`RowTileLayout`: the
+hand-written kernel ``csrc/csr_spmm.cu`` for a CUDA operand, the plain
+PyTorch version :func:`csr_spmm_plain` for a CPU operand.  Products round
+at the operand dtype, sums run in fp32 and C is cast once.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import build
+
+#: Kernel launches made by :func:`csr_spmm` (a plain counter; reset by
+#: assigning 0).
+LAUNCHES = 0
+
+#: Rows per C tile the kernel is compiled for.
+ROW_TILE = 8
+
+#: Gathered values the plain version materialises per step (bounds its
+#: memory on large layouts).
+PLAIN_STEP = 1 << 26
+
+
+def index_extent_check(extent: int, index_dtype) -> None:
+    """Refuse an index dtype that cannot address ``extent`` positions.
+
+    The packers reserve sentinel values equal to the extent itself, so
+    the extent — not ``extent - 1`` — must be representable (an extent of
+    exactly ``2**15`` is illegal for int16).
+    """
+    if np.dtype(index_dtype) == np.int16 and extent > 2 ** 15 - 1:
+        raise ValueError(
+            f"int16 indices cannot address extent {extent} "
+            f"(max {2 ** 15 - 1} including the sentinel slot)")
+
+
+def chunk_positions(group_counts: np.ndarray, chunk: int
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """Chunk count per group and the flat slot of every member.
+
+    Groups are padded to whole chunks, and an empty group still owns one
+    all-zero chunk.  Returns ``(chunks_per_group, slot_of_member)`` where
+    members are numbered group by group in order.
+    """
+    counts = np.asarray(group_counts, dtype=np.int64)
+    chunks = np.maximum(1, -(-counts // chunk))
+    first_slot = np.concatenate([[0], np.cumsum(chunks)[:-1]]) * chunk
+    first_member = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    member = np.arange(int(counts.sum()), dtype=np.int64)
+    group = np.repeat(np.arange(counts.shape[0]), counts)
+    return chunks, first_slot[group] + member - first_member[group]
+
+
+def csr_to_row_tiles(indptr: np.ndarray, indices: np.ndarray,
+                     data: np.ndarray, *, n: int, row_tile: int = 8,
+                     chunk: int = 128, b_tile: Optional[int] = None,
+                     index_dtype=np.int32
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                np.ndarray, np.ndarray]:
+    """Pack CSR arrays into fixed-size chunks grouped by row tile.
+
+    Returns ``(tile_ids[C], b_tile_ids[C], cols[C, chunk],
+    row_slots[C, chunk], vals[C, chunk])``: chunk ``c`` belongs to row
+    tile ``tile_ids[c]`` and gathers only from B row slab
+    ``b_tile_ids[c]``; ``row_slots`` are rows within the tile.  A tile's
+    chunks are contiguous and visit its slabs in ascending order (a
+    stable partition of the tile's nonzeros by ``col // b_tile``);
+    empty tiles still get one all-zero chunk.  With ``b_tile=None`` there
+    is one slab and ``cols`` are global; otherwise ``cols`` are
+    slab-local.  ``cols``/``row_slots`` are stored at ``index_dtype``.
+    The arrays are byte-identical to the reference packer's.
+    """
+    indptr = np.asarray(indptr).astype(np.int64)
+    data = np.asarray(data)
+    index_extent_check(n if b_tile is None else b_tile, index_dtype)
+    nnz = int(indptr[n]) - int(indptr[0])
+    num_tiles = (n + row_tile - 1) // row_tile
+    rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr[:n + 1]))
+    cols = np.asarray(indices)[int(indptr[0]):int(indptr[n])].astype(np.int64)
+    vals = data[int(indptr[0]):int(indptr[n])]
+    tiles = rows // row_tile
+    slabs = np.zeros(nnz, np.int64) if b_tile is None else cols // b_tile
+    # Stable sort by (tile, slab): within a tile the nonzeros keep their
+    # CSR order inside each slab, as the reference's per-tile partition.
+    order = np.lexsort((slabs, tiles))
+    tiles, slabs, cols, vals = (tiles[order], slabs[order], cols[order],
+                                vals[order])
+    slots = rows[order] - tiles * row_tile
+    # One group per (tile, slab) with nonzeros, plus one per empty tile.
+    key = tiles * (n + 1) + slabs
+    starts = np.flatnonzero(np.diff(key, prepend=-1)) if nnz else \
+        np.zeros(0, np.int64)
+    g_tile, g_slab = tiles[starts], slabs[starts]
+    g_count = np.diff(np.append(starts, nnz))
+    empty = np.setdiff1d(np.arange(num_tiles), g_tile)
+    g_tile = np.concatenate([g_tile, empty])
+    g_slab = np.concatenate([g_slab, np.zeros_like(empty)])
+    g_count = np.concatenate([g_count, np.zeros_like(empty)])
+    # Empty tiles hold no members, so sorting the groups keeps the members
+    # of the nonempty ones in stream order.
+    g_order = np.lexsort((g_slab, g_tile))
+    g_tile, g_slab, g_count = g_tile[g_order], g_slab[g_order], \
+        g_count[g_order]
+    chunks, pos = chunk_positions(g_count, chunk)
+    base = 0 if b_tile is None else b_tile
+    total = int(chunks.sum()) * chunk
+    out_cols = np.zeros(total, dtype=index_dtype)
+    out_slots = np.zeros(total, dtype=index_dtype)
+    out_vals = np.zeros(total, dtype=data.dtype)
+    out_cols[pos] = (cols - slabs * base).astype(index_dtype)
+    out_slots[pos] = slots.astype(index_dtype)
+    out_vals[pos] = vals
+    return (np.repeat(g_tile, chunks).astype(np.int32),
+            np.repeat(g_slab, chunks).astype(np.int32),
+            out_cols.reshape(-1, chunk), out_slots.reshape(-1, chunk),
+            out_vals.reshape(-1, chunk))
+
+
+@dataclasses.dataclass(frozen=True)
+class RowTileLayout:
+    """The packed CSR operand of :func:`csr_spmm`, on one device.
+
+    ``tile_ptr[num_tiles + 1]`` is the chunk range of each row tile,
+    computed once from the non-decreasing ``tile_ids``; the other arrays
+    are :func:`csr_to_row_tiles`'s, unchanged.
+    """
+
+    tile_ptr: torch.Tensor      # [num_tiles + 1] int32
+    tile_ids: torch.Tensor      # [C] int32
+    chunk_slabs: torch.Tensor   # [C] int32
+    cols: torch.Tensor          # [C, chunk] int32 or int16, slab-local
+    slots: torch.Tensor         # [C, chunk] int32 or int16
+    vals: torch.Tensor          # [C, chunk] float32 or bfloat16
+    n: int
+    b_tile: Optional[int]       # None: one slab, global columns
+    row_tile: int = ROW_TILE
+
+    @property
+    def num_tiles(self) -> int:
+        """Row tiles covering the ``n`` rows."""
+        return (self.n + self.row_tile - 1) // self.row_tile
+
+    @property
+    def device(self) -> torch.device:
+        """The device the layout lives on."""
+        return self.vals.device
+
+
+def owner_ptr(owner_ids: np.ndarray, num_owners: int) -> np.ndarray:
+    """``[num_owners + 1]`` chunk ranges of non-decreasing owner ids."""
+    counts = np.bincount(np.asarray(owner_ids, np.int64),
+                         minlength=num_owners)
+    return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+
+
+def row_tile_layout(tile_ids, b_tile_ids, cols, slots, vals, *, n: int,
+                    b_tile: Optional[int], row_tile: int = ROW_TILE,
+                    device=None) -> RowTileLayout:
+    """Move :func:`csr_to_row_tiles`'s arrays to ``device`` as a layout.
+
+    ``vals`` may be a float32 array or bf16 bits as ``uint16`` (or a numpy
+    ``bfloat16`` array); they become float32 or bfloat16 tensors.
+    """
+    from repro_torch.sparse.formats import tensor_from_host
+    num_tiles = (n + row_tile - 1) // row_tile
+    tile_ids = np.asarray(tile_ids)
+    return RowTileLayout(
+        tile_ptr=tensor_from_host(owner_ptr(tile_ids, num_tiles), device),
+        tile_ids=tensor_from_host(tile_ids, device),
+        chunk_slabs=tensor_from_host(np.asarray(b_tile_ids), device),
+        cols=tensor_from_host(np.asarray(cols), device),
+        slots=tensor_from_host(np.asarray(slots), device),
+        vals=tensor_from_host(np.asarray(vals), device),
+        n=n, b_tile=b_tile, row_tile=row_tile)
+
+
+def accumulate_chunks(out: torch.Tensor, owners: torch.Tensor,
+                      chunk_slabs: torch.Tensor, cols: torch.Tensor,
+                      slots: torch.Tensor, vals: torch.Tensor,
+                      b: torch.Tensor, *, b_tile: Optional[int],
+                      row_tile: int) -> torch.Tensor:
+    """``out[owner * row_tile + slot] += B[slab * b_tile + col] * val``.
+
+    The plain PyTorch chunk walk shared by the CSR and binned versions:
+    products at the operand dtype, an fp32 ``index_add_`` into ``out``.
+    """
+    d = b.shape[1]
+    chunk = cols.shape[1]
+    step = max(1, PLAIN_STEP // (chunk * d))
+    base = 0 if b_tile is None else b_tile
+    for lo in range(0, cols.shape[0], step):
+        hi = lo + step
+        gcols = (chunk_slabs[lo:hi].long()[:, None] * base
+                 + cols[lo:hi].long())
+        scaled = b[gcols] * vals[lo:hi, :, None]
+        rows = owners[lo:hi].long()[:, None] * row_tile + slots[lo:hi].long()
+        out.index_add_(0, rows.reshape(-1),
+                       scaled.reshape(-1, d).to(torch.float32))
+    return out
+
+
+def csr_spmm_plain(layout: RowTileLayout, b: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of the CSR kernel on the same layout."""
+    out = torch.zeros(layout.num_tiles * layout.row_tile, b.shape[1],
+                      dtype=torch.float32, device=b.device)
+    accumulate_chunks(out, layout.tile_ids, layout.chunk_slabs, layout.cols,
+                      layout.slots, layout.vals, b, b_tile=layout.b_tile,
+                      row_tile=layout.row_tile)
+    return out[:layout.n].to(b.dtype)
+
+
+def check_operands(kernel: str, tensors, b: torch.Tensor,
+                   vals: torch.Tensor) -> None:
+    """The kernels' contract: one device, contiguous, matching dtypes."""
+    if b.ndim != 2 or b.shape[1] < 1:
+        raise ValueError(f"{kernel}: b must be [n, d] with d >= 1, "
+                         f"got {tuple(b.shape)}")
+    if b.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{kernel}: b must be float32 or bfloat16, "
+                        f"got {b.dtype}")
+    if vals.dtype != b.dtype:
+        raise TypeError(f"{kernel}: layout values are {vals.dtype} but b "
+                        f"is {b.dtype}")
+    for t in (*tensors, b):
+        if t.device != b.device:
+            raise ValueError(f"{kernel}: operands on {t.device} and "
+                             f"{b.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: operands must be contiguous")
+
+
+def value_code(dtype: torch.dtype) -> int:
+    """The kernels' value type code (0 float32, 1 bfloat16)."""
+    return 1 if dtype == torch.bfloat16 else 0
+
+
+def index_code(dtype: torch.dtype) -> int:
+    """The kernels' index type code (0 int32, 1 int16)."""
+    if dtype not in (torch.int32, torch.int16):
+        raise TypeError(f"indices must be int32 or int16, got {dtype}")
+    return 1 if dtype == torch.int16 else 0
+
+
+_P = ctypes.c_void_p
+_ARGTYPES = (ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P,
+             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+             ctypes.c_longlong, ctypes.c_int, _P)
+
+
+def _kernel():
+    fn = build.library("csr_spmm").csr_spmm_launch
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    return fn
+
+
+def csr_spmm_cuda(layout: RowTileLayout, b: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel (``csrc/csr_spmm.cu``) on a CUDA operand."""
+    global LAUNCHES
+    if layout.row_tile != ROW_TILE:
+        raise ValueError(f"the CSR kernel is built for row_tile={ROW_TILE}, "
+                         f"got {layout.row_tile}")
+    check_operands("csr_spmm", (layout.tile_ptr, layout.chunk_slabs,
+                                layout.cols, layout.slots, layout.vals),
+                   b, layout.vals)
+    if b.shape[0] != layout.n:
+        raise ValueError(f"csr_spmm: b has {b.shape[0]} rows, the layout "
+                         f"{layout.n}")
+    if layout.slots.dtype != layout.cols.dtype:
+        raise TypeError("csr_spmm: cols and slots must share a dtype")
+    n, d = b.shape
+    c = torch.empty(n, d, dtype=b.dtype, device=b.device)
+    fn = _kernel()
+    err = fn(value_code(b.dtype), index_code(layout.cols.dtype),
+             build.ptr(layout.tile_ptr), build.ptr(layout.chunk_slabs),
+             build.ptr(layout.cols), build.ptr(layout.slots),
+             build.ptr(layout.vals), build.ptr(b), build.ptr(c),
+             layout.num_tiles, n, d, layout.b_tile or 0,
+             layout.cols.shape[1], build.stream_ptr(b.device))
+    LAUNCHES += 1
+    build.check(err, "csr_spmm")
+    return c
+
+
+def csr_spmm(layout: RowTileLayout, b: torch.Tensor) -> torch.Tensor:
+    """``C = A @ B`` with A as row-tiled chunks: the CUDA kernel for a CUDA
+    operand, :func:`csr_spmm_plain` for a CPU one.
+
+    Args:
+        layout: the packed operand, on ``b``'s device.
+        b: ``[n, d]`` float32 or bfloat16, the layout's value dtype.
+
+    Returns:
+        ``C`` as ``[n, d]`` in ``b``'s dtype.
+    """
+    if b.device.type == "cuda":
+        return csr_spmm_cuda(layout, b)
+    if b.device.type == "cpu":
+        return csr_spmm_plain(layout, b)
+    raise ValueError(f"csr_spmm runs on CUDA or the CPU, not {b.device}")
