@@ -2,33 +2,48 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py            # the full run, n = 2**20, d = 64
-    python3 chip_smoke.py --quick    # the same phases at n = 2**14
+    python3 chip_smoke.py --quick    # the same phases at n = 2**14 and
+                                     # small MoE widths
 
 Phases, in order; the first failure stops the run with a nonzero exit:
 
-1. **build**: compile the four CUDA kernels from ``src/repro_torch/csrc``
+1. **build**: compile the six CUDA kernels from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, all at once) and print ``ptxas``'s register
    and spill report.
-2. **serving** (the main path): ``repro_torch.launch.serve``'s
+2. **serving** (the SpMM path): ``repro_torch.launch.serve``'s
    ``serve_spmm_stream`` on each ``serving_suite`` structure (moe-block,
    banded, scale-free, uniform) at n = 2**20, d = 64, 8 requests each,
-   plus scale-free forced onto the binned kernel (``--spmm-strategy
-   binned``), the scale-free regime's own kernel, which the roofline does
-   not pick there.  Every kernel's launch counter is zeroed before the
-   phase and read after it; each run's chosen kernel must have launched,
-   and every kernel must have launched in the phase.  The last request's
-   C is held against the port's ``"torch"`` backend on the card.
-3. **kernels**: each kernel against its plain PyTorch version on the
+   plus scale-free forced onto the binned and the row-split kernels
+   (``--spmm-strategy binned`` / ``rowsplit``), the scale-free regime's
+   own kernels.  Every kernel's launch counter is zeroed before the phase
+   and read after it; each run's chosen kernel must have launched.  The
+   last request's C is held against the port's ``"torch"`` backend on the
+   card.
+3. **moe** (the MoE path): ``repro_torch.launch.moe_block`` at
+   qwen3-moe-235b-a22b's expert widths (4096 tokens, top-8 of 128
+   experts, d_model 4096 -> moe_d_ff 1536, bm = bk = bn = 128), at bf16
+   (the config's dtype) and at fp32: route, block, run the
+   ``("grouped", "cuda")`` spec, and hold every routed row against its
+   expert's dense product.  Counters are zeroed before the phase and read
+   after it.  After both paths, every kernel must have launched on one.
+4. **kernels**: each SpMM kernel against its plain PyTorch version on the
    card, on the layout the serving phase packed for it (f32i32) and at
    every other precision its spec declares (bf16i32 at full n, bf16i16 at
    n = 32760, where the slab fits int16 indices); kernel, plain-version
    and ``torch.sparse.mm`` times (CUDA events, warm, median); the
-   banded kernel also at block edges t = 1, 2, 4.
+   banded kernel also at block edges t = 1, 2, 4.  The grouped matmul
+   against its plain version on the MoE phase's operands, with
+   ``torch._grouped_mm`` (bf16, where this torch has it) or a per-expert
+   ``torch.matmul`` loop as the library time; the check must reject two
+   planted faults (a dropped k-slice, +0.1 on one row).
 
-Tolerance: each side of a comparison is allowed ``4 * eps * (|A| @ |B|)
-+ 5e-4 + 5e-4 * |C|`` (eps of the value dtype), the bound of
+Tolerance: each side of an SpMM comparison is allowed ``4 * eps * (|A| @
+|B|) + 5e-4 + 5e-4 * |C|`` (eps of the value dtype), the bound of
 ``tests/test_differential.py``; a comparison of two computed sides is
-allowed the sum of both.
+allowed the sum of both.  The grouped matmul forms its products exactly
+in fp32, so each side is allowed ``4 * eps_f32 * (|x| @ |w|) + 5e-4``
+plus one rounding to the output dtype (``moe_block.grouped_tolerance``),
+on the routed rows; the padding rows must be 0.
 
 The last lines are the ``{"kernels": [...]}`` record, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": ...}``.
@@ -61,7 +76,15 @@ N_INT16 = 32760
 #: The serving phase: (structure, forced strategy or "auto").
 SERVE_RUNS = (("moe-block", "auto"), ("banded", "auto"),
               ("scale-free", "auto"), ("uniform", "auto"),
-              ("scale-free", "binned"))
+              ("scale-free", "binned"), ("scale-free", "rowsplit"))
+
+#: The MoE phase: qwen3-moe-235b-a22b's expert FFN (src/repro/configs/
+#: qwen3_moe_235b_a22b.py), and a small shape for ``--quick``.
+MOE_FULL = {"tokens": 4096, "experts": 128, "top_k": 8, "d_model": 4096,
+            "d_ff": 1536}
+MOE_QUICK = {"tokens": 512, "experts": 16, "top_k": 2, "d_model": 256,
+             "d_ff": 256}
+MOE_DTYPES = ("bfloat16", "float32")
 
 #: Kernel name -> (its CUDA source, the TPU kernel it replaces, the
 #: serving run whose layout the kernel phase measures, its formats).
@@ -72,6 +95,9 @@ KERNELS = {
     "binned_spmm": ("src/repro_torch/csrc/binned_spmm.cu",
                     "src/repro/kernels/binned_spmm.py:142",
                     ("scale-free", "binned"), ("binned",)),
+    "rowsplit_spmm": ("src/repro_torch/csrc/rowsplit_spmm.cu",
+                      "src/repro/kernels/binned_spmm.py:297",
+                      ("scale-free", "rowsplit"), ("rowsplit",)),
     "bcsr_spmm": ("src/repro_torch/csrc/bcsr_spmm.cu",
                   "src/repro/kernels/bcsr_spmm.py:49", ("moe-block", "auto"),
                   ("bcsr",)),
@@ -79,6 +105,13 @@ KERNELS = {
                     "src/repro/kernels/banded_spmm.py:36", ("banded", "auto"),
                     ("dia",)),
 }
+
+#: The MoE path's kernel: (its CUDA source, the TPU kernel it replaces).
+GROUPED = ("src/repro_torch/csrc/grouped_matmul.cu",
+           "src/repro/kernels/grouped_matmul.py:40")
+
+#: Every kernel, in the order of the record.
+KERNEL_NAMES = (*KERNELS, "grouped_matmul")
 
 
 class SmokeFailure(RuntimeError):
@@ -226,13 +259,41 @@ def serve_phase(n: int, steps: int, dev) -> dict:
         del ref
         empty_cache(dev)
     counts = kernels.launch_counts()
-    log(f"[serve] launches on the main path: {counts}")
-    missing = [k for k, v in counts.items() if v <= 0]
-    if missing:
-        raise SmokeFailure(f"kernels never launched on the main path: "
-                           f"{missing}")
+    log(f"[serve] launches on the serving path: {counts}")
     return {"runs": runs, "counts": counts, "matrices": matrices,
             "dispatchers": dispatchers}
+
+
+def moe_phase(quick: bool, dev) -> dict:
+    """The MoE path at each dtype: route, block, grouped matmul, checked
+    row by row against the experts' dense products."""
+    from repro_torch import kernels
+    from repro_torch.launch import moe_block
+
+    widths = MOE_QUICK if quick else MOE_FULL
+    runs = {}
+    kernels.reset_launch_counts()
+    for dtype in MOE_DTYPES:
+        argv = [f"--{k.replace('_', '-')}={v}" for k, v in widths.items()]
+        argv += ["--bm=128", "--bk=128", "--bn=128", f"--dtype={dtype}",
+                 "--seed=0", f"--device={dev}"]
+        log(f"[moe] === {dtype}: {' '.join(argv)} ===")
+        before = kernels.launch_counts()["grouped_matmul"]
+        rec = moe_block.main(argv)
+        delta = kernels.launch_counts()["grouped_matmul"] - before
+        log(f"[moe] {dtype}: {rec['routed'].x.shape[0]} block-aligned rows, "
+            f"max |out - x @ w[expert]| {rec['max_abs_err']:.3e} within "
+            f"bound, grouped_matmul launches +{delta}, route "
+            f"{rec['route_ms']:.1f} ms, first matmul {rec['matmul_ms']:.1f} "
+            f"ms")
+        if delta <= 0:
+            raise SmokeFailure(f"moe {dtype}: grouped_matmul never launched")
+        runs[dtype] = {"w": rec["w"], "routed": rec["routed"]}
+        del rec
+        empty_cache(dev)
+    counts = kernels.launch_counts()
+    log(f"[moe] launches on the MoE path: {counts}")
+    return {"runs": runs, "counts": counts, "widths": widths}
 
 
 def empty_cache(dev) -> None:
@@ -367,6 +428,149 @@ def kernel_phase(served: dict, quick: bool, dev) -> list:
     return records
 
 
+def grouped_excess(got, ref, absprod, rows) -> tuple:
+    """``got`` against ``ref``, two grouped-matmul outputs, on the routed
+    ``rows`` within ``moe_block.grouped_tolerance``.  Returns ``(max |err|,
+    worst err - bound, worst err / bound, padding rows zero on both
+    sides)``; a non-finite ``got`` counts as an infinite excess."""
+    import torch
+    from repro_torch.launch.moe_block import grouped_tolerance
+    g, r = got[rows].to(torch.float32), ref[rows].to(torch.float32)
+    err = (g - r).abs()
+    if not bool(torch.isfinite(g).all()):
+        err = torch.full_like(err, float("inf"))
+    bound = grouped_tolerance(absprod[rows], got.dtype, g, r)
+    padding = torch.ones(got.shape[0], dtype=torch.bool, device=got.device)
+    padding[rows] = False
+    zero = not (bool(got[padding].any()) or bool(ref[padding].any()))
+    return (float(err.max()), float((err - bound).max()),
+            float((err / bound).max()), zero)
+
+
+def grouped_row(w, routed, runs: int, plain_runs: int) -> dict:
+    """The grouped matmul against its plain version on one MoE operand,
+    with times; the library time is one ``torch._grouped_mm`` call (bf16,
+    where this torch has it) or else a per-expert ``torch.matmul`` loop.
+
+    The check must also reject two planted faults: the kernel run with the
+    first 32-wide k-slice of x dropped, and +0.1 on one routed row."""
+    import torch
+    from repro_torch.kernels.grouped_matmul import (
+        grouped_matmul, grouped_matmul_plain)
+    x, gids = routed.x, routed.group_ids
+    bm = x.shape[0] // gids.shape[0]
+    T, K = x.shape
+    E, _, N = w.shape
+    rows = routed.rows.reshape(-1)
+    what = f"grouped_matmul vs plain ({x.dtype})"
+    out = grouped_matmul(x, w, gids, bm=bm)
+    ref = grouped_matmul_plain(x, w, gids, bm=bm)
+    if tuple(out.shape) != tuple(ref.shape):
+        raise SmokeFailure(f"{what}: shape {tuple(out.shape)} vs "
+                           f"{tuple(ref.shape)}")
+    absprod = grouped_matmul_plain(x.abs().float(), w.abs().float(), gids,
+                                   bm=bm)
+    err, margin, ratio, zero = grouped_excess(out, ref, absprod, rows)
+    if margin > 0:
+        raise SmokeFailure(f"{what}: max |err| {err:.3e} exceeds the bound "
+                           f"by {margin:.3e}")
+    if not zero:
+        raise SmokeFailure(f"{what}: a padding row is not zero")
+    x_cut = x.clone()
+    x_cut[:, :32] = 0
+    faults = {"first 32-wide k-slice dropped":
+              grouped_matmul(x_cut, w, gids, bm=bm)}
+    del x_cut
+    faults["+0.1 on one routed row"] = out.clone()
+    faults["+0.1 on one routed row"][rows[0]] += 0.1
+    for fault, bad in faults.items():
+        bad_err, bad_margin, bad_ratio, _ = grouped_excess(bad, ref, absprod,
+                                                           rows)
+        if bad_margin <= 0:
+            raise SmokeFailure(f"{what}: the check let a planted fault "
+                               f"through ({fault}: max |err| {bad_err:.3e})")
+        log(f"[kernel] grouped_matmul {x.dtype}: planted fault ({fault}) "
+            f"rejected, max |err| {bad_err:.3e}, worst err / bound "
+            f"{bad_ratio:.1f}")
+    del out, ref, absprod, faults
+    ms = median_ms(lambda: grouped_matmul(x, w, gids, bm=bm), runs)
+    plain_ms = median_ms(lambda: grouped_matmul_plain(x, w, gids, bm=bm),
+                         plain_runs)
+    # Rows per expert in the sorted buffer: the groups' end offsets.
+    ends = torch.cumsum(torch.bincount(gids.long(), minlength=E) * bm,
+                        0).to(torch.int32)
+    if x.dtype == torch.bfloat16 and hasattr(torch, "_grouped_mm"):
+        library = "torch._grouped_mm"
+        lib_ms = median_ms(lambda: torch._grouped_mm(x, w, offs=ends), runs)
+    else:
+        library = "per-expert torch.matmul loop"
+        bounds = [0] + ends.tolist()
+
+        def loop():
+            for e in range(E):
+                lo, hi = bounds[e], bounds[e + 1]
+                torch.matmul(x[lo:hi], w[e])
+        lib_ms = median_ms(loop, runs)
+    peak = PEAK_FLOPS[str(x.dtype).split(".")[-1]]
+
+    def bound(n_rows: int) -> tuple:
+        """(ms, by) for n_rows rows of x read, w read once, out written."""
+        nbytes = (n_rows * (K + N) + w.numel()) * x.element_size() + \
+            gids.numel() * gids.element_size()
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2.0 * n_rows * K * N / peak * 1e3
+        return (max(t_bytes, t_ops),
+                "bytes" if t_bytes >= t_ops else "operations")
+    bound_ms, bound_by = bound(T)
+    routed_ms, routed_by = bound(rows.numel())
+    flops = 2.0 * T * K * N
+    empty_cache(x.device)
+    return {"max_abs_err": err, "margin": margin, "err_over_bound": ratio,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bound_routed_ms": routed_ms,
+            "bound_routed_by": routed_by, "library_ms": lib_ms,
+            "library": library, "flops": flops, "rows": T,
+            "routed_rows": rows.numel(), "tflops": flops / ms / 1e9}
+
+
+def grouped_record(moe: dict, quick: bool) -> dict:
+    """The grouped matmul's record: the config dtype (bf16) first."""
+    runs, plain_runs = (3, 2) if quick else (10, 3)
+    rows = []
+    for dtype in MOE_DTYPES:
+        run = moe["runs"][dtype]
+        row = grouped_row(run["w"], run["routed"], runs, plain_runs)
+        row.update(precision=dtype)
+        log(f"[kernel] grouped_matmul {dtype} T={row['rows']} "
+            f"({row['routed_rows']} routed): max|err| "
+            f"{row['max_abs_err']:.3e} on the routed rows (worst err - "
+            f"bound {row['margin']:.3e} <= 0, worst err / bound "
+            f"{row['err_over_bound']:.3f}), kernel {row['ms']:.4f} ms "
+            f"({row['tflops']:.1f} TFLOP/s over the padded rows), plain "
+            f"{row['plain_ms']:.4f} ms, {row['library']} "
+            f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}) over the padded rows, "
+            f"{row['bound_routed_ms']:.4f} ms ({row['bound_routed_by']}) "
+            f"over the routed rows")
+        rows.append(row)
+    main = rows[0]
+    return {
+        "name": "grouped_matmul", "route": "cuda", "source": GROUPED[0],
+        "replaces": GROUPED[1],
+        "launches": moe["counts"]["grouped_matmul"],
+        **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms", "library",
+                                "bound_routed_ms", "precision", "rows",
+                                "routed_rows", "tflops")},
+        "widths": moe["widths"],
+        "other_precisions": [
+            {k: r[k] for k in ("precision", "max_abs_err", "ms", "plain_ms",
+                               "bound_ms", "bound_by", "bound_routed_ms",
+                               "library_ms", "library", "rows",
+                               "routed_rows", "tflops")}
+            for r in rows[1:]]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -399,14 +603,22 @@ def main(argv=None) -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
-    log(f"kernels: {' '.join(KERNELS)}")
+    log(f"kernels: {' '.join(KERNEL_NAMES)}")
 
     t0 = time.perf_counter()
     dev = torch.device("cuda")
     served = serve_phase(n, STEPS, dev)
     log(f"[serve] phase took {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    moe = moe_phase(args.quick, dev)
+    log(f"[moe] phase took {time.perf_counter() - t0:.1f}s")
+    missing = [k for k in KERNEL_NAMES
+               if served["counts"][k] + moe["counts"][k] <= 0]
+    if missing:
+        raise SmokeFailure(f"kernels never launched on a path: {missing}")
+    t0 = time.perf_counter()
     records = kernel_phase(served, args.quick, dev)
+    records.append(grouped_record(moe, args.quick))
     log(f"[kernel] phase took {time.perf_counter() - t0:.1f}s; total "
         f"{time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": records}), flush=True)

@@ -35,12 +35,14 @@ def layout_from_numpy(format: str, arrays, device=None):
     Args:
         format: the registry format the layout was packed for: ``"csr"``,
             ``"ell"`` or ``"ell_coo"`` (all the row-tiled CSR packing),
-            ``"binned"``, ``"bcsr"`` or ``"dia"``.
+            ``"binned"``, ``"rowsplit"``, ``"bcsr"`` or ``"dia"``.
         arrays: the reference's packed layout with numpy arrays, as a
             mapping:
 
             * row-tiled / binned: ``n``, ``b_tile``, ``row_tile`` and
               ``arrays``, the packer's output tuple;
+            * ``rowsplit``: ``n`` and ``arrays``, the packer's
+              ``(row_map, cols, slots, vals)``;
             * ``bcsr``: ``blocks``, ``block_rows``, ``block_cols``,
               ``block_ptr``, ``n``, ``t``, ``nnz`` (the padded matrix);
             * ``dia``: ``band``, ``w``, ``t``.
@@ -52,6 +54,7 @@ def layout_from_numpy(format: str, arrays, device=None):
     from repro_torch.kernels.banded_spmm import BandLayout
     from repro_torch.kernels.binned_spmm import slab_bin_layout
     from repro_torch.kernels.csr_spmm import row_tile_layout
+    from repro_torch.kernels.rowsplit_spmm import rowsplit_layout
     from repro_torch.sparse.formats import BCSRMatrix, tensor_from_host
     dev = device_of(device)
     if format in ("csr", "ell", "ell_coo", "binned"):
@@ -60,6 +63,9 @@ def layout_from_numpy(format: str, arrays, device=None):
         return make(*packed, n=int(arrays["n"]),
                     b_tile=arrays["b_tile"],
                     row_tile=int(arrays["row_tile"]), device=dev)
+    if format == "rowsplit":
+        return rowsplit_layout(*[np.asarray(a) for a in arrays["arrays"]],
+                               n=int(arrays["n"]), device=dev)
     if format == "bcsr":
         return BCSRMatrix(
             blocks=tensor_from_host(np.asarray(arrays["blocks"]), dev),

@@ -10,9 +10,6 @@ fp32 ``index_add_`` folds the partials into their row tiles and C is cast
 once.  ``index_add_`` on a CUDA tensor sums with atomics, so the order in
 which a tile's partials are added, and the last bits of C, can change
 from run to run.
-
-:func:`pack_rowsplit_chunks` (the row-split packer) is here for its
-packer test; its kernel is not ported yet.
 """
 from __future__ import annotations
 
@@ -83,53 +80,6 @@ def csr_to_slab_bins(indptr: np.ndarray, indices: np.ndarray,
             np.repeat(g_slab, chunks).astype(np.int32),
             out_cols.reshape(-1, chunk), out_slots.reshape(-1, chunk),
             out_vals.reshape(-1, chunk))
-
-
-def pack_rowsplit_chunks(indptr: np.ndarray, indices: np.ndarray,
-                         data: np.ndarray, *, n: int, chunk: int = 128,
-                         index_dtype=np.int32
-                         ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
-                                    np.ndarray]:
-    """Cut the row-major nonzero stream into equal-``chunk`` work units.
-
-    Returns ``(row_map[C, W], cols[C, chunk], row_slots[C, chunk],
-    vals[C, chunk])``: slot ``w`` of chunk ``c`` is global row
-    ``row_map[c, w]`` (the sentinel ``n`` past the chunk's last row), and
-    ``W`` is the widest chunk's row span rounded up to a multiple of 8.
-    Columns are global, so int16 is legal only when ``n`` fits.
-    """
-    indptr = np.asarray(indptr)
-    indices = np.asarray(indices)
-    data = np.asarray(data)
-    index_extent_check(n, index_dtype)
-    nnz = int(indptr[-1])
-    rows = np.repeat(np.arange(n, dtype=np.int64),
-                     np.diff(indptr).astype(np.int64))
-    num_chunks = max(1, -(-nnz // chunk))
-    padded = num_chunks * chunk
-    cols_p = np.zeros(padded, dtype=index_dtype)
-    vals_p = np.zeros(padded, dtype=data.dtype)
-    cols_p[:nnz] = indices[:nnz]
-    vals_p[:nnz] = data[:nnz]
-    nonempty = np.flatnonzero(np.diff(indptr) > 0).astype(np.int64)
-    ranks = np.searchsorted(nonempty, rows)
-    ranks_p = np.zeros(padded, dtype=np.int64)
-    ranks_p[:nnz] = ranks
-    ranks_p[nnz:] = ranks_p[nnz - 1] if nnz else 0
-    ranks_c = ranks_p.reshape(num_chunks, chunk)
-    rank_lo = ranks_c[:, 0]
-    slots = (ranks_c - rank_lo[:, None]).astype(index_dtype)
-    span = int((slots.max() + 1)) if nnz else 1
-    window = max(8, -(-span // 8) * 8)
-    flat = rank_lo[:, None] + np.arange(window)[None, :]
-    row_map = np.where(flat < nonempty.shape[0],
-                       nonempty[np.minimum(flat, nonempty.shape[0] - 1)]
-                       if nonempty.shape[0] else 0,
-                       n).astype(np.int32)
-    if nonempty.shape[0] == 0:
-        row_map[:] = n
-    return (row_map, cols_p.reshape(num_chunks, chunk), slots,
-            vals_p.reshape(num_chunks, chunk))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -28,7 +28,8 @@ from typing import Dict, Iterable, Optional
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 
 #: The kernels of this package, by library name (``csrc/<name>.cu``).
-KERNELS = ("csr_spmm", "binned_spmm", "bcsr_spmm", "banded_spmm")
+KERNELS = ("csr_spmm", "binned_spmm", "rowsplit_spmm", "bcsr_spmm",
+           "banded_spmm", "grouped_matmul")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")

@@ -16,10 +16,11 @@ Backends are ``"torch"`` (the plain PyTorch implementations of
 ``"cuda"`` specs call the kernel wrappers, which launch the CUDA kernel
 for a CUDA operand and take the plain PyTorch version for a CPU one.
 
-``cuda`` has kernels for csr, ell and ell_coo (all three on the CSR
-kernel, sharing its row-tile packing), binned, bcsr and dia.  The
-row-split kernel is not ported yet, so ``("rowsplit", "cuda")`` is not
-registered.
+``cuda`` has a kernel for every format: csr, ell and ell_coo (all three
+on the CSR kernel, sharing its row-tile packing), binned, rowsplit, bcsr
+and dia.  ``("grouped", "cuda")`` is the MoE expert FFN as a grouped
+matmul; its operand is ``(w, group_ids, bm, bk, bn)``, not a sparse
+pattern (``KernelSpec.operand == "moe"``).
 
 The slab sizing reads ``ctx.hardware.vmem_bytes``, which on the H100 is
 the 50 MB L2 (see ``repro_torch.core.hardware``).
@@ -34,7 +35,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import sparsity_models as sm
-from repro_torch.core.hardware import HOST_CPU, HardwareSpec
+from repro_torch.core.device import device_of
+from repro_torch.core.hardware import H100, HOST_CPU, HardwareSpec
 from repro_torch.core.precision import DEFAULT_PRECISION, Precision
 from repro_torch.kernels.banded_spmm import BandLayout, banded_spmm
 from repro_torch.kernels.bcsr_spmm import bcsr_spmm
@@ -42,12 +44,16 @@ from repro_torch.kernels.binned_spmm import (
     binned_spmm, csr_to_slab_bins, slab_bin_layout)
 from repro_torch.kernels.csr_spmm import (
     csr_spmm, csr_to_row_tiles, row_tile_layout)
+from repro_torch.kernels.grouped_matmul import check_group_ids, grouped_matmul
+from repro_torch.kernels.rowsplit_spmm import (
+    pack_rowsplit_chunks, rowsplit_layout, rowsplit_spmm)
 
 BACKENDS: Tuple[str, ...] = ("torch", "cuda")
 
 #: Version of the port's kernel set and layout rules; stamped into saved
-#: calibrations so a stale one is flagged.  1 = the first CUDA kernels.
-REGISTRY_VERSION: int = 1
+#: calibrations so a stale one is flagged.  1 = the first CUDA kernels,
+#: 2 = the row-split and grouped-matmul kernels.
+REGISTRY_VERSION: int = 2
 
 
 def pallas_block_d(d: int) -> int:
@@ -143,6 +149,10 @@ class KernelSpec:
     async_dispatch: bool = True
     #: The launch may reuse B's buffer for its output (none does).
     donate_b: bool = False
+    #: What ``prepare``/``bind`` take as the matrix operand: ``"coo"`` (a
+    #: ``COOMatrix``, computing ``C = A @ B``) or ``"moe"`` (the grouped
+    #: matmul's ``(w, group_ids, bm, bk, bn)``).
+    operand: str = "coo"
     #: Precision tokens (``Precision.token``) this kernel can execute.
     supported_precisions: Tuple[str, ...] = ("f32i32",)
 
@@ -301,6 +311,19 @@ def dia_kernel_roofline(m, d: int, hw: HardwareSpec) -> KernelRoofline:
         mxu_flops=2.0 * d * k * m.n,
         attainable_flops_per_s=hw.attainable(tb.ai),
         mxu_utilization=m.nnz / float(k * m.n))
+
+
+def grouped_matmul_roofline(T: int, K: int, N: int, E: int, *,
+                            itemsize: int = 2,
+                            hw: HardwareSpec = H100) -> KernelRoofline:
+    """Block-diagonal case: every block dense, so every issued FLOP is
+    useful (utilization 1.0)."""
+    flops = 2.0 * T * K * N
+    bytes_moved = itemsize * (T * K + E * K * N + T * N)
+    ai = flops / bytes_moved
+    return KernelRoofline(
+        name="grouped_matmul", ai=ai, useful_flops=flops, mxu_flops=flops,
+        attainable_flops_per_s=hw.attainable(ai), mxu_utilization=1.0)
 
 
 def _convert(ctx: KernelContext, m, format: str):
@@ -570,6 +593,37 @@ register(KernelSpec(
     footprint=_csr_cuda_footprint,
     layout_key="binned", supported_precisions=_CUDA_STREAM_PRECISIONS))
 
+
+def _rowsplit_cuda_prepare(m, ctx: KernelContext):
+    arrays = pack_rowsplit_chunks(*_host_csr(m, ctx), n=m.n, chunk=ctx.chunk,
+                                  index_dtype=ctx.precision.index_np)
+    return rowsplit_layout(*arrays, n=m.n, device=ctx.device)
+
+
+def _rowsplit_cuda_run(layout, b, ctx: KernelContext):
+    return rowsplit_spmm(layout, _reduce_b(b, ctx))
+
+
+def _rowsplit_cuda_footprint(n: int, d: int, ctx: KernelContext) -> int:
+    bd = min(512, pallas_block_d(d))
+    n_pad = -(-n // 8) * 8
+    sv = ctx.precision.sizeof_val
+    si = ctx.precision.sizeof_idx
+    # The reference's model: all of B, the gathered chunk and its values at
+    # the value width, cols/slots at the index width, the fp32 window.
+    return (sv * (n_pad * bd + ctx.chunk * bd + ctx.chunk)
+            + si * 2 * ctx.chunk + 4 * ctx.chunk * bd)
+
+
+register(KernelSpec(
+    format="rowsplit", backend="cuda",
+    description="equal-nnz row-split kernel: per-chunk fp32 row windows, "
+                "index_add_ fold through row_map",
+    prepare=_rowsplit_cuda_prepare, run=_rowsplit_cuda_run,
+    estimate=_rowsplit_estimate("rowsplit_spmm"),
+    footprint=_rowsplit_cuda_footprint,
+    layout_key="rowsplit", supported_precisions=_CUDA_STREAM_PRECISIONS))
+
 # The hybrid ELL/COO pick lowers to the row-tiled CSR kernel (like ELL):
 # the chunk packing already splits short rows from hub-row overflow, so
 # the pair shares the cached CSR layout and differs only in its estimate.
@@ -650,3 +704,38 @@ register(KernelSpec(
     estimate=_dia_cuda_estimate, footprint=_dia_cuda_footprint,
     # DIA stores no per-nonzero indices, so only the value axis applies.
     supported_precisions=_TORCH_PRECISIONS))
+
+
+def _grouped_cuda_prepare(operand, ctx: KernelContext):
+    # Operand: (w[E, K, N], group_ids[T // bm], bm, bk, bn), on ctx.device.
+    w, group_ids, bm, bk, bn = operand
+    dev = device_of(ctx.device)
+    group_ids = group_ids.to(dev, torch.int32)
+    check_group_ids(group_ids, w.shape[0])
+    return (w.to(dev), group_ids, bm, bk, bn)
+
+
+def _grouped_cuda_run(layout, x, ctx: KernelContext):
+    w, group_ids, bm, bk, bn = layout
+    return grouped_matmul(x, w, group_ids, bm=bm, bk=bk, bn=bn)
+
+
+def _grouped_estimate(operand, d, ctx: KernelContext) -> KernelRoofline:
+    w, group_ids, bm, _, _ = operand
+    E, K, N = w.shape
+    return grouped_matmul_roofline(int(group_ids.shape[0]) * bm, K, N, E,
+                                   hw=ctx.hardware)
+
+
+def _grouped_footprint(n: int, d: int, ctx: KernelContext) -> int:
+    bm = bk = bn = 128
+    return 4 * (bm * bk + bk * bn + bm * bn)
+
+
+register(KernelSpec(
+    format="grouped", backend="cuda",
+    description="MoE expert FFN as block-diagonal grouped matmul (fp32 FMA "
+                "or bf16 wmma tensor cores)",
+    prepare=_grouped_cuda_prepare, run=_grouped_cuda_run,
+    estimate=_grouped_estimate, footprint=_grouped_footprint,
+    operand="moe"))

@@ -21,10 +21,8 @@ For each candidate format the dispatcher
 
 The decision logic is the reference package's, unchanged.  What differs:
 backends are ``"torch"`` and ``"cuda"``; ``backend="auto"`` resolves to
-``"cuda"`` on a CUDA device and ``"torch"`` otherwise; the dispatcher runs
-on the card unless constructed with ``device="cpu"``; and a format with no
-kernel under the resolved backend (``rowsplit`` on ``cuda`` in this slice)
-is recorded as a skipped candidate instead of failing the plan.
+``"cuda"`` on a CUDA device and ``"torch"`` otherwise; and the dispatcher
+runs on the card unless constructed with ``device="cpu"``.
 
 Conversion-cost caveat: conversion time is modeled as streaming the built
 format at ``beta`` (read + write); the host-side converters are not that
@@ -641,11 +639,6 @@ class Dispatcher:
                 enumerates every precision each kernel supports.
             tolerance: relative error budget of the accuracy gate.
 
-        A format with no kernel registered under the resolved backend
-        (``rowsplit`` on ``cuda``) gets one fp32 row, modeled for the
-        audit and skipped with the reason "no <backend> kernel for
-        <format> yet".
-
         Returns:
             The cached :class:`DispatchPlan` with per-candidate predictions.
 
@@ -677,14 +670,6 @@ class Dispatcher:
         cands = []
         for f in FORMATS:
             eligible, reason, params = self._policy(m, report, f)
-            if (f, backend) not in {s.key for s in kreg.specs()}:
-                row = self._candidate(m, report, f, DEFAULT_PRECISION,
-                                      params, False, None, d, hw, reuse,
-                                      backend, tolerance, forced_tok)
-                cands.append(dataclasses.replace(
-                    row, eligible=False,
-                    skip_reason=f"no {backend} kernel for {f} yet"))
-                continue
             spec_tokens = kreg.get(f, backend).supported_precisions
             for prec in PRECISIONS:
                 if prec.token not in spec_tokens:

@@ -5,8 +5,8 @@ and the same ``HardwareSpec`` fields: the host CPU spec, and the port's
 H100 spec rebuilt as a reference ``HardwareSpec``.  ``torch`` plans are held
 to ``jax`` plans and ``cuda`` plans to ``pallas`` plans: the chosen format
 and precision, and every candidate's eligibility, skip reason, arithmetic
-intensity, predicted and amortized GFLOP/s, exactly.  The one exception is
-the ``rowsplit`` row on ``cuda``, which has no kernel in the port yet.
+intensity, predicted and amortized GFLOP/s, exactly.  Every format has a
+``cuda`` kernel, so there is no exception.
 
 Also: the entry points refuse to run without a GPU unless ``device="cpu"``,
 and the calibration / dispatch-tree stores are keyed by the port's backends.
@@ -100,22 +100,8 @@ def test_plan_equals_reference(name, m, port_backend, ref_backend, hw_name):
         assert pp.backend == port_backend
         ref_rows = [_row(c) for c in rp.candidates]
         port_rows = [_row(c) for c in pp.candidates]
-        if port_backend == "cuda":
-            skipped = [r for r in port_rows if r["format"] == "rowsplit"]
-            assert len(skipped) == 1 and not skipped[0]["eligible"]
-            assert skipped[0]["skip_reason"] == \
-                "no cuda kernel for rowsplit yet"
-            ref_rows = [r for r in ref_rows if r["format"] != "rowsplit"]
-            port_rows = [r for r in port_rows if r["format"] != "rowsplit"]
         assert port_rows == ref_rows, what
-        if rp.chosen != "rowsplit" or port_backend == "torch":
-            assert (pp.chosen, pp.precision) == (rp.chosen, rp.precision), \
-                what
-        else:
-            best = max((r for r in ref_rows if r["eligible"]),
-                       key=lambda r: r["amortized_gflops"])
-            assert (pp.chosen, pp.precision) == \
-                (best["format"], best["precision"]), what
+        assert (pp.chosen, pp.precision) == (rp.chosen, rp.precision), what
 
 
 @pytest.mark.parametrize("port_backend,ref_backend", PAIRS)
@@ -135,25 +121,56 @@ def test_forced_strategy_and_precision_equal_reference(port_backend,
             return "ValueError", str(e).replace(port_backend, ref_backend)
         return p.chosen, p.precision
 
-    for strategy in ("csr", "binned", "ell_coo", "bcsr", "dia"):
+    for strategy in ("csr", "binned", "rowsplit", "ell_coo", "bcsr", "dia"):
         for precision in (None, "bf16i32", "bf16"):
             assert outcome(port, pm, strategy, precision) == \
                 outcome(ref, m, strategy, precision), (strategy, precision)
 
 
-def test_cuda_rowsplit_is_skipped_not_crashed():
-    m = _bridge(ref_patterns.serving_suite(N)["scale-free"]())
-    disp = Dispatcher(backend="cuda", device="cpu", calibration=False,
-                      tree=False)
-    plan = disp.plan(m, 16)
-    assert plan.skips["rowsplit"] == "no cuda kernel for rowsplit yet"
-    assert plan.chosen != "rowsplit"
-    assert "no cuda kernel for rowsplit yet" in plan.summary()
-    with pytest.raises(ValueError, match="rowsplit"):
-        disp.plan(m, 16, strategy="rowsplit")
+@pytest.mark.parametrize("hw_name", sorted(HARDWARE))
+@pytest.mark.parametrize("structure", ["scale-free", "uniform"])
+def test_forced_rowsplit_plan_on_cuda_equals_reference(structure, hw_name):
+    port_spec, ref_spec = HARDWARE[hw_name]
+    m = ref_patterns.serving_suite(N)[structure]()
+    ref = RefDispatcher(ref_spec, backend="pallas", calibration=False,
+                        tree=False)
+    port = Dispatcher(port_spec, backend="cuda", device="cpu",
+                      calibration=False, tree=False)
+    for d, precision in ((16, None), (8, "bf16i16")):
+        rp = ref.plan(m, d, strategy="rowsplit", precision=precision)
+        pp = port.plan(_bridge(m), d, strategy="rowsplit",
+                       precision=precision)
+        assert (pp.chosen, pp.precision) == (rp.chosen, rp.precision)
+        assert pp.chosen == "rowsplit"
+        assert [_row(c) for c in pp.candidates] == \
+            [_row(c) for c in rp.candidates]
+        assert "rowsplit" not in pp.skips
+
+
+def test_registry_mirrors_the_reference_formats():
+    from repro.kernels import registry as ref_registry
+    from repro.sparse.dispatch import FORMATS as REF_FORMATS
     assert set(port_registry.formats_for("cuda")) == \
-        {"csr", "ell", "ell_coo", "binned", "bcsr", "dia"}
-    assert len(port_registry.formats_for("torch")) == 7
+        set(REF_FORMATS) | {"grouped"}
+    assert set(port_registry.formats_for("torch")) == set(REF_FORMATS)
+    assert port_registry.get("grouped", "cuda").operand == \
+        ref_registry.get("grouped", "pallas").operand == "moe"
+    for f in REF_FORMATS:
+        assert port_registry.get(f, "cuda").operand == "coo"
+    # The same roofline placement under the same hardware fields.
+    for hw_name, (port_hw_spec, ref_hw_spec) in HARDWARE.items():
+        for args, kw in (((4096, 4096, 1536, 128), {}),
+                         ((41472, 4096, 1536, 128), {"itemsize": 4}),
+                         ((1664, 64, 128, 8), {"itemsize": 4})):
+            port_roof = port_registry.grouped_matmul_roofline(
+                *args, hw=port_hw_spec, **kw)
+            ref_roof = ref_registry.grouped_matmul_roofline(
+                *args, hw=ref_hw_spec, **kw)
+            assert dataclasses.asdict(port_roof) == \
+                dataclasses.asdict(ref_roof), (hw_name, args)
+    assert port_registry.grouped_matmul_roofline(8, 8, 8, 1).ai == \
+        port_registry.grouped_matmul_roofline(8, 8, 8, 1,
+                                              hw=port_hw.H100).ai
 
 
 def test_auto_backend_follows_the_device():
@@ -164,13 +181,14 @@ def test_auto_backend_follows_the_device():
 
 
 @pytest.mark.parametrize("fmt", ["csr", "ell", "bcsr", "dia", "binned",
-                                 "ell_coo"])
+                                 "rowsplit", "ell_coo", "grouped"])
 def test_cuda_specs_declare_the_pallas_precisions(fmt):
     from repro.kernels import registry as ref_registry
     assert port_registry.get(fmt, "cuda").supported_precisions == \
         ref_registry.get(fmt, "pallas").supported_precisions
-    assert port_registry.get(fmt, "torch").supported_precisions == \
-        ref_registry.get(fmt, "jax").supported_precisions
+    if fmt != "grouped":    # the grouped matmul has no plain-backend spec
+        assert port_registry.get(fmt, "torch").supported_precisions == \
+            ref_registry.get(fmt, "jax").supported_precisions
 
 
 def test_dispatcher_spmm_matches_dense_on_cpu():
@@ -240,7 +258,8 @@ def test_calibration_store_is_keyed_by_port_backend(tmp_path):
     assert store.staleness_note(hw, "cuda") is None
     stale = dataclasses.replace(cal, registry_version=0)
     store.save(stale)
-    assert "predates kernel registry v1" in store.staleness_note(hw, "cuda")
+    assert f"predates kernel registry v{port_registry.REGISTRY_VERSION}" \
+        in store.staleness_note(hw, "cuda")
     disp = Dispatcher(hw, backend="cuda", device="cpu", calibration=store,
                       tree=False)
     m = _bridge(ref_patterns.serving_suite(N)["uniform"]())

@@ -30,9 +30,9 @@ from repro.sparse import formats as ref_fmt
 from repro_torch import interop
 from repro_torch.core import patterns as port_patterns
 from repro_torch.kernels import registry as port_registry
-from repro_torch.kernels.binned_spmm import csr_to_slab_bins, \
-    pack_rowsplit_chunks
+from repro_torch.kernels.binned_spmm import csr_to_slab_bins
 from repro_torch.kernels.csr_spmm import csr_to_row_tiles
+from repro_torch.kernels.rowsplit_spmm import pack_rowsplit_chunks
 from repro_torch.sparse import formats as port_fmt
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -255,14 +255,14 @@ def test_interop_layout_round_trip():
                                       plan_d=16)
     from repro.kernels.registry import KernelContext as RefCtx
     rctx = RefCtx(plan_d=16)
-    for f in ("csr", "binned", "bcsr", "dia"):
+    for f in ("csr", "binned", "rowsplit", "bcsr", "dia"):
         if f == "dia":
             m2 = ref_patterns.banded(N, 3, seed=1)
             pm2 = _bridge(m2)
         else:
             m2, pm2 = m, pm
         ref_layout = ref_registry.get(f, "pallas").prepare(m2, rctx)
-        if f in ("csr", "binned"):
+        if f in ("csr", "binned", "rowsplit"):
             ref_layout = dict(ref_layout, arrays=tuple(
                 np.asarray(a) for a in ref_layout["arrays"]))
         elif f == "bcsr":
@@ -272,7 +272,8 @@ def test_interop_layout_round_trip():
         bridged = interop.layout_from_numpy(f, ref_layout, device="cpu")
         own = port_registry.get(f, "cuda").prepare(pm2, ctx)
         for field in ("tile_ptr", "tile_ids", "visit_ptr", "visit_tiles",
-                      "chunk_visits", "chunk_slabs", "cols", "slots", "vals",
+                      "chunk_visits", "chunk_slabs", "row_map", "cols",
+                      "slots", "vals",
                       "blocks", "block_rows", "block_cols", "block_ptr",
                       "band"):
             if hasattr(own, field):
@@ -302,6 +303,7 @@ def test_importing_port_leaves_jax_and_reference_unloaded():
         "import sys\n"
         "import repro_torch, repro_torch.interop, repro_torch.sparse\n"
         "import repro_torch.launch.serve, repro_torch.kernels.build\n"
+        "import repro_torch.launch.moe_block\n"
         "import repro_torch.core.calibrate, repro_torch.data.dtree\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"

@@ -1,4 +1,4 @@
-"""The port's four kernel modules against the reference's Pallas kernels.
+"""The port's kernel modules against the reference's Pallas kernels.
 
 Each case packs one matrix with the reference's ``pallas`` spec, bridges the
 packed numpy arrays into the port with ``repro_torch.interop``, and runs the
@@ -27,7 +27,10 @@ import torch
 from repro.core import patterns as ref_patterns
 from repro.core.precision import as_precision as ref_precision
 from repro.data.corpus import vendored_entries
+from repro.kernels import ref as ref_oracle
 from repro.kernels import registry as ref_registry
+from repro.kernels.binned_spmm import rowsplit_spmm_pallas
+from repro.kernels.grouped_matmul import grouped_matmul_pallas
 from repro.sparse import formats as ref_fmt
 
 from repro_torch import interop, kernels
@@ -37,6 +40,10 @@ from repro_torch.kernels.banded_spmm import banded_spmm, banded_spmm_plain
 from repro_torch.kernels.bcsr_spmm import bcsr_spmm, bcsr_spmm_plain
 from repro_torch.kernels.binned_spmm import binned_spmm, binned_spmm_plain
 from repro_torch.kernels.csr_spmm import csr_spmm, csr_spmm_plain
+from repro_torch.kernels.grouped_matmul import (grouped_matmul,
+                                                grouped_matmul_plain)
+from repro_torch.kernels.rowsplit_spmm import (
+    pack_rowsplit_chunks, rowsplit_layout, rowsplit_spmm, rowsplit_spmm_plain)
 
 RTOL = ATOL = 5e-4
 N = 256
@@ -44,6 +51,7 @@ N = 256
 #: format -> (wrapper, plain version) of the kernel that carries it.
 KERNEL_OF = {"csr": (csr_spmm, csr_spmm_plain),
              "binned": (binned_spmm, binned_spmm_plain),
+             "rowsplit": (rowsplit_spmm, rowsplit_spmm_plain),
              "bcsr": (bcsr_spmm, bcsr_spmm_plain),
              "dia": (banded_spmm, banded_spmm_plain)}
 
@@ -63,6 +71,11 @@ MATRICES = {
             ("corpus-random", lambda: _corpus("random"))],
     "binned": [("scale-free", lambda: _suite("scale-free")),
                ("corpus-scale_free", lambda: _corpus("scale_free"))],
+    # Every vendored matrix and every serving structure.
+    "rowsplit": ([(f"corpus-{e.group}-{e.name}", e.load)
+                  for e in vendored_entries()]
+                 + [(name, lambda name=name: _suite(name))
+                    for name in sorted(ref_patterns.serving_suite(N))]),
     "bcsr": [("moe-block", lambda: _suite("moe-block")),
              ("corpus-blocked", lambda: _corpus("blocked"))],
     "dia": [("banded", lambda: _suite("banded")),
@@ -163,8 +176,14 @@ def test_banded_plain_version_at_every_block_edge(n):
                    f"banded t={layout.t}")
 
 
-@pytest.mark.parametrize("fmt", sorted(KERNEL_OF))
+@pytest.mark.parametrize("fmt", sorted(KERNEL_OF) + ["grouped"])
 def test_wrappers_refuse_other_devices(fmt):
+    if fmt == "grouped":
+        gids = torch.zeros(2, dtype=torch.int32, device="meta")
+        with pytest.raises(ValueError, match="CUDA or the CPU"):
+            grouped_matmul(torch.zeros(256, 128, device="meta"),
+                           torch.zeros(2, 128, 128, device="meta"), gids)
+        return
     m = _bridge(MATRICES[fmt][0][1]())
     layout = port_registry.get(fmt, "cuda").prepare(
         m, port_registry.KernelContext(bcsr_block=32, plan_d=8,
@@ -185,3 +204,117 @@ def test_every_kernel_source_has_its_launcher_and_note():
     path = build.library_path("csr_spmm")
     assert path.name.startswith("csr_spmm-") and path.suffix == ".so"
     assert pathlib.Path(path).parent == build.build_dir()
+
+
+# ---------------------------------------------------------------------- #
+# Row-split: load balance across hub rows, and the layout's contract.
+# ---------------------------------------------------------------------- #
+
+def _skewed(n: int = 128):
+    """One hub row with n nonzeros next to n singleton rows."""
+    rows = np.concatenate([np.full(n, 3), np.arange(n)]).astype(np.int32)
+    cols = np.concatenate([np.arange(n), np.arange(n)]).astype(np.int32)
+    vals = (1.0 + np.arange(2 * n)).astype(np.float32) / n
+    return ref_patterns.COOMatrix(n=n, rows=rows, cols=cols, vals=vals,
+                                  pattern="skew")
+
+
+@pytest.mark.parametrize("token", ["f32i32", "bf16i32", "bf16i16"])
+@pytest.mark.parametrize("chunk", [32, 128])
+def test_rowsplit_plain_version_on_skewed_rows(chunk, token):
+    """Chunks cross row boundaries and the hub row spans several chunks;
+    the same packed arrays go through the Pallas kernel and the port."""
+    m = _skewed()
+    prec = ref_precision(token)
+    csr = ref_fmt.coo_to_csr(m, prec.value_jnp)
+    arrays = pack_rowsplit_chunks(
+        np.asarray(csr.indptr), np.asarray(csr.indices),
+        np.asarray(csr.data), n=m.n, chunk=chunk,
+        index_dtype=prec.index_np)
+    b = np.random.default_rng(chunk).normal(size=(m.n, 32)).astype(
+        np.float32)
+    ref_c = rowsplit_spmm_pallas(
+        *(jnp.asarray(a) for a in arrays),
+        jnp.asarray(b).astype(prec.value_jnp), n=m.n,
+        window=int(arrays[0].shape[1]), block_d=32, interpret=True)
+    layout = rowsplit_layout(*arrays, n=m.n, device="cpu")
+    dtype = torch.bfloat16 if prec.reduced else torch.float32
+    port_c = rowsplit_spmm(layout, torch.from_numpy(b).to(dtype))
+    _assert_within(_to_numpy(port_c), np.asarray(ref_c, np.float32),
+                   _bound(m, b, prec.eps), f"skewed chunk={chunk} {token}")
+
+
+def test_rowsplit_layout_refuses_unordered_slots():
+    """The kernel flushes on every slot change, so the layout refuses
+    slots that decrease within a chunk or leave the window."""
+    row_map, cols, slots, vals = pack_rowsplit_chunks(
+        *_csr_host(_skewed(16)), n=16, chunk=8)
+    bad = slots.copy()
+    bad[0, 1], bad[0, 2] = bad[0, 2] + 1, 0
+    with pytest.raises(ValueError, match="non-decreasing"):
+        rowsplit_layout(row_map, cols, bad, vals, n=16)
+    with pytest.raises(ValueError, match="non-decreasing"):
+        rowsplit_layout(row_map, cols, slots + row_map.shape[1], vals, n=16)
+    assert rowsplit_layout(row_map, cols, slots, vals, n=16).window == \
+        row_map.shape[1]
+
+
+def _csr_host(m):
+    csr = ref_fmt.coo_to_csr(m)
+    return (np.asarray(csr.indptr), np.asarray(csr.indices),
+            np.asarray(csr.data))
+
+
+# ---------------------------------------------------------------------- #
+# Grouped matmul (the MoE expert FFN).
+# ---------------------------------------------------------------------- #
+
+def _grouped_bound(x: np.ndarray, w: np.ndarray, gids: np.ndarray,
+                   bm: int, eps: float) -> np.ndarray:
+    ax = np.abs(x.astype(np.float64))
+    aw = np.abs(w.astype(np.float64))
+    return 4.0 * eps * np.concatenate([
+        ax[i * bm:(i + 1) * bm] @ aw[g] for i, g in enumerate(gids)])
+
+
+@pytest.mark.parametrize("E,bm", [(4, 64), (8, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_plain_version_matches_pallas_kernel(E, bm, dtype):
+    rng = np.random.default_rng(E * bm)
+    T, K, N = 4 * bm, 128, 256
+    x = rng.normal(size=(T, K)).astype(np.float32)
+    w = rng.normal(size=(E, K, N)).astype(np.float32)
+    gids = rng.integers(0, E, size=T // bm).astype(np.int32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    xj, wj = jnp.asarray(x).astype(jdt), jnp.asarray(w).astype(jdt)
+    ref_c = np.asarray(grouped_matmul_pallas(
+        xj, wj, jnp.asarray(gids), bm=bm, bk=64, bn=128, interpret=True),
+        np.float32)
+    oracle = np.asarray(ref_oracle.grouped_matmul_ref(
+        xj, wj, jnp.asarray(gids), bm=bm), np.float32)
+    xt, wt = torch.from_numpy(x).to(tdt), torch.from_numpy(w).to(tdt)
+    before = kernels.launch_counts()
+    port_c = grouped_matmul(xt, wt, torch.from_numpy(gids), bm=bm, bk=64,
+                            bn=128)
+    assert kernels.launch_counts() == before
+    assert port_c.dtype == tdt and tuple(port_c.shape) == (T, N)
+    assert torch.equal(port_c, grouped_matmul_plain(
+        xt, wt, torch.from_numpy(gids), bm=bm))
+    eps = float(torch.finfo(tdt).eps)
+    absprod = _grouped_bound(_to_numpy(xt), _to_numpy(wt), gids, bm, eps)
+    got = _to_numpy(port_c)
+    _assert_within(got, ref_c, absprod, f"grouped E={E} bm={bm} {dtype}")
+    _assert_within(got, oracle, absprod, f"grouped oracle E={E} {dtype}")
+
+
+def test_grouped_matmul_refuses_ragged_shapes():
+    x = torch.zeros(256, 128)
+    w = torch.zeros(2, 128, 128)
+    gids = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="not divisible by tiles"):
+        grouped_matmul(x[:200], w, gids, bm=128)
+    with pytest.raises(ValueError, match="not divisible by tiles"):
+        grouped_matmul(x, w, gids, bm=128, bk=96)
+    with pytest.raises(ValueError, match="K="):
+        grouped_matmul(x, w[:, :64], gids, bm=128, bk=64)
+    assert grouped_matmul(x, w, gids, bm=128).shape == (256, 128)

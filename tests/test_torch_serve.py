@@ -50,13 +50,13 @@ def _assert_within(m, b, got, ref, eps, what):
         f"{float(np.max(np.abs(g - r) - bound)):.3e}")
 
 
-def _plans(m, port_backend, ref_backend, **kw):
+def _plans(m, port_backend, ref_backend, strategy="auto", **kw):
     ref = ref_sparse.plan(
-        m, ref_sparse.BSpec(d=D, reuse=8, **kw),
+        m, ref_sparse.BSpec(d=D, reuse=8, **kw), strategy=strategy,
         dispatcher=RefDispatcher(ref_hw.HOST_CPU, backend=ref_backend,
                                  calibration=False, tree=False))
     port = port_sparse.plan(
-        _bridge(m), port_sparse.BSpec(d=D, reuse=8, **kw),
+        _bridge(m), port_sparse.BSpec(d=D, reuse=8, **kw), strategy=strategy,
         dispatcher=Dispatcher(port_hw.HOST_CPU, backend=port_backend,
                               device="cpu", calibration=False, tree=False))
     return ref, port
@@ -68,7 +68,7 @@ def test_stream_plan_execute_matches_reference(structure, port_backend,
                                                ref_backend):
     m = ref_patterns.serving_suite(N)[structure]()
     ref, port = _plans(m, port_backend, ref_backend)
-    assert port.chosen == ref.chosen or ref.chosen == "rowsplit"
+    assert port.chosen == ref.chosen
     assert port.precision == ref.precision
     assert port.device.type == "cpu"
     rng = np.random.default_rng(3)
@@ -82,10 +82,12 @@ def test_stream_plan_execute_matches_reference(structure, port_backend,
     assert port.stats()["backend"] == port_backend
 
 
+@pytest.mark.parametrize("strategy", ["auto", "rowsplit"])
 @pytest.mark.parametrize("structure", ["scale-free", "uniform"])
-def test_bf16_stream_plan_matches_reference(structure):
+def test_bf16_stream_plan_matches_reference(structure, strategy):
     m = ref_patterns.serving_suite(N)[structure]()
-    ref, port = _plans(m, "cuda", "pallas", precision="bf16i32")
+    ref, port = _plans(m, "cuda", "pallas", precision="bf16i32",
+                       strategy=strategy)
     assert (port.chosen, port.precision) == (ref.chosen, ref.precision)
     b = np.random.default_rng(4).normal(size=(N, D)).astype(np.float32)
     c = port.execute(torch.from_numpy(b))
@@ -123,13 +125,14 @@ def test_serve_spmm_stream_on_cpu_matches_reference(structure, capsys):
                    2.0 ** -23, structure)
 
 
-def test_serve_cli_forced_strategy_on_cpu(capsys):
+@pytest.mark.parametrize("strategy", ["binned", "rowsplit"])
+def test_serve_cli_forced_strategy_on_cpu(capsys, strategy):
     port_serve.main(["--spmm-stream", "--spmm-structure", "scale-free",
                      "--spmm-n", "128", "--spmm-d", "4", "--spmm-steps",
-                     "2", "--spmm-strategy", "binned", "--spmm-compare",
+                     "2", "--spmm-strategy", strategy, "--spmm-compare",
                      "--device", "cpu"])
     out = capsys.readouterr().out
-    assert "-> binned" in out and "per-call dispatch" in out
+    assert f"-> {strategy}" in out and "per-call dispatch" in out
     with pytest.raises(SystemExit):
         port_serve.main(["--device", "cpu"])     # only --spmm-stream
 
