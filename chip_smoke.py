@@ -30,8 +30,11 @@ Phases, in order; the first failure stops the run with a nonzero exit:
    card, on the layout the serving phase packed for it (f32i32) and at
    every other precision its spec declares (bf16i32 at full n, bf16i16 at
    n = 32760, where the slab fits int16 indices); kernel, plain-version
-   and ``torch.sparse.mm`` times (CUDA events, warm, median); the
-   banded kernel also at block edges t = 1, 2, 4.  The grouped matmul
+   and ``torch.sparse.mm`` times (CUDA events, warm, median); the CSR
+   kernel also on the layout that ``scale-free`` auto packed, the row-tile
+   kernels with their work list's size (pieces, the largest piece's real
+   entries, split tiles); the banded kernel also at block edges t = 1, 2,
+   4.  The grouped matmul
    against its plain version on the MoE phase's operands, with
    ``torch._grouped_mm`` (bf16, where this torch has it) or a per-expert
    ``torch.matmul`` loop as the library time; the check must reject two
@@ -44,6 +47,13 @@ allowed the sum of both.  The grouped matmul forms its products exactly
 in fp32, so each side is allowed ``4 * eps_f32 * (|x| @ |w|) + 5e-4``
 plus one rounding to the output dtype (``moe_block.grouped_tolerance``),
 on the routed rows; the padding rows must be 0.
+
+``bound_ms`` counts what the inputs need: A in the smaller of two forms
+(CSR at the layout's widths, i.e. nnz * (value + column index) bytes plus
+(n + 1) int32 row pointers, or the packed layout's own bytes, which is
+smaller for a blocked layout), B read once and C written once, against
+2 * nnz * d operations; ``bound_layout_ms`` keeps the earlier figure, the
+packed layout's bytes (padding included) in place of A's.
 
 The last lines are the ``{"kernels": [...]}`` record, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": ...}``.
@@ -110,6 +120,14 @@ KERNELS = {
 GROUPED = ("src/repro_torch/csrc/grouped_matmul.cu",
            "src/repro/kernels/grouped_matmul.py:40")
 
+#: Further serving runs whose layout a kernel is also timed on.
+EXTRA_RUNS = {"csr_spmm": (("scale-free", "auto"),)}
+
+#: Numbers of an SpMM kernel's row that the record carries.
+RECORD_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms", "bound_layout_ms", "stored_per_nnz", "pieces",
+               "largest_piece_nnz", "split_tiles", "real_slots")
+
 #: Every kernel, in the order of the record.
 KERNEL_NAMES = (*KERNELS, "grouped_matmul")
 
@@ -128,24 +146,6 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
-
-
-def median_ms(fn, runs: int) -> float:
-    """Median of ``runs`` CUDA-event timings of ``fn`` after one warm call."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
-    return times[len(times) // 2]
 
 
 def abs_product(m, b):
@@ -181,13 +181,32 @@ def check_close(what: str, got, ref, absprod, eps: float) -> tuple:
 
 
 def layout_bytes(layout) -> int:
-    """Bytes of the tensor fields of a packed layout the kernel reads."""
+    """Bytes of a layout's packed tensor fields, padding included."""
     import dataclasses
     import torch
     return sum(v.numel() * v.element_size()
-               for f in dataclasses.fields(layout) if f.name not in UNREAD
+               for f in dataclasses.fields(layout)
+               if f.name not in LAYOUT_SKIP
                for v in [getattr(layout, f.name)]
                if isinstance(v, torch.Tensor))
+
+
+def work_list_size(layout) -> dict:
+    """Size of a row-tile layout's work list: pieces, the largest piece's
+    real entries, split tiles (CSR)."""
+    import torch
+    if not hasattr(layout, "piece_ptr"):
+        return {}
+    ends = torch.cumsum(layout.chunk_len.long(), 0)
+    ends = torch.cat([ends.new_zeros(1), ends])
+    ptr = layout.piece_ptr.long()
+    per_piece = ends[ptr[1:]] - ends[ptr[:-1]]
+    out = {"pieces": layout.num_pieces,
+           "largest_piece_nnz": int(per_piece.max()),
+           "real_slots": int(ends[-1]), "slots": layout.vals.numel()}
+    if hasattr(layout, "split_tiles"):
+        out["split_tiles"] = int(layout.split_tiles.numel())
+    return out
 
 
 def torch_csr(m, dev):
@@ -302,15 +321,18 @@ def empty_cache(dev) -> None:
         torch.cuda.empty_cache()
 
 
-#: Layout fields a kernel does not read (the plain version's owner ids).
-UNREAD = {"tile_ids", "chunk_visits", "block_rows"}
+#: Layout fields left out of ``layout_bytes``: the plain versions' owner
+#: ids and the work list derived from the packed arrays.
+LAYOUT_SKIP = {"tile_ids", "chunk_visits", "block_rows", "chunk_len",
+               "piece_ptr", "piece_owner", "piece_split", "split_tiles"}
 
 
-def kernel_row(name, layout, m, b, runs: int, plain_runs: int,
-               library: bool) -> dict:
+def kernel_row(name, layout, m, b, index_bytes: int, runs: int,
+               plain_runs: int, library: bool) -> dict:
     """One kernel against its plain version on one layout, with times."""
     import torch
     from repro_torch import kernels
+    from repro_torch.core.device import median_ms
     mod = kernels.KERNEL_MODULES[name]
     wrapper = getattr(mod, name)
     plain = getattr(mod, f"{name}_plain")
@@ -327,27 +349,56 @@ def kernel_row(name, layout, m, b, runs: int, plain_runs: int,
         a = torch_csr(m, b.device)
         lib_ms = median_ms(lambda: torch.sparse.mm(a, b), runs)
         del a
-    nbytes = layout_bytes(layout) + 2 * b.numel() * b.element_size()
+    bc_bytes = 2 * b.numel() * b.element_size()
+    # What the inputs need: A in the smaller of CSR at the layout's widths
+    # and the packed layout (a blocked layout stores each value once and
+    # one set of coordinates per block), B once, C once.
+    a_bytes = layout_bytes(layout)
+    csr_bytes = m.nnz * (b.element_size() + index_bytes) + 4 * (m.n + 1)
+    nbytes = min(csr_bytes, a_bytes) + bc_bytes
+    layout_nbytes = a_bytes + bc_bytes
     # Stored value slots (padding included) per true nonzero.
     stored = next(getattr(layout, f).numel() for f in ("vals", "blocks",
                                                        "band")
                   if hasattr(layout, f))
     flops = 2.0 * m.nnz * b.shape[1]
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[str(b.dtype).split(".")[-1]] * 1e3
+
+    def bound(n_bytes: int) -> tuple:
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        return (max(t_bytes, t_ops),
+                "bytes" if t_bytes >= t_ops else "operations")
+    bound_ms, bound_by = bound(nbytes)
     empty_cache(b.device)
     return {"max_abs_err": err, "margin": margin, "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms, "bytes": nbytes, "flops": flops,
-            "stored_per_nnz": stored / max(m.nnz, 1)}
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_layout_ms": bound(layout_nbytes)[0],
+            "library_ms": lib_ms, "bytes": nbytes,
+            "layout_bytes": layout_nbytes, "flops": flops,
+            "stored_per_nnz": stored / max(m.nnz, 1),
+            **work_list_size(layout)}
+
+
+def log_row(name: str, structure: str, row: dict) -> None:
+    work = "" if "pieces" not in row else (
+        f"; work list {row['pieces']} pieces, largest "
+        f"{row['largest_piece_nnz']} real entries, "
+        f"{row.get('split_tiles', 'n/a')} split tiles, "
+        f"{row['real_slots']} of {row['slots']} slots real")
+    log(f"[kernel] {name} {row['precision']} n={row['n']} ({structure}, "
+        f"layout {row['format']}): max|err| {row['max_abs_err']:.3e} (worst "
+        f"err - bound {row['margin']:.3e} <= 0), kernel {row['ms']:.4f} ms, "
+        f"plain {row['plain_ms']:.4f} ms, torch.sparse.mm "
+        f"{row['library_ms']} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}), layout bound {row['bound_layout_ms']:.4f} "
+        f"ms; stored values per nonzero {row['stored_per_nnz']:.2f}{work}")
 
 
 def kernel_phase(served: dict, quick: bool, dev) -> list:
     """Each kernel vs its plain version at every declared precision."""
     import numpy as np
     import torch
+    from repro_torch.core.precision import as_precision
     from repro_torch.kernels import registry
     from repro_torch.launch import serve
     from repro_torch.sparse import stream
@@ -384,33 +435,44 @@ def kernel_phase(served: dict, quick: bool, dev) -> list:
                 else torch.float32
             b = torch.from_numpy(rng.normal(size=(mm.n, D))
                                  .astype(np.float32)).to(dev, dtype)
-            row = kernel_row(name, layout, mm, b, runs, plain_runs,
-                             library=token == "f32i32")
+            row = kernel_row(name, layout, mm, b,
+                             as_precision(token).sizeof_idx, runs,
+                             plain_runs, library=token == "f32i32")
             row.update(precision=token, n=mm.n, format=fmt_name)
-            log(f"[kernel] {name} {token} n={mm.n} ({structure}, layout "
-                f"{fmt_name}): max|err| {row['max_abs_err']:.3e} (worst "
-                f"err - bound {row['margin']:.3e} <= 0), kernel "
-                f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-                f"torch.sparse.mm {row['library_ms']} ms, bound "
-                f"{row['bound_ms']:.4f} ms ({row['bound_by']}); stored "
-                f"values per nonzero {row['stored_per_nnz']:.2f}")
+            log_row(name, structure, row)
             rows.append(row)
+            del b
+        others = []
+        for extra in EXTRA_RUNS.get(name, ()):
+            erun = served["runs"][extra]
+            if extra == run_key or erun["plan"].chosen not in formats:
+                continue
+            mm = served["matrices"][extra[0]]
+            b = torch.from_numpy(rng.normal(size=(mm.n, D))
+                                 .astype(np.float32)).to(dev)
+            row = kernel_row(name, erun["plan"].layout, mm, b,
+                             as_precision(erun["plan"].precision).sizeof_idx,
+                             runs, plain_runs, library=True)
+            row.update(precision=erun["plan"].precision, n=mm.n,
+                       format=erun["plan"].chosen, structure=extra[0])
+            log_row(name, extra[0], row)
+            others.append(row)
             del b
         main = rows[0]
         records.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": served["counts"][name],
-            "max_abs_err": main["max_abs_err"], "ms": main["ms"],
-            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-            "stored_per_nnz": main["stored_per_nnz"],
+            **{k: main[k] for k in RECORD_KEYS if k in main},
             "precision": main["precision"], "n": main["n"], "d": D,
             "structure": structure, "format": main["format"],
             "other_precisions": [
-                {k: r[k] for k in ("precision", "n", "max_abs_err", "ms",
-                                   "plain_ms", "bound_ms", "bound_by",
-                                   "stored_per_nnz")}
-                for r in rows[1:]]})
+                {k: r[k] for k in ("precision", "n", *RECORD_KEYS)
+                 if k in r and k != "library_ms"}
+                for r in rows[1:]],
+            "other_layouts": [
+                {k: r[k] for k in ("structure", "format", "precision", "n",
+                                   *RECORD_KEYS) if k in r}
+                for r in others]})
     # The banded kernel at the smallest block edges (n = t * odd).
     from repro_torch.kernels.banded_spmm import banded_spmm, banded_spmm_plain
     for nn in (1001, 1002, 1004):
@@ -455,6 +517,7 @@ def grouped_row(w, routed, runs: int, plain_runs: int) -> dict:
     The check must also reject two planted faults: the kernel run with the
     first 32-wide k-slice of x dropped, and +0.1 on one routed row."""
     import torch
+    from repro_torch.core.device import median_ms
     from repro_torch.kernels.grouped_matmul import (
         grouped_matmul, grouped_matmul_plain)
     x, gids = routed.x, routed.group_ids

@@ -1,7 +1,7 @@
 """Where the port runs: the card unless the caller asks for the CPU."""
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -30,3 +30,21 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 def device_of(device: Optional[torch.device]) -> torch.device:
     """``device`` itself, or the CPU when it is ``None`` (internal use)."""
     return torch.device("cpu") if device is None else torch.device(device)
+
+
+def median_ms(fn: Callable[[], object], runs: int) -> float:
+    """Median of ``runs`` CUDA-event timings of ``fn`` (in ms) after one
+    warm call; ``fn`` runs on the current CUDA stream."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]

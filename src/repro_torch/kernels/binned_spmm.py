@@ -4,12 +4,12 @@ The counterpart of the reference's ``binned_spmm_pallas``.  Phase one
 (host, :func:`csr_to_slab_bins`) bins the nonzeros by the B row slab they
 gather from and orders them column-major inside each slab; a *visit* is
 one (slab, row tile) pair with nonzeros, and visits run slab-major.  Phase
-two (:func:`binned_spmm`) walks the chunks with the CSR kernel's body,
-the visit as the owner, into fp32 partials of ``row_tile`` rows each; an
-fp32 ``index_add_`` folds the partials into their row tiles and C is cast
-once.  ``index_add_`` on a CUDA tensor sums with atomics, so the order in
-which a tile's partials are added, and the last bits of C, can change
-from run to run.
+two (:func:`binned_spmm`) walks the visits' real entries piece by piece
+(the CSR kernel's work list, the visit as the owner) and folds each
+piece's touched rows into C with fp32 atomics, in the kernel; C is cast
+once.  The atomics add a tile's visits in no fixed order, so the last
+bits of C can change from run to run.  The plain version keeps the
+reference's shape: fp32 visit partials, then :func:`fold_visits`.
 """
 from __future__ import annotations
 
@@ -22,8 +22,9 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.csr_spmm import (
-    ROW_TILE, accumulate_chunks, check_operands, chunk_positions,
-    index_code, index_extent_check, owner_ptr, value_code)
+    ROW_TILE, accumulate_chunks, check_operands, check_row_tile_layout,
+    chunk_lengths, chunk_positions, index_code, index_extent_check,
+    value_code, work_list)
 
 #: Kernel launches made by :func:`binned_spmm` (a plain counter).
 LAUNCHES = 0
@@ -86,18 +87,21 @@ def csr_to_slab_bins(indptr: np.ndarray, indices: np.ndarray,
 class SlabBinLayout:
     """The packed operand of :func:`binned_spmm`, on one device.
 
-    ``visit_ptr[V + 1]`` is the chunk range of each visit, computed once
-    from the non-decreasing ``chunk_visits``; the other arrays are
-    :func:`csr_to_slab_bins`'s, unchanged.
+    The six packed arrays are :func:`csr_to_slab_bins`'s, unchanged.
+    ``chunk_len`` and the work list ``piece_ptr`` / ``piece_owner``
+    (visits as owners) are derived from them once, as for the CSR layout
+    (:func:`~repro_torch.kernels.csr_spmm.work_pieces`).
     """
 
-    visit_ptr: torch.Tensor     # [V + 1] int32
     visit_tiles: torch.Tensor   # [V] int32 row tile of each visit
     chunk_visits: torch.Tensor  # [C] int32
     chunk_slabs: torch.Tensor   # [C] int32
     cols: torch.Tensor          # [C, chunk] int32 or int16, slab-local
     slots: torch.Tensor         # [C, chunk] int32 or int16
     vals: torch.Tensor          # [C, chunk] float32 or bfloat16
+    chunk_len: torch.Tensor     # [C] int32 real entries per chunk
+    piece_ptr: torch.Tensor     # [P + 1] int32 chunk range of each piece
+    piece_owner: torch.Tensor   # [P] int32 visit of each piece
     n: int
     b_tile: Optional[int]
     row_tile: int = ROW_TILE
@@ -113,6 +117,11 @@ class SlabBinLayout:
         return (self.n + self.row_tile - 1) // self.row_tile
 
     @property
+    def num_pieces(self) -> int:
+        """Entries of the work list."""
+        return int(self.piece_owner.shape[0])
+
+    @property
     def device(self) -> torch.device:
         """The device the layout lives on."""
         return self.vals.device
@@ -120,19 +129,26 @@ class SlabBinLayout:
 
 def slab_bin_layout(visit_tiles, chunk_visits, chunk_slabs, cols, slots,
                     vals, *, n: int, b_tile: Optional[int],
-                    row_tile: int = ROW_TILE, device=None) -> SlabBinLayout:
-    """Move :func:`csr_to_slab_bins`'s arrays to ``device`` as a layout."""
+                    row_tile: int = ROW_TILE,
+                    device=None) -> SlabBinLayout:
+    """Move :func:`csr_to_slab_bins`'s arrays to ``device`` as a layout,
+    with the chunk lengths and the work list derived from them."""
     from repro_torch.sparse.formats import tensor_from_host
-    visit_tiles = np.asarray(visit_tiles)
+    visit_tiles, chunk_visits, cols, slots, vals = (
+        np.asarray(a) for a in (visit_tiles, chunk_visits, cols, slots,
+                                vals))
+    lens = chunk_lengths(cols, slots, vals)
+    work = work_list(chunk_visits, visit_tiles.shape[0], lens,
+                     chunk=cols.shape[1])
     return SlabBinLayout(
-        visit_ptr=tensor_from_host(
-            owner_ptr(chunk_visits, visit_tiles.shape[0]), device),
         visit_tiles=tensor_from_host(visit_tiles, device),
-        chunk_visits=tensor_from_host(np.asarray(chunk_visits), device),
+        chunk_visits=tensor_from_host(chunk_visits, device),
         chunk_slabs=tensor_from_host(np.asarray(chunk_slabs), device),
-        cols=tensor_from_host(np.asarray(cols), device),
-        slots=tensor_from_host(np.asarray(slots), device),
-        vals=tensor_from_host(np.asarray(vals), device),
+        cols=tensor_from_host(cols, device),
+        slots=tensor_from_host(slots, device),
+        vals=tensor_from_host(vals, device),
+        chunk_len=tensor_from_host(lens, device),
+        **{k: tensor_from_host(v, device) for k, v in work.items()},
         n=n, b_tile=b_tile, row_tile=row_tile)
 
 
@@ -165,9 +181,9 @@ def binned_spmm_plain(layout: SlabBinLayout, b: torch.Tensor
 
 
 _P = ctypes.c_void_p
-_ARGTYPES = (ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P,
-             ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-             ctypes.c_int, _P)
+_ARGTYPES = (ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P,
+             _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
+             ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P)
 
 
 def _kernel():
@@ -176,40 +192,37 @@ def _kernel():
     return fn
 
 
-def binned_partials_cuda(layout: SlabBinLayout,
-                         b: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel (``csrc/binned_spmm.cu``): fp32 partials."""
+def binned_spmm_cuda(layout: SlabBinLayout, b: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel (``csrc/binned_spmm.cu``) on a CUDA operand.
+
+    The kernel folds every piece's touched rows into one fp32 ``[n, d]``
+    accumulator with atomics: C itself at fp32, else a buffer that the
+    launch then casts into C.
+    """
     global LAUNCHES
-    if layout.row_tile != ROW_TILE:
-        raise ValueError(f"the binned kernel is built for row_tile="
-                         f"{ROW_TILE}, got {layout.row_tile}")
-    check_operands("binned_spmm", (layout.visit_ptr, layout.chunk_slabs,
-                                   layout.cols, layout.slots, layout.vals),
-                   b, layout.vals)
-    if b.shape[0] != layout.n:
-        raise ValueError(f"binned_spmm: b has {b.shape[0]} rows, the "
-                         f"layout {layout.n}")
-    if layout.slots.dtype != layout.cols.dtype:
-        raise TypeError("binned_spmm: cols and slots must share a dtype")
-    d = b.shape[1]
-    partials = torch.empty(layout.num_visits * layout.row_tile, d,
-                           dtype=torch.float32, device=b.device)
+    check_row_tile_layout("binned_spmm", layout, b)
+    check_operands("binned_spmm", (layout.visit_tiles,), b, layout.vals)
+    n, d = b.shape
+    acc = torch.zeros(n, d, dtype=torch.float32, device=b.device)
+    c = acc if b.dtype == torch.float32 else \
+        torch.empty(n, d, dtype=b.dtype, device=b.device)
     fn = _kernel()
     err = fn(value_code(b.dtype), index_code(layout.cols.dtype),
-             build.ptr(layout.visit_ptr), build.ptr(layout.chunk_slabs),
-             build.ptr(layout.cols), build.ptr(layout.slots),
-             build.ptr(layout.vals), build.ptr(b), build.ptr(partials),
-             layout.num_visits, d,
+             build.ptr(layout.piece_ptr), build.ptr(layout.piece_owner),
+             build.ptr(layout.visit_tiles), build.ptr(layout.chunk_len),
+             build.ptr(layout.chunk_slabs), build.ptr(layout.cols),
+             build.ptr(layout.slots), build.ptr(layout.vals), build.ptr(b),
+             build.ptr(acc), build.ptr(c), layout.num_pieces, n, d,
              layout.n if layout.b_tile is None else layout.b_tile,
              layout.cols.shape[1], build.stream_ptr(b.device))
     LAUNCHES += 1
     build.check(err, "binned_spmm")
-    return partials
+    return c
 
 
 def binned_spmm(layout: SlabBinLayout, b: torch.Tensor) -> torch.Tensor:
-    """``C = A @ B`` with A as slab-binned chunks: the CUDA kernel plus
-    the fold for a CUDA operand, :func:`binned_spmm_plain` for a CPU one.
+    """``C = A @ B`` with A as slab-binned chunks: the CUDA kernel for a
+    CUDA operand, :func:`binned_spmm_plain` for a CPU one.
 
     Args:
         layout: the packed operand, on ``b``'s device.
@@ -219,7 +232,7 @@ def binned_spmm(layout: SlabBinLayout, b: torch.Tensor) -> torch.Tensor:
         ``C`` as ``[n, d]`` in ``b``'s dtype.
     """
     if b.device.type == "cuda":
-        return fold_visits(layout, binned_partials_cuda(layout, b), b.dtype)
+        return binned_spmm_cuda(layout, b)
     if b.device.type == "cpu":
         return binned_spmm_plain(layout, b)
     raise ValueError(f"binned_spmm runs on CUDA or the CPU, not {b.device}")

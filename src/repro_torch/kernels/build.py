@@ -124,6 +124,15 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def use_sources(csrc) -> None:
+    """Build and load the kernels from the sources in ``csrc`` from now on
+    (libraries go to the ``build/`` of the checkout that holds them).
+    Lets one process time two versions of a kernel on one card."""
+    global CSRC
+    CSRC = pathlib.Path(csrc).resolve()
+    _LIBS.clear()
+
+
 def check(err: int, kernel: str) -> None:
     """Raise when a launch returned a CUDA error code (not ``cudaSuccess``)."""
     if err != 0:

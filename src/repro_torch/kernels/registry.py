@@ -52,8 +52,9 @@ BACKENDS: Tuple[str, ...] = ("torch", "cuda")
 
 #: Version of the port's kernel set and layout rules; stamped into saved
 #: calibrations so a stale one is flagged.  1 = the first CUDA kernels,
-#: 2 = the row-split and grouped-matmul kernels.
-REGISTRY_VERSION: int = 2
+#: 2 = the row-split and grouped-matmul kernels, 3 = the work-piece walk of
+#: CSR and binned, with binned's fold in the kernel.
+REGISTRY_VERSION: int = 3
 
 
 def pallas_block_d(d: int) -> int:
@@ -564,8 +565,9 @@ for _f in ("csr", "ell"):
     # specs share one cached row-tile packing per matrix).
     register(KernelSpec(
         format=_f, backend="cuda",
-        description="row-tiled gather kernel, register accumulators, B "
-                    "gathered by L2-sized row slabs",
+        description="row-tiled gather kernel: one warp per work piece over "
+                    "the real entries only, hub tiles split, B gathered "
+                    "by L2-sized row slabs",
         prepare=_csr_cuda_prepare, run=_csr_cuda_run,
         estimate=_csr_cuda_estimate, footprint=_csr_cuda_footprint,
         layout_key="csr", supported_precisions=_CUDA_STREAM_PRECISIONS))
@@ -586,8 +588,9 @@ def _binned_cuda_run(layout, b, ctx: KernelContext):
 
 register(KernelSpec(
     format="binned", backend="cuda",
-    description="two-phase binned kernel: slab-major visits into fp32 "
-                "partials, index_add_ fold",
+    description="two-phase binned kernel: slab-major visits, one warp per "
+                "work piece, touched rows folded by fp32 atomics in the "
+                "kernel",
     prepare=_binned_cuda_prepare, run=_binned_cuda_run,
     estimate=_binned_estimate("binned_spmm", _cuda_slab),
     footprint=_csr_cuda_footprint,
@@ -629,7 +632,8 @@ register(KernelSpec(
 # the pair shares the cached CSR layout and differs only in its estimate.
 register(KernelSpec(
     format="ell_coo", backend="cuda",
-    description="hybrid ELL/COO pick lowered to the row-tiled CSR kernel",
+    description="hybrid ELL/COO pick lowered to the row-tiled CSR kernel "
+                "(hub tiles split into work pieces)",
     prepare=_csr_cuda_prepare, run=_csr_cuda_run,
     estimate=_ell_coo_estimate("ell_coo_spmm"),
     footprint=_csr_cuda_footprint,

@@ -271,7 +271,8 @@ def test_interop_layout_round_trip():
                                     "block_ptr", "n", "t", "nnz")}
         bridged = interop.layout_from_numpy(f, ref_layout, device="cpu")
         own = port_registry.get(f, "cuda").prepare(pm2, ctx)
-        for field in ("tile_ptr", "tile_ids", "visit_ptr", "visit_tiles",
+        for field in ("tile_ids", "visit_tiles", "chunk_len", "piece_ptr",
+                      "piece_owner", "piece_split", "split_tiles",
                       "chunk_visits", "chunk_slabs", "row_map", "cols",
                       "slots", "vals",
                       "blocks", "block_rows", "block_cols", "block_ptr",

@@ -17,6 +17,7 @@ matmul's products are exact in fp32, so it takes
 """
 from __future__ import annotations
 
+import dataclasses
 import types
 
 import numpy as np
@@ -27,12 +28,19 @@ from repro_torch import kernels
 from repro_torch.core.patterns import COOMatrix, banded, serving_suite
 from repro_torch.core.precision import as_precision
 from repro_torch.kernels import registry
+from repro_torch.kernels.binned_spmm import (binned_spmm,
+                                             binned_spmm_plain,
+                                             csr_to_slab_bins,
+                                             slab_bin_layout)
+from repro_torch.kernels.csr_spmm import (csr_spmm, csr_spmm_plain,
+                                          csr_to_row_tiles, row_tile_layout,
+                                          with_work_list)
 from repro_torch.kernels.grouped_matmul import (grouped_matmul,
                                                 grouped_matmul_plain)
 from repro_torch.kernels.rowsplit_spmm import (rowsplit_partials_cuda,
                                                rowsplit_partials_plain)
 from repro_torch.launch import moe_block
-from repro_torch.sparse.formats import coo_to_dense
+from repro_torch.sparse.formats import coo_to_dense, csr_host_arrays
 
 RTOL = ATOL = 5e-4
 
@@ -139,6 +147,128 @@ def test_rowsplit_kernel_writes_every_window_slot(cuda_device, structure):
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
     _run(m, "rowsplit", "bf16i16", cuda_device, d=40)
+
+
+#: Row-tile format -> (packer, layout builder, kernel, plain version).
+ROW_TILE_KERNELS = {
+    "csr": (csr_to_row_tiles, row_tile_layout, csr_spmm, csr_spmm_plain),
+    "binned": (csr_to_slab_bins, slab_bin_layout, binned_spmm,
+               binned_spmm_plain)}
+
+
+def _sparse_check(m, got, ref, b, eps, what):
+    """``_check`` with ``|A| @ |B|`` from the COO arrays (no dense A)."""
+    dev = b.device
+    rows = torch.from_numpy(m.rows.astype(np.int64)).to(dev)
+    cols = torch.from_numpy(m.cols.astype(np.int64)).to(dev)
+    vals = torch.from_numpy(np.abs(m.vals)).to(dev, torch.float64)
+    absprod = torch.zeros(m.n, b.shape[1], dtype=torch.float64, device=dev)
+    absprod.index_add_(0, rows, vals[:, None] * b.double().abs()[cols])
+    g, r = got.double(), ref.double()
+    assert g.shape == r.shape and bool(torch.isfinite(g).all()), what
+    bound = 2 * (4.0 * eps * absprod + ATOL) + RTOL * (g.abs() + r.abs())
+    worst = float((g - r).abs().sub(bound).max())
+    assert worst <= 0, f"{what}: exceeds the bound by {worst:.3e}"
+
+
+def _row_tile_case(m, fmt, token, device, *, piece_nnz=None, b_tile=None,
+                   d=40, poison=None):
+    """Pack ``m`` for ``fmt``, run its kernel once (after leaving ``poison``
+    in the allocator's cache) and hold it against the plain version.
+    Returns ``(layout, C)``."""
+    pack, make, kernel, plain = ROW_TILE_KERNELS[fmt]
+    prec = as_precision(token)
+    arrays = pack(*csr_host_arrays(m, prec.value_torch), n=m.n,
+                  b_tile=b_tile, index_dtype=prec.index_np)
+    layout = make(*arrays, n=m.n, b_tile=b_tile, device=device)
+    if piece_nnz is not None:
+        layout = with_work_list(layout, piece_nnz)
+    b = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(m.n, d)).astype(np.float32)).to(device, prec.value_torch)
+    if poison is not None:
+        torch.full((m.n, d), poison, dtype=b.dtype, device=device)
+    before = kernels.launch_counts()[f"{fmt}_spmm"]
+    got = kernel(layout, b)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[f"{fmt}_spmm"] == before + 1
+    _sparse_check(m, got, plain(layout, b), b, prec.eps,
+                  f"{fmt}/{token} n={m.n}")
+    return layout, got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [40, 200])
+@pytest.mark.parametrize("token", ["f32i32", "bf16i32", "bf16i16"])
+@pytest.mark.parametrize("fmt", ["csr", "binned"])
+def test_row_tile_kernels_split_a_long_hub_row(cuda_device, fmt, token, d):
+    """A hub row of 50,000 nonzeros (30,000 at bf16i16, whose layouts
+    need n <= 32,767) next to singleton rows, cut into pieces of at most
+    256 real entries that run in parallel; at d = 200 four column slices
+    of a split tile add into the same rows."""
+    hub = 30_000 if token == "bf16i16" else 50_000
+    m = _skewed(hub)
+    layout, _ = _row_tile_case(m, fmt, token, cuda_device, piece_nnz=256,
+                               b_tile=8192, d=d)
+    assert layout.num_pieces >= hub // 256
+    if fmt == "csr":
+        assert 0 in layout.split_tiles.tolist()    # the hub row's tile
+
+
+def _with_empty_tiles(n: int = 2048, zeros: bool = False) -> COOMatrix:
+    """A random matrix whose every fifth row tile is empty; with
+    ``zeros``, every third stored value is an explicit zero."""
+    m = serving_suite(n)["uniform"]()
+    keep = (m.rows // 8) % 5 != 2
+    vals = m.vals[keep]
+    if zeros:
+        vals = np.where(np.arange(vals.shape[0]) % 3 == 0, 0.0, vals)
+    return COOMatrix(n=n, rows=m.rows[keep], cols=m.cols[keep], vals=vals,
+                     pattern="custom")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("token", ["f32i32", "bf16i32"])
+@pytest.mark.parametrize("fmt", ["csr", "binned"])
+def test_row_tile_kernels_write_every_row_of_a_dirty_buffer(cuda_device, fmt,
+                                                           token):
+    """C comes from torch.empty: with NaN left in the allocator's cache,
+    every row must still be written, the empty tiles' rows as zeros."""
+    m = _with_empty_tiles()
+    _, got = _row_tile_case(m, fmt, token, cuda_device, b_tile=512,
+                            poison=float("nan"))
+    empty = torch.ones(m.n, dtype=torch.bool, device=cuda_device)
+    empty[torch.from_numpy(m.rows.astype(np.int64)).to(cuda_device)] = False
+    assert bool(empty.any()) and not bool(got[empty].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("token", ["f32i32", "bf16i32"])
+@pytest.mark.parametrize("fmt", ["csr", "binned"])
+def test_row_tile_kernels_keep_explicit_zeros_and_skip_padding(cuda_device,
+                                                               fmt, token):
+    """Explicit zero values are real entries (0 * inf is NaN, as in the
+    plain version); padding slots are never read (NaN there changes
+    nothing)."""
+    m = _with_empty_tiles(zeros=True)
+    layout, got = _row_tile_case(m, fmt, token, cuda_device, b_tile=512)
+    pad = (torch.arange(layout.vals.shape[1], device=cuda_device)[None, :]
+           >= layout.chunk_len[:, None])
+    assert bool(pad.any())
+    poisoned = dataclasses.replace(
+        layout, vals=layout.vals.masked_fill(pad, float("nan")))
+    b = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(m.n, 40)).astype(np.float32)).to(cuda_device,
+                                               layout.vals.dtype)
+    kernel = ROW_TILE_KERNELS[fmt][2]
+    assert torch.equal(kernel(poisoned, b).isnan(), got.isnan())
+    # An infinite B row times an explicit zero is NaN in both versions.
+    zero_col = int(m.cols[np.flatnonzero(m.vals == 0)[0]])
+    b[zero_col] = float("inf")
+    inf_got = kernel(layout, b)
+    inf_ref = ROW_TILE_KERNELS[fmt][3](layout, b)
+    torch.cuda.synchronize()
+    assert torch.equal(inf_got.isnan(), inf_ref.isnan())
+    assert bool(inf_got.isnan().any())
 
 
 @pytest.mark.gpu
