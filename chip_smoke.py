@@ -8,8 +8,8 @@
 Phases, in order; the first failure stops the run with a nonzero exit:
 
 1. **build**: compile the six CUDA kernels from ``src/repro_torch/csrc``
-   (one ``nvcc`` per source, all at once) and print ``ptxas``'s register
-   and spill report.
+   (one ``nvcc`` per source, all at once) and print ``ptxas``'s report per
+   kernel function: registers, shared memory, spills.
 2. **serving** (the SpMM path): ``repro_torch.launch.serve``'s
    ``serve_spmm_stream`` on each ``serving_suite`` structure (moe-block,
    banded, scale-free, uniform) at n = 2**20, d = 64, 8 requests each,
@@ -30,11 +30,13 @@ Phases, in order; the first failure stops the run with a nonzero exit:
    card, on the layout the serving phase packed for it (f32i32) and at
    every other precision its spec declares (bf16i32 at full n, bf16i16 at
    n = 32760, where the slab fits int16 indices); kernel, plain-version
-   and ``torch.sparse.mm`` times (CUDA events, warm, median); the CSR
+   and ``torch.sparse.mm`` times, the last with A as CSR in B's dtype
+   (CUDA events, warm, median); the CSR
    kernel also on the layout that ``scale-free`` auto packed, the row-tile
    kernels with their work list's size (pieces, the largest piece's real
-   entries, split tiles); the banded kernel also at block edges t = 1, 2,
-   4.  The grouped matmul
+   entries, split tiles); the banded kernel with the diagonals it walks
+   (slots read per nonzero, and the host time to derive them from the
+   band), and also at block edges t = 1, 2, 4.  The grouped matmul
    against its plain version on the MoE phase's operands, with
    ``torch._grouped_mm`` (bf16, where this torch has it) or a per-expert
    ``torch.matmul`` loop as the library time; the check must reject two
@@ -52,8 +54,12 @@ on the routed rows; the padding rows must be 0.
 (CSR at the layout's widths, i.e. nnz * (value + column index) bytes plus
 (n + 1) int32 row pointers, or the packed layout's own bytes, which is
 smaller for a blocked layout), B read once and C written once, against
-2 * nnz * d operations; ``bound_layout_ms`` keeps the earlier figure, the
-packed layout's bytes (padding included) in place of A's.
+2 * nnz * d operations; ``bound_layout_ms`` puts the bytes of the layout
+the kernel reads (padding included) in place of A's: the packed arrays,
+for the banded kernel its diagonals (not the band, which only the plain
+version reads).  The grouped matmul's TFLOP/s count 2 * K * N per padded
+row and per routed row; its tile traffic is what its tiling copies into
+shared memory (each output tile's x rows and w columns), over kernel ms.
 
 The last lines are the ``{"kernels": [...]}`` record, the card's name and
 power limit from ``nvidia-smi``, and ``{"ok": true, "device": ...}``.
@@ -125,7 +131,8 @@ EXTRA_RUNS = {"csr_spmm": (("scale-free", "auto"),)}
 
 #: Numbers of an SpMM kernel's row that the record carries.
 RECORD_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-               "library_ms", "bound_layout_ms", "stored_per_nnz", "pieces",
+               "library_ms", "bound_layout_ms", "stored_per_nnz",
+               "read_per_nnz", "diagonals", "derive_host_ms", "pieces",
                "largest_piece_nnz", "split_tiles", "real_slots")
 
 #: Every kernel, in the order of the record.
@@ -146,6 +153,15 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(text: str) -> list:
+    """``ptxas -v``'s lines per kernel function: the function, registers
+    and shared memory, stack and spills, and any performance warning."""
+    keep = ("Compiling entry function", "registers", "spill",
+            "Performance", "setmaxnreg", "wgmma")
+    return [line.strip() for line in text.splitlines()
+            if any(k in line for k in keep)]
 
 
 def abs_product(m, b):
@@ -209,13 +225,14 @@ def work_list_size(layout) -> dict:
     return out
 
 
-def torch_csr(m, dev):
-    """A as a ``torch.sparse`` CSR tensor (fp32): the library yardstick."""
+def torch_csr(m, dev, dtype=None):
+    """A as a ``torch.sparse`` CSR tensor (fp32 unless ``dtype``): the
+    library yardstick."""
     import numpy as np
     import torch
     crow = torch.from_numpy(m.row_ptr().astype(np.int64)).to(dev)
     col = torch.from_numpy(m.cols.astype(np.int64)).to(dev)
-    val = torch.from_numpy(m.vals.astype(np.float32)).to(dev)
+    val = torch.from_numpy(m.vals.astype(np.float32)).to(dev, dtype)
     return torch.sparse_csr_tensor(crow, col, val, size=(m.n, m.n))
 
 
@@ -322,14 +339,39 @@ def empty_cache(dev) -> None:
 
 
 #: Layout fields left out of ``layout_bytes``: the plain versions' owner
-#: ids and the work list derived from the packed arrays.
+#: ids and band, and the work list derived from the packed arrays.
 LAYOUT_SKIP = {"tile_ids", "chunk_visits", "block_rows", "chunk_len",
-               "piece_ptr", "piece_owner", "piece_split", "split_tiles"}
+               "piece_ptr", "piece_owner", "piece_split", "split_tiles",
+               "band"}
+
+
+def diagonal_walk_size(layout, m) -> dict:
+    """The banded kernel's walk: diagonals, slots read per nonzero (k * n /
+    nnz), and the host time to derive them from the band (checked equal to
+    the layout's)."""
+    import torch
+    if not hasattr(layout, "diags"):
+        return {}
+    from repro_torch.kernels.banded_spmm import band_diagonals
+    from repro_torch.sparse.formats import host_values
+    band = host_values(layout.band)
+    t0 = time.perf_counter()
+    offsets, diags = band_diagonals(band, layout.w, layout.t)
+    derive_ms = (time.perf_counter() - t0) * 1e3
+    if not (torch.equal(torch.from_numpy(offsets), layout.offsets) and
+            (diags == host_values(layout.diags)).all()):
+        raise SmokeFailure("band_diagonals of the band differ from the "
+                           "layout's diagonals")
+    return {"diagonals": int(offsets.shape[0]),
+            "read_per_nnz": layout.diags.numel() / max(m.nnz, 1),
+            "derive_host_ms": derive_ms}
 
 
 def kernel_row(name, layout, m, b, index_bytes: int, runs: int,
-               plain_runs: int, library: bool) -> dict:
-    """One kernel against its plain version on one layout, with times."""
+               plain_runs: int) -> dict:
+    """One kernel against its plain version on one layout, with times; the
+    library time is ``torch.sparse.mm`` on A as CSR in B's dtype (None
+    where this torch has no such product)."""
     import torch
     from repro_torch import kernels
     from repro_torch.core.device import median_ms
@@ -344,11 +386,13 @@ def kernel_row(name, layout, m, b, index_bytes: int, runs: int,
     del out, ref
     ms = median_ms(lambda: wrapper(layout, b), runs)
     plain_ms = median_ms(lambda: plain(layout, b), plain_runs)
-    lib_ms = None
-    if library:
-        a = torch_csr(m, b.device)
+    a = torch_csr(m, b.device, b.dtype)
+    try:
         lib_ms = median_ms(lambda: torch.sparse.mm(a, b), runs)
-        del a
+    except (RuntimeError, NotImplementedError) as e:
+        log(f"[kernel] torch.sparse.mm at {b.dtype}: {e}")
+        lib_ms = None
+    del a
     bc_bytes = 2 * b.numel() * b.element_size()
     # What the inputs need: A in the smaller of CSR at the layout's widths
     # and the packed layout (a blocked layout stores each value once and
@@ -376,7 +420,7 @@ def kernel_row(name, layout, m, b, index_bytes: int, runs: int,
             "library_ms": lib_ms, "bytes": nbytes,
             "layout_bytes": layout_nbytes, "flops": flops,
             "stored_per_nnz": stored / max(m.nnz, 1),
-            **work_list_size(layout)}
+            **work_list_size(layout), **diagonal_walk_size(layout, m)}
 
 
 def log_row(name: str, structure: str, row: dict) -> None:
@@ -385,6 +429,10 @@ def log_row(name: str, structure: str, row: dict) -> None:
         f"{row['largest_piece_nnz']} real entries, "
         f"{row.get('split_tiles', 'n/a')} split tiles, "
         f"{row['real_slots']} of {row['slots']} slots real")
+    if "diagonals" in row:
+        work += (f"; walks {row['diagonals']} diagonals, read per nonzero "
+                 f"{row['read_per_nnz']:.2f}, derived on the host in "
+                 f"{row['derive_host_ms']:.1f} ms")
     log(f"[kernel] {name} {row['precision']} n={row['n']} ({structure}, "
         f"layout {row['format']}): max|err| {row['max_abs_err']:.3e} (worst "
         f"err - bound {row['margin']:.3e} <= 0), kernel {row['ms']:.4f} ms, "
@@ -437,7 +485,7 @@ def kernel_phase(served: dict, quick: bool, dev) -> list:
                                  .astype(np.float32)).to(dev, dtype)
             row = kernel_row(name, layout, mm, b,
                              as_precision(token).sizeof_idx, runs,
-                             plain_runs, library=token == "f32i32")
+                             plain_runs)
             row.update(precision=token, n=mm.n, format=fmt_name)
             log_row(name, structure, row)
             rows.append(row)
@@ -452,7 +500,7 @@ def kernel_phase(served: dict, quick: bool, dev) -> list:
                                  .astype(np.float32)).to(dev)
             row = kernel_row(name, erun["plan"].layout, mm, b,
                              as_precision(erun["plan"].precision).sizeof_idx,
-                             runs, plain_runs, library=True)
+                             runs, plain_runs)
             row.update(precision=erun["plan"].precision, n=mm.n,
                        format=erun["plan"].chosen, structure=extra[0])
             log_row(name, extra[0], row)
@@ -467,7 +515,7 @@ def kernel_phase(served: dict, quick: bool, dev) -> list:
             "structure": structure, "format": main["format"],
             "other_precisions": [
                 {k: r[k] for k in ("precision", "n", *RECORD_KEYS)
-                 if k in r and k != "library_ms"}
+                 if k in r}
                 for r in rows[1:]],
             "other_layouts": [
                 {k: r[k] for k in ("structure", "format", "precision", "n",
@@ -519,7 +567,7 @@ def grouped_row(w, routed, runs: int, plain_runs: int) -> dict:
     import torch
     from repro_torch.core.device import median_ms
     from repro_torch.kernels.grouped_matmul import (
-        grouped_matmul, grouped_matmul_plain)
+        TILE_N, grouped_matmul, grouped_matmul_plain, tile_rows)
     x, gids = routed.x, routed.group_ids
     bm = x.shape[0] // gids.shape[0]
     T, K = x.shape
@@ -587,13 +635,21 @@ def grouped_row(w, routed, runs: int, plain_runs: int) -> dict:
     bound_ms, bound_by = bound(T)
     routed_ms, routed_by = bound(rows.numel())
     flops = 2.0 * T * K * N
+    # What the kernel's tiling copies into shared memory (from L2 or HBM):
+    # every (row tile, column tile) reads its x rows and its w columns.
+    tm = tile_rows(x.dtype, bm)
+    tile_bytes = (T // tm) * (N // TILE_N) * K * (tm + TILE_N) * \
+        x.element_size()
     empty_cache(x.device)
     return {"max_abs_err": err, "margin": margin, "err_over_bound": ratio,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "bound_routed_ms": routed_ms,
             "bound_routed_by": routed_by, "library_ms": lib_ms,
             "library": library, "flops": flops, "rows": T,
-            "routed_rows": rows.numel(), "tflops": flops / ms / 1e9}
+            "routed_rows": rows.numel(), "tflops": flops / ms / 1e9,
+            "tflops_routed": 2.0 * rows.numel() * K * N / ms / 1e9,
+            "tile_traffic_gb": tile_bytes / 1e9,
+            "tile_traffic_tb_s": tile_bytes / ms / 1e9}
 
 
 def grouped_record(moe: dict, quick: bool) -> dict:
@@ -609,12 +665,15 @@ def grouped_record(moe: dict, quick: bool) -> dict:
             f"{row['max_abs_err']:.3e} on the routed rows (worst err - "
             f"bound {row['margin']:.3e} <= 0, worst err / bound "
             f"{row['err_over_bound']:.3f}), kernel {row['ms']:.4f} ms "
-            f"({row['tflops']:.1f} TFLOP/s over the padded rows), plain "
+            f"({row['tflops']:.1f} TFLOP/s over the padded rows, "
+            f"{row['tflops_routed']:.1f} over the routed rows), plain "
             f"{row['plain_ms']:.4f} ms, {row['library']} "
             f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']}) over the padded rows, "
             f"{row['bound_routed_ms']:.4f} ms ({row['bound_routed_by']}) "
-            f"over the routed rows")
+            f"over the routed rows; its tiles copy "
+            f"{row['tile_traffic_gb']:.2f} GB into shared memory, "
+            f"{row['tile_traffic_tb_s']:.2f} TB/s")
         rows.append(row)
     main = rows[0]
     return {
@@ -624,13 +683,15 @@ def grouped_record(moe: dict, quick: bool) -> dict:
         **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                 "bound_by", "library_ms", "library",
                                 "bound_routed_ms", "precision", "rows",
-                                "routed_rows", "tflops")},
+                                "routed_rows", "tflops", "tflops_routed",
+                                "tile_traffic_gb", "tile_traffic_tb_s")},
         "widths": moe["widths"],
         "other_precisions": [
             {k: r[k] for k in ("precision", "max_abs_err", "ms", "plain_ms",
                                "bound_ms", "bound_by", "bound_routed_ms",
                                "library_ms", "library", "rows",
-                               "routed_rows", "tflops")}
+                               "routed_rows", "tflops", "tflops_routed",
+                               "tile_traffic_gb", "tile_traffic_tb_s")}
             for r in rows[1:]]}
 
 
@@ -663,9 +724,8 @@ def main(argv=None) -> int:
     log(f"[build] {len(build.KERNELS)} kernels built in "
         f"{time.perf_counter() - t0:.1f}s into {build.build_dir()}")
     for name, text in build.LAST_LOG.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        for line in ptxas_report(text):
+            log(f"[build] {name}: {line}")
     log(f"kernels: {' '.join(KERNEL_NAMES)}")
 
     t0 = time.perf_counter()

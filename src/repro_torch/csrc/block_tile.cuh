@@ -1,6 +1,5 @@
 // Dense t x t block times a t x 32 B tile, accumulated in registers: the
-// body shared by the BCSR kernel (bcsr_spmm.cu) and the banded kernel
-// (banded_spmm.cu).
+// body of the BCSR kernel (bcsr_spmm.cu).
 //
 // A thread block has 256 threads laid out as 32 columns x 8 row groups; the
 // thread (ty, tx) owns column tx of the block's 32-column C slice and rows

@@ -51,7 +51,7 @@ def layout_from_numpy(format: str, arrays, device=None):
     Returns:
         The layout the port's ``cuda`` spec of ``format`` runs on.
     """
-    from repro_torch.kernels.banded_spmm import BandLayout
+    from repro_torch.kernels.banded_spmm import band_layout
     from repro_torch.kernels.binned_spmm import slab_bin_layout
     from repro_torch.kernels.csr_spmm import row_tile_layout
     from repro_torch.kernels.rowsplit_spmm import rowsplit_layout
@@ -78,7 +78,6 @@ def layout_from_numpy(format: str, arrays, device=None):
             n=int(arrays["n"]), t=int(arrays["t"]),
             nnz=int(arrays["nnz"]))
     if format == "dia":
-        return BandLayout(
-            band=tensor_from_host(np.asarray(arrays["band"]), dev),
-            w=int(arrays["w"]), t=int(arrays["t"]))
+        return band_layout(np.asarray(arrays["band"]), int(arrays["w"]),
+                           int(arrays["t"]), dev)
     raise ValueError(f"no port layout for format {format!r}")

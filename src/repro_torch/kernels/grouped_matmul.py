@@ -10,8 +10,9 @@ of the blocked regime (z = t):
 
 :func:`grouped_matmul` launches the hand-written kernel
 ``csrc/grouped_matmul.cu`` for CUDA operands (fp32 FMA on CUDA cores for
-float32, ``wmma`` bf16 tensor-core fragments for bfloat16, fp32
-accumulators either way) and takes the plain PyTorch version
+float32; for bfloat16, ``wgmma`` fed by a ring of TMA loads, 128-row tiles
+where ``bm % 128 == 0`` and 64-row tiles otherwise; fp32 accumulators
+either way) and takes the plain PyTorch version
 :func:`grouped_matmul_plain` for CPU operands.  Products are exact in fp32,
 sums run in fp32 and the output is cast once to x's dtype, as the
 reference's ``preferred_element_type=float32``.
@@ -29,9 +30,16 @@ from repro_torch.kernels.csr_spmm import value_code
 #: Kernel launches made by :func:`grouped_matmul` (a plain counter).
 LAUNCHES = 0
 
-#: The CUDA kernel's tile: x rows and output columns per thread block, and
-#: the k-slice it stages (a row tile must not straddle two row blocks).
-TILE_M, TILE_N, TILE_K = 64, 128, 32
+#: What the CUDA kernels tile by: bm, N and K must divide by these (the
+#: bf16 kernel's smallest row tile, its output columns per block and its
+#: k step; a row tile must not straddle two row blocks).
+TILE_M, TILE_N, TILE_K = 64, 128, 64
+
+
+def tile_rows(dtype: torch.dtype, bm: int) -> int:
+    """Rows of x per output tile of the CUDA kernel: 128 for bf16 where
+    ``bm % 128 == 0``, else :data:`TILE_M`."""
+    return 128 if dtype == torch.bfloat16 and bm % 128 == 0 else TILE_M
 
 
 def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor,
@@ -51,7 +59,7 @@ def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor,
 
 _P = ctypes.c_void_p
 _ARGTYPES = (ctypes.c_int, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, _P)
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, _P)
 
 
 def _kernel():
@@ -108,7 +116,7 @@ def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor,
     if T == 0:
         return out
     err = _kernel()(value_code(x.dtype), build.ptr(group_ids), build.ptr(x),
-                    build.ptr(w), build.ptr(out), T, K, N, bm,
+                    build.ptr(w), build.ptr(out), T, K, N, w.shape[0], bm,
                     build.stream_ptr(x.device))
     LAUNCHES += 1
     build.check(err, "grouped_matmul")

@@ -38,7 +38,7 @@ from repro_torch.core import sparsity_models as sm
 from repro_torch.core.device import device_of
 from repro_torch.core.hardware import H100, HOST_CPU, HardwareSpec
 from repro_torch.core.precision import DEFAULT_PRECISION, Precision
-from repro_torch.kernels.banded_spmm import BandLayout, banded_spmm
+from repro_torch.kernels.banded_spmm import band_layout, banded_spmm
 from repro_torch.kernels.bcsr_spmm import bcsr_spmm
 from repro_torch.kernels.binned_spmm import (
     binned_spmm, csr_to_slab_bins, slab_bin_layout)
@@ -53,8 +53,9 @@ BACKENDS: Tuple[str, ...] = ("torch", "cuda")
 #: Version of the port's kernel set and layout rules; stamped into saved
 #: calibrations so a stale one is flagged.  1 = the first CUDA kernels,
 #: 2 = the row-split and grouped-matmul kernels, 3 = the work-piece walk of
-#: CSR and binned, with binned's fold in the kernel.
-REGISTRY_VERSION: int = 3
+#: CSR and binned, with binned's fold in the kernel, 4 = the banded
+#: kernel's diagonal walk and the bf16 grouped matmul on wgmma + TMA.
+REGISTRY_VERSION: int = 4
 
 
 def pallas_block_d(d: int) -> int:
@@ -679,11 +680,11 @@ register(KernelSpec(
 
 
 def _dia_cuda_prepare(m, ctx: KernelContext):
-    from repro_torch.sparse.formats import host_values, tensor_from_host
+    from repro_torch.sparse.formats import host_values
     dia = _convert(ctx, m, "dia")
     t = pallas_band_tile(m.n)
     band, w = band_to_blocks(host_values(dia.data), dia.offsets, n=m.n, t=t)
-    return BandLayout(band=tensor_from_host(band, ctx.device), w=w, t=t)
+    return band_layout(band, w, t, ctx.device)
 
 
 def _dia_cuda_run(layout, b, ctx: KernelContext):
@@ -702,8 +703,8 @@ def _dia_cuda_footprint(n: int, d: int, ctx: KernelContext) -> int:
 
 register(KernelSpec(
     format="dia", backend="cuda",
-    description="block-band kernel over the band tensor, one block per "
-                "block row",
+    description="diagonal walk over the band's stored diagonals, B window "
+                "staged in shared memory",
     prepare=_dia_cuda_prepare, run=_dia_cuda_run,
     estimate=_dia_cuda_estimate, footprint=_dia_cuda_footprint,
     # DIA stores no per-nonzero indices, so only the value axis applies.
@@ -738,8 +739,8 @@ def _grouped_footprint(n: int, d: int, ctx: KernelContext) -> int:
 
 register(KernelSpec(
     format="grouped", backend="cuda",
-    description="MoE expert FFN as block-diagonal grouped matmul (fp32 FMA "
-                "or bf16 wmma tensor cores)",
+    description="MoE expert FFN as block-diagonal grouped matmul (fp32 FMA, "
+                "or bf16 wgmma fed by a TMA ring)",
     prepare=_grouped_cuda_prepare, run=_grouped_cuda_run,
     estimate=_grouped_estimate, footprint=_grouped_footprint,
     operand="moe"))

@@ -36,6 +36,7 @@ from repro_torch.kernels.csr_spmm import (csr_spmm, csr_spmm_plain,
                                           csr_to_row_tiles, row_tile_layout,
                                           with_work_list)
 from repro_torch.kernels.grouped_matmul import (grouped_matmul,
+                                                grouped_matmul_cuda,
                                                 grouped_matmul_plain)
 from repro_torch.kernels.rowsplit_spmm import (rowsplit_partials_cuda,
                                                rowsplit_partials_plain)
@@ -113,6 +114,41 @@ def test_row_tile_kernels_at_ragged_widths(cuda_device, d):
     m = serving_suite(512)["scale-free"]()
     for fmt in ("csr", "binned", "rowsplit", "bcsr"):
         _run(m, fmt, "f32i32", cuda_device, d=d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("token", ["f32i32", "bf16i32"])
+@pytest.mark.parametrize("d", [1, 31, 33, 64, 200])
+def test_banded_kernel_at_ragged_widths(cuda_device, d, token):
+    """Widths that take each way of staging the B window: one bulk copy
+    (d = 64), 16-byte copies per column slice (d = 200 at fp32), plain
+    loads (rows that are not 16-byte multiples), scalar C stores."""
+    for n in (1024, 1000):
+        _run(banded(n, 5, fill=0.9, seed=d), "dia", token, cuda_device, d=d)
+
+
+def _far_diagonals(n: int, offsets) -> COOMatrix:
+    """Every listed diagonal full, values from a seed."""
+    rows, cols = [], []
+    for off in offsets:
+        r = np.arange(max(0, -off), min(n, n - off))
+        rows.append(r)
+        cols.append(r + off)
+    rows = np.concatenate(rows).astype(np.int32)
+    cols = np.concatenate(cols).astype(np.int32)
+    vals = np.random.default_rng(n).normal(size=rows.shape[0])
+    return COOMatrix(n=n, rows=rows, cols=cols, vals=vals, pattern="far")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("token", ["f32i32", "bf16i32"])
+@pytest.mark.parametrize("d", [16, 64])
+def test_banded_kernel_reads_b_through_l1_for_a_wide_span(cuda_device, d,
+                                                          token):
+    """Offsets 6,000 rows apart: the window would not fit shared memory,
+    so each block reads B through L1 (edge tiles included)."""
+    _run(_far_diagonals(8192, (-3000, 0, 3000)), "dia", token, cuda_device,
+         d=d)
 
 
 def _skewed(n: int = 1024) -> COOMatrix:
@@ -296,11 +332,42 @@ def test_grouped_kernel_matches_plain_version(cuda_device, dtype, bm, k):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("bm", [64, 128])
+@pytest.mark.parametrize("K", [192, 256])
+def test_grouped_bf16_kernel_with_a_padding_only_expert(cuda_device, bm, K):
+    """Expert 1's only row block is padding (zero rows) and must come out
+    zero; K = 192 is a multiple of the 64-deep k step but not of 128, so
+    the kernel wrapper is called directly (the reference's bk is 128)."""
+    rng = np.random.default_rng(bm + K)
+    E, N = 4, 384
+    gids = torch.tensor([0, 0, 1, 2, 3, 3, 3, 0], dtype=torch.int32,
+                        device=cuda_device)
+    x = rng.normal(size=(gids.numel() * bm, K)).astype(np.float32)
+    x[2 * bm:3 * bm] = 0.0
+    x = torch.from_numpy(x).to(cuda_device, torch.bfloat16)
+    w = torch.from_numpy(rng.normal(size=(E, K, N)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    before = kernels.launch_counts()["grouped_matmul"]
+    got = grouped_matmul_cuda(x, w, gids, bm=bm)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["grouped_matmul"] == before + 1
+    ref = grouped_matmul_plain(x, w, gids, bm=bm)
+    absprod = grouped_matmul_plain(x.abs().float(), w.abs().float(), gids,
+                                   bm=bm)
+    g, r = got.double(), ref.double()
+    assert bool(torch.isfinite(g).all())
+    bound = moe_block.grouped_tolerance(absprod.double(), x.dtype, g, r)
+    worst = float((g - r).abs().sub(bound).max())
+    assert worst <= 0, f"grouped bf16 bm={bm} K={K}: exceeds by {worst:.3e}"
+    assert not bool(got[2 * bm:3 * bm].any())
+
+
+@pytest.mark.gpu
 def test_grouped_kernel_refuses_what_it_does_not_tile(cuda_device):
     x = torch.zeros(128, 80, device=cuda_device)
     w = torch.zeros(2, 80, 128, device=cuda_device)
     gids = torch.zeros(4, dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError, match="K % 32"):
+    with pytest.raises(ValueError, match="K % 64"):
         grouped_matmul(x, w, gids, bm=32, bk=16)
     # The ids are checked once, when the spec binds its operand.
     with pytest.raises(ValueError, match="group ids"):

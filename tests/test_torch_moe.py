@@ -222,3 +222,23 @@ def test_inputs_come_from_the_seed():
         assert torch.equal(u, v)
     assert a[0].dtype == a[1].dtype == torch.bfloat16
     assert a[2].dtype == torch.float32
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bm,K,N,ok", [
+    (64, 192, 384, True), (128, 4096, 1536, True), (256, 64, 128, True),
+    (32, 128, 128, False), (128, 96, 128, False), (128, 128, 192, False)])
+def test_cuda_operand_check_states_the_tiles(dtype, bm, K, N, ok):
+    """The CUDA kernels tile by bm % 64, K % 64 and N % 128; the check is
+    plain Python, so it runs here on CPU tensors."""
+    from repro_torch.kernels import grouped_matmul as gm
+    x = torch.zeros(2 * bm, K, dtype=dtype)
+    w = torch.zeros(2, K, N, dtype=dtype)
+    gids = torch.zeros(2, dtype=torch.int32)
+    if ok:
+        gm._check_cuda_operands(x, w, gids, bm)
+    else:
+        with pytest.raises(ValueError, match="bm % 64, K % 64 and N % 128"):
+            gm._check_cuda_operands(x, w, gids, bm)
+    assert gm.tile_rows(dtype, bm) == (
+        128 if dtype == torch.bfloat16 and bm % 128 == 0 else 64)
