@@ -36,7 +36,11 @@ Phases, in order; the first failure stops the run with a nonzero exit:
    kernels with their work list's size (pieces, the largest piece's real
    entries, split tiles); the banded kernel with the diagonals it walks
    (slots read per nonzero, and the host time to derive them from the
-   band), and also at block edges t = 1, 2, 4.  The grouped matmul
+   band), and also at block edges t = 1, 2, 4; the row-split kernels
+   with their fold (carry rows, carries, carry-buffer bytes, empty rows),
+   a check that a call allocates less than the ``[C * W, d]`` window
+   partials the first version wrote, and a check that two calls give C
+   equal bit for bit.  The grouped matmul
    against its plain version on the MoE phase's operands, with
    ``torch._grouped_mm`` (bf16, where this torch has it) or a per-expert
    ``torch.matmul`` loop as the library time; the check must reject two
@@ -133,7 +137,9 @@ EXTRA_RUNS = {"csr_spmm": (("scale-free", "auto"),)}
 RECORD_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms", "bound_layout_ms", "stored_per_nnz",
                "read_per_nnz", "diagonals", "derive_host_ms", "pieces",
-               "largest_piece_nnz", "split_tiles", "real_slots")
+               "largest_piece_nnz", "split_tiles", "real_slots",
+               "carry_rows", "carries", "carry_bytes", "empty_rows",
+               "call_alloc_bytes", "partials_bytes")
 
 #: Every kernel, in the order of the record.
 KERNEL_NAMES = (*KERNELS, "grouped_matmul")
@@ -339,10 +345,12 @@ def empty_cache(dev) -> None:
 
 
 #: Layout fields left out of ``layout_bytes``: the plain versions' owner
-#: ids and band, and the work list derived from the packed arrays.
+#: ids and band, and the work list and carry lists derived from the
+#: packed arrays.
 LAYOUT_SKIP = {"tile_ids", "chunk_visits", "block_rows", "chunk_len",
                "piece_ptr", "piece_owner", "piece_split", "split_tiles",
-               "band"}
+               "band", "last_slot", "shared", "carry_rows", "carry_chunks",
+               "empty_rows"}
 
 
 def diagonal_walk_size(layout, m) -> dict:
@@ -367,6 +375,38 @@ def diagonal_walk_size(layout, m) -> dict:
             "derive_host_ms": derive_ms}
 
 
+def carry_fold_size(layout, wrapper, b) -> dict:
+    """The row-split fold: carry rows, the carries they sum, the carry
+    buffer's bytes and the rows with no entry.  A call must allocate less
+    than the ``[C * W, d]`` fp32 window partials of the first version, and
+    two calls must give C equal bit for bit."""
+    import torch
+    if not hasattr(layout, "carry_rows"):
+        return {}
+    dev, d = b.device, b.shape[1]
+    span = layout.carry_chunks.long()
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    first = wrapper(layout, b)
+    torch.cuda.synchronize(dev)
+    alloc = torch.cuda.max_memory_allocated(dev) - base
+    partials = layout.num_chunks * layout.window * d * 4
+    if alloc >= partials:
+        raise SmokeFailure(f"rowsplit_spmm allocated {alloc} bytes, no less "
+                           f"than the {partials} of [C * W, d] partials")
+    second = wrapper(layout, b)
+    bits = torch.int32 if first.dtype == torch.float32 else torch.int16
+    if not torch.equal(first.view(bits), second.view(bits)):
+        raise SmokeFailure(f"rowsplit_spmm ({b.dtype}): two calls differ")
+    del first, second
+    return {"carry_rows": int(span.shape[0]),
+            "carries": int((span[:, 1] - span[:, 0] + 1).sum()),
+            "carry_bytes": layout.num_chunks * 2 * d * 4,
+            "empty_rows": int(layout.empty_rows.numel()),
+            "call_alloc_bytes": alloc, "partials_bytes": partials}
+
+
 def kernel_row(name, layout, m, b, index_bytes: int, runs: int,
                plain_runs: int) -> dict:
     """One kernel against its plain version on one layout, with times; the
@@ -384,6 +424,7 @@ def kernel_row(name, layout, m, b, index_bytes: int, runs: int,
     err, margin = check_close(f"{name} vs plain ({b.dtype})", out, ref,
                               abs_product(m, b), eps)
     del out, ref
+    fold = carry_fold_size(layout, wrapper, b)
     ms = median_ms(lambda: wrapper(layout, b), runs)
     plain_ms = median_ms(lambda: plain(layout, b), plain_runs)
     a = torch_csr(m, b.device, b.dtype)
@@ -420,7 +461,8 @@ def kernel_row(name, layout, m, b, index_bytes: int, runs: int,
             "library_ms": lib_ms, "bytes": nbytes,
             "layout_bytes": layout_nbytes, "flops": flops,
             "stored_per_nnz": stored / max(m.nnz, 1),
-            **work_list_size(layout), **diagonal_walk_size(layout, m)}
+            **work_list_size(layout), **diagonal_walk_size(layout, m),
+            **fold}
 
 
 def log_row(name: str, structure: str, row: dict) -> None:
@@ -433,6 +475,14 @@ def log_row(name: str, structure: str, row: dict) -> None:
         work += (f"; walks {row['diagonals']} diagonals, read per nonzero "
                  f"{row['read_per_nnz']:.2f}, derived on the host in "
                  f"{row['derive_host_ms']:.1f} ms")
+    if "carry_rows" in row:
+        work += (f"; fold: {row['carry_rows']} carry rows summing "
+                 f"{row['carries']} carries, carry buffer "
+                 f"{row['carry_bytes'] / 1e6:.1f} MB, {row['empty_rows']} "
+                 f"empty rows, a call allocates "
+                 f"{row['call_alloc_bytes'] / 1e6:.1f} MB (partials would "
+                 f"be {row['partials_bytes'] / 1e6:.1f} MB), two calls "
+                 f"equal bit for bit")
     log(f"[kernel] {name} {row['precision']} n={row['n']} ({structure}, "
         f"layout {row['format']}): max|err| {row['max_abs_err']:.3e} (worst "
         f"err - bound {row['margin']:.3e} <= 0), kernel {row['ms']:.4f} ms, "
@@ -637,7 +687,7 @@ def grouped_row(w, routed, runs: int, plain_runs: int) -> dict:
     flops = 2.0 * T * K * N
     # What the kernel's tiling copies into shared memory (from L2 or HBM):
     # every (row tile, column tile) reads its x rows and its w columns.
-    tm = tile_rows(x.dtype, bm)
+    tm = tile_rows(bm)
     tile_bytes = (T // tm) * (N // TILE_N) * K * (tm + TILE_N) * \
         x.element_size()
     empty_cache(x.device)

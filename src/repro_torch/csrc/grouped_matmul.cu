@@ -16,9 +16,15 @@
 // them once, so the weights must stream at close to the memory rate while
 // the tensor cores run.
 //
-// What the design does about it.  fp32 (gmm_f32_kernel): one block of 256
-// threads per 64 x 128 tile; each thread keeps 4 x 8 fp32 accumulators and
-// runs fp32 FMAs over 16-deep k slices staged in shared memory.
+// What the design does about it.  fp32 (gmm_f32_kernel): a register-tiled
+// SGEMM, true fp32 FMA (no TF32, no tensor cores).  One block of 256
+// threads per 128 x 128 output tile (64 x 128 where bm % 128 != 0); each
+// thread keeps 8 x 8 fp32 accumulators and reads its operands for a k step
+// as 4 LDS.128, so shared-memory reads stay off the FMA pipe's way.  The
+// 8-deep k-slices are double-buffered in shared memory, with the next
+// slice's float4 global loads in flight during this slice's FMAs.  The
+// first version (64 x 128 tiles, 4 x 8 accumulators, one buffer) issued 9
+// loads per 32 FMAs and exposed every slice's global-load latency.
 // bf16 (gmm_bf16_kernel): one block per BM x 128 output tile (BM = 128
 // where bm % 128 == 0: two consumer warpgroups, each `wgmma.m64n128k16`;
 // BM = 64 otherwise: one).  A producer warp issues TMA loads of 64-deep k
@@ -43,73 +49,141 @@ namespace {
 
 using namespace repro;
 
-constexpr int TM = 64;        // x rows per fp32 block
-constexpr int TN = 128;       // output columns per block
-constexpr int THREADS = 256;
+// ---- fp32: register-tiled SGEMM on the CUDA cores ---------------------
+constexpr int F_BN = 128;     // output columns per block
+constexpr int F_BK = 8;       // k-slice per stage
+constexpr int F_THREADS = 256;
+constexpr int F_PAD = 4;      // As row pad: conflict-free transposing stores
 
-// ---- fp32: CUDA-core FMA -------------------------------------------------
-constexpr int F_TK = 16;      // k-slice staged per step
-constexpr int F_RM = 4;       // rows per thread
-constexpr int F_CN = 8;       // columns per thread (strided by 16)
+// One block per BM x 128 output tile (BM = 128 or 64, dividing bm, so one
+// expert serves the tile).  Thread (tx, ty) = (tid % 16, tid / 16) owns
+// rows ty * 4 + {0..3} (+ 64 for BM = 128) and columns tx * 4 + {0..3} and
+// tx * 4 + 64 + {0..3}: per k it reads its x values and w values as float4
+// (2 + 2 LDS.128 for 64 FMAs at BM = 128).  The 8-deep k-slices are
+// double-buffered: while the FMAs of slice k run from one half of the
+// shared tiles, the float4 global loads of slice k + 1 are in flight into
+// registers, then stored -- x transposed to k-major -- into the other half.
+// One __syncthreads per slice.
+// Stores one k-slice from registers into a shared stage: x transposed to
+// k-major (4 scalar stores; with the pad a warp's stores hit 32 banks),
+// w as one float4.
+template <int BM>
+__device__ __forceinline__ void store_slice(float (&as)[F_BK][BM + F_PAD],
+                                            float (&bs)[F_BK][F_BN],
+                                            bool a_loader, int a_row, int a_k,
+                                            int b_k, int b_col, float4 a,
+                                            float4 b) {
+  if (a_loader) {
+    as[a_k + 0][a_row] = a.x;
+    as[a_k + 1][a_row] = a.y;
+    as[a_k + 2][a_row] = a.z;
+    as[a_k + 3][a_row] = a.w;
+  }
+  *reinterpret_cast<float4*>(&bs[b_k][b_col]) = b;
+}
 
-__global__ void __launch_bounds__(THREADS)
+template <int BM>
+__global__ void __launch_bounds__(F_THREADS, 2)
     gmm_f32_kernel(const int* __restrict__ gids, const float* __restrict__ x,
                    const float* __restrict__ w, float* __restrict__ out,
                    int K, int N, int bm) {
-  // As holds the x tile transposed (k-major) so a thread reads its 4 rows
-  // as one float4; the +4 pad spreads the transposing stores over banks.
-  __shared__ __align__(16) float As[F_TK][TM + 4];
-  __shared__ __align__(16) float Bs[F_TK][TN];
+  constexpr int RG = BM / 64;   // groups of 4 rows per thread, 64 apart
+  constexpr int RM = 4 * RG;
+  __shared__ __align__(16) float As[2][F_BK][BM + F_PAD];
+  __shared__ __align__(16) float Bs[2][F_BK][F_BN];
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
-  const long long row0 = static_cast<long long>(blockIdx.y) * TM;
-  const int col0 = blockIdx.x * TN;
+  const long long row0 = static_cast<long long>(blockIdx.y) * BM;
+  const int col0 = blockIdx.x * F_BN;
   const long long e = gids[row0 / bm];
-  const float* xb = x + row0 * K;
-  const float* wb = w + e * K * N + col0;
-  float acc[F_RM][F_CN];
-#pragma unroll
-  for (int i = 0; i < F_RM; ++i)
-#pragma unroll
-    for (int j = 0; j < F_CN; ++j) acc[i][j] = 0.f;
+  // Global loads per slice: x row a_row, k a_k..a_k+3 (the first 2 * BM
+  // threads); w k-row b_k, columns b_col..b_col+3 (every thread).
+  const bool a_loader = tid < 2 * BM;
+  const int a_row = (tid / 2) % BM;
+  const int a_k = (tid % 2) * 4;
+  const int b_k = tid / 32;
+  const int b_col = (tid % 32) * 4;
+  const float* xp = x + (row0 + a_row) * K + a_k;
+  const float* wp = w + (e * K + b_k) * N + col0 + b_col;
+  const long long w_step = static_cast<long long>(F_BK) * N;
 
-  for (int k0 = 0; k0 < K; k0 += F_TK) {
+  float acc[RM][8];
 #pragma unroll
-    for (int r = 0; r < TM * F_TK / THREADS; ++r) {
-      const int i = tid + r * THREADS;
-      const int m = i / F_TK;
-      const int kk = i % F_TK;
-      As[kk][m] = xb[static_cast<long long>(m) * K + k0 + kk];
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  float4 a_next = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 b_next = *reinterpret_cast<const float4*>(wp);
+  if (a_loader) a_next = *reinterpret_cast<const float4*>(xp);
+  store_slice<BM>(As[0], Bs[0], a_loader, a_row, a_k, b_k, b_col, a_next,
+                  b_next);
+  __syncthreads();
+
+  const int steps = K / F_BK;
+  for (int kt = 0; kt < steps; ++kt) {
+    const int s = kt & 1;
+    const bool more = kt + 1 < steps;
+    if (more) {
+      b_next = *reinterpret_cast<const float4*>(wp + (kt + 1) * w_step);
+      if (a_loader)
+        a_next = *reinterpret_cast<const float4*>(xp + (kt + 1) * F_BK);
     }
 #pragma unroll
-    for (int r = 0; r < F_TK * TN / THREADS; ++r) {
-      const int i = tid + r * THREADS;
-      const int kk = i / TN;
-      const int nn = i % TN;
-      Bs[kk][nn] = wb[static_cast<long long>(k0 + kk) * N + nn];
+    for (int kk = 0; kk < F_BK; ++kk) {
+      float a[RM], bv[8];
+#pragma unroll
+      for (int g = 0; g < RG; ++g) {
+        const float4 t =
+            *reinterpret_cast<const float4*>(&As[s][kk][ty * 4 + 64 * g]);
+        a[4 * g + 0] = t.x;
+        a[4 * g + 1] = t.y;
+        a[4 * g + 2] = t.z;
+        a[4 * g + 3] = t.w;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 t =
+            *reinterpret_cast<const float4*>(&Bs[s][kk][tx * 4 + 64 * h]);
+        bv[4 * h + 0] = t.x;
+        bv[4 * h + 1] = t.y;
+        bv[4 * h + 2] = t.z;
+        bv[4 * h + 3] = t.w;
+      }
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < F_TK; ++kk) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&As[kk][ty * F_RM]);
-      const float a[F_RM] = {a4.x, a4.y, a4.z, a4.w};
-      float bv[F_CN];
-#pragma unroll
-      for (int j = 0; j < F_CN; ++j) bv[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < F_RM; ++i)
-#pragma unroll
-        for (int j = 0; j < F_CN; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
+    // The other half was last read in slice kt - 1, before the barrier
+    // that ended it.
+    if (more)
+      store_slice<BM>(As[s ^ 1], Bs[s ^ 1], a_loader, a_row, a_k, b_k, b_col,
+                      a_next, b_next);
     __syncthreads();
   }
 #pragma unroll
-  for (int i = 0; i < F_RM; ++i) {
-    float* o = out + (row0 + ty * F_RM + i) * N + col0 + tx;
+  for (int i = 0; i < RM; ++i) {
+    float* o = out + (row0 + ty * 4 + 64 * (i / 4) + i % 4) * N + col0 +
+               tx * 4;
 #pragma unroll
-    for (int j = 0; j < F_CN; ++j) o[16 * j] = acc[i][j];
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float4*>(o + 64 * h) =
+          make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                      acc[i][4 * h + 3]);
   }
+}
+
+template <int BM>
+cudaError_t launch_f32(const int* gids, const void* x, const void* w,
+                       void* out, long long T, int K, int N, int bm,
+                       cudaStream_t stream) {
+  const dim3 grid(N / F_BN, static_cast<unsigned>(T / BM));
+  gmm_f32_kernel<BM><<<grid, F_THREADS, 0, stream>>>(
+      gids, static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<float*>(out), K, N, bm);
+  return cudaGetLastError();
 }
 
 // ---- bf16: TMA ring feeding wgmma ----------------------------------------
@@ -357,15 +431,14 @@ extern "C" int grouped_matmul_launch(int value_type, const void* group_ids,
   if (T < 64 || bm < 64 || bm % 64 || T % bm || K < BK || K % BK ||
       N < BN || N % BN || E < 1 || T / 64 > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int* gids = static_cast<const int*>(group_ids);
   if (value_type == VALUE_F32) {
-    dim3 grid(N / TN, static_cast<unsigned>(T / TM));
-    gmm_f32_kernel<<<grid, THREADS, 0, s>>>(
-        static_cast<const int*>(group_ids), static_cast<const float*>(x),
-        static_cast<const float*>(w), static_cast<float*>(out), K, N, bm);
-    return static_cast<int>(cudaGetLastError());
+    if (bm % 128 == 0)
+      return static_cast<int>(launch_f32<128>(gids, x, w, out, T, K, N, bm,
+                                              s));
+    return static_cast<int>(launch_f32<64>(gids, x, w, out, T, K, N, bm, s));
   }
   if (value_type == VALUE_BF16) {
-    const int* gids = static_cast<const int*>(group_ids);
     if (bm % 128 == 0)
       return static_cast<int>(launch_bf16<128>(gids, x, w, out, T, K, N, E,
                                                bm, s));

@@ -9,10 +9,11 @@ of the blocked regime (z = t):
     out[i*bm:(i+1)*bm] = x[i*bm:(i+1)*bm] @ w[group_ids[i]]
 
 :func:`grouped_matmul` launches the hand-written kernel
-``csrc/grouped_matmul.cu`` for CUDA operands (fp32 FMA on CUDA cores for
-float32; for bfloat16, ``wgmma`` fed by a ring of TMA loads, 128-row tiles
-where ``bm % 128 == 0`` and 64-row tiles otherwise; fp32 accumulators
-either way) and takes the plain PyTorch version
+``csrc/grouped_matmul.cu`` for CUDA operands (for float32 a
+double-buffered register-tiled SGEMM, true fp32 FMA on the CUDA cores; for
+bfloat16, ``wgmma`` fed by a ring of TMA loads; 128-row tiles where
+``bm % 128 == 0`` and 64-row tiles otherwise, fp32 accumulators either
+way) and takes the plain PyTorch version
 :func:`grouped_matmul_plain` for CPU operands.  Products are exact in fp32,
 sums run in fp32 and the output is cast once to x's dtype, as the
 reference's ``preferred_element_type=float32``.
@@ -36,10 +37,10 @@ LAUNCHES = 0
 TILE_M, TILE_N, TILE_K = 64, 128, 64
 
 
-def tile_rows(dtype: torch.dtype, bm: int) -> int:
-    """Rows of x per output tile of the CUDA kernel: 128 for bf16 where
-    ``bm % 128 == 0``, else :data:`TILE_M`."""
-    return 128 if dtype == torch.bfloat16 and bm % 128 == 0 else TILE_M
+def tile_rows(bm: int) -> int:
+    """Rows of x per output tile of the CUDA kernel, at either dtype: 128
+    where ``bm % 128 == 0``, else :data:`TILE_M`."""
+    return 128 if bm % 128 == 0 else TILE_M
 
 
 def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor,

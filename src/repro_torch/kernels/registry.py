@@ -54,8 +54,10 @@ BACKENDS: Tuple[str, ...] = ("torch", "cuda")
 #: calibrations so a stale one is flagged.  1 = the first CUDA kernels,
 #: 2 = the row-split and grouped-matmul kernels, 3 = the work-piece walk of
 #: CSR and binned, with binned's fold in the kernel, 4 = the banded
-#: kernel's diagonal walk and the bf16 grouped matmul on wgmma + TMA.
-REGISTRY_VERSION: int = 4
+#: kernel's diagonal walk and the bf16 grouped matmul on wgmma + TMA, 5 =
+#: row-split's fold in the kernel and the fp32 grouped matmul as a
+#: register-tiled SGEMM.
+REGISTRY_VERSION: int = 5
 
 
 def pallas_block_d(d: int) -> int:
@@ -621,8 +623,9 @@ def _rowsplit_cuda_footprint(n: int, d: int, ctx: KernelContext) -> int:
 
 register(KernelSpec(
     format="rowsplit", backend="cuda",
-    description="equal-nnz row-split kernel: per-chunk fp32 row windows, "
-                "index_add_ fold through row_map",
+    description="equal-nnz row-split kernel: one warp per chunk stores "
+                "the rows it owns into C, shared end rows go to fp32 "
+                "carries that a second launch sums in chunk order",
     prepare=_rowsplit_cuda_prepare, run=_rowsplit_cuda_run,
     estimate=_rowsplit_estimate("rowsplit_spmm"),
     footprint=_rowsplit_cuda_footprint,

@@ -38,8 +38,8 @@ from repro_torch.kernels.csr_spmm import (csr_spmm, csr_spmm_plain,
 from repro_torch.kernels.grouped_matmul import (grouped_matmul,
                                                 grouped_matmul_cuda,
                                                 grouped_matmul_plain)
-from repro_torch.kernels.rowsplit_spmm import (rowsplit_partials_cuda,
-                                               rowsplit_partials_plain)
+from repro_torch.kernels.rowsplit_spmm import (rowsplit_spmm,
+                                               rowsplit_spmm_plain)
 from repro_torch.launch import moe_block
 from repro_torch.sparse.formats import coo_to_dense, csr_host_arrays
 
@@ -88,7 +88,10 @@ def _run(m, fmt, token, device, d=16, t=32):
     before = kernels.launch_counts()[name]
     got = spec.run(layout, b, ctx)
     torch.cuda.synchronize()
-    assert kernels.launch_counts()[name] == before + 1
+    # Row-split's second kernel sums the carry rows and zeroes empty rows.
+    launches = 2 if name == "rowsplit_spmm" and (
+        layout.carry_rows.numel() + layout.empty_rows.numel()) else 1
+    assert kernels.launch_counts()[name] == before + launches
     ref = getattr(mod, f"{name}_plain")(layout, b)
     _check(m, got, ref, b, prec.eps, f"{fmt}/{token} n={m.n}")
 
@@ -157,32 +160,6 @@ def _skewed(n: int = 1024) -> COOMatrix:
     cols = np.concatenate([np.arange(n), np.arange(n)]).astype(np.int32)
     vals = (1.0 + np.arange(2 * n)) / n
     return COOMatrix(n=n, rows=rows, cols=cols, vals=vals, pattern="skew")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("structure", ["skew", "scale-free"])
-def test_rowsplit_kernel_writes_every_window_slot(cuda_device, structure):
-    """Slots past a chunk's last row map to real rows of later chunks, so
-    the kernel must write them as zeros (its partials are torch.empty)."""
-    m = _skewed() if structure == "skew" else \
-        serving_suite(1024)["scale-free"]()
-    ctx = registry.KernelContext(plan_d=40, device=cuda_device)
-    layout = registry.get("rowsplit", "cuda").prepare(m, ctx)
-    b = torch.from_numpy(np.random.default_rng(1).normal(
-        size=(m.n, 40)).astype(np.float32)).to(cuda_device)
-    torch.full((layout.num_chunks * layout.window, 40), float("nan"),
-               device=cuda_device)      # leave garbage in the cache
-    got = rowsplit_partials_cuda(layout, b)
-    ref = rowsplit_partials_plain(layout, b)
-    torch.cuda.synchronize()
-    used = torch.zeros(layout.num_chunks, layout.window, dtype=torch.bool,
-                       device=cuda_device)
-    used.scatter_(1, layout.slots.long(), True)
-    unused = ~used.reshape(-1)
-    assert bool((got[unused] == 0).all()), "an unused slot was not zeroed"
-    assert bool(torch.isfinite(got).all())
-    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
-    _run(m, "rowsplit", "bf16i16", cuda_device, d=40)
 
 
 #: Row-tile format -> (packer, layout builder, kernel, plain version).
@@ -262,6 +239,103 @@ def _with_empty_tiles(n: int = 2048, zeros: bool = False) -> COOMatrix:
                      pattern="custom")
 
 
+def _hub_with_empty_rows(n: int = 2048) -> COOMatrix:
+    """``_with_empty_tiles`` with row 3 holding every column (a hub over
+    n / 128 chunks) and the last row empty."""
+    m = _with_empty_tiles(n)
+    keep = (m.rows != 3) & (m.rows != n - 1)
+    rows = np.concatenate([m.rows[keep], np.full(n, 3)])
+    cols = np.concatenate([m.cols[keep], np.arange(n)])
+    vals = np.concatenate([m.vals[keep],
+                           np.random.default_rng(n).normal(size=n)])
+    order = np.lexsort((cols, rows))
+    return COOMatrix(n=n, rows=rows[order].astype(np.int32),
+                     cols=cols[order].astype(np.int32), vals=vals[order],
+                     pattern="custom")
+
+
+#: Row-split test matrices: a hub row over many chunks with empty rows
+#: (the last included), one hub next to singleton rows, and scale-free.
+ROWSPLIT_MATRICES = {"hub-empty": _hub_with_empty_rows,
+                     "skew": _skewed,
+                     "scale-free": lambda: serving_suite(1024)["scale-free"]()}
+
+
+def _rowsplit_case(m, token, device, d):
+    """Pack ``m`` for the row-split kernels, run them once on C and carry
+    buffers that hold NaN from the allocator's cache, and hold C against
+    the plain version.  Returns ``(layout, b, C)``."""
+    prec = as_precision(token)
+    ctx = registry.KernelContext(plan_d=d, precision=prec, device=device)
+    layout = registry.get("rowsplit", "cuda").prepare(m, ctx)
+    b = torch.from_numpy(np.random.default_rng(d).normal(
+        size=(m.n, d)).astype(np.float32)).to(device, prec.value_torch)
+    torch.full((m.n, d), float("nan"), dtype=b.dtype, device=device)
+    torch.full((layout.num_chunks, 2, d), float("nan"), device=device)
+    before = kernels.launch_counts()["rowsplit_spmm"]
+    got = rowsplit_spmm(layout, b)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["rowsplit_spmm"] == before + 2
+    _sparse_check(m, got, rowsplit_spmm_plain(layout, b), b, prec.eps,
+                  f"rowsplit/{token} n={m.n} d={d}")
+    return layout, b, got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("token", ["f32i32", "bf16i32", "bf16i16"])
+@pytest.mark.parametrize("d", [1, 40, 64, 130])
+def test_rowsplit_kernel_at_ragged_widths(cuda_device, d, token):
+    """Odd d takes scalar loads, even d one vector per lane; d = 130 runs
+    three column slices, the last two columns wide."""
+    m = _hub_with_empty_rows()
+    layout, _, got = _rowsplit_case(m, token, cuda_device, d)
+    assert layout.carry_rows.numel() and layout.empty_rows.numel()
+    assert not bool(got[layout.empty_rows.long()].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("structure", sorted(ROWSPLIT_MATRICES))
+def test_rowsplit_kernel_writes_every_row_of_a_dirty_buffer(cuda_device,
+                                                          structure):
+    """C and the carry buffer come from torch.empty with NaN left in the
+    allocator's cache: every row of C must be written -- owned rows, carry
+    rows and the rows with no entry, as zeros."""
+    m = ROWSPLIT_MATRICES[structure]()
+    layout, _, got = _rowsplit_case(m, "f32i32", cuda_device, 40)
+    assert bool(torch.isfinite(got).all())
+    empty = torch.ones(m.n, dtype=torch.bool, device=cuda_device)
+    empty[torch.from_numpy(m.rows.astype(np.int64)).to(cuda_device)] = False
+    assert torch.equal(torch.nonzero(empty).flatten(),
+                       layout.empty_rows.long())
+    assert not bool(got[empty].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("token", ["f32i32", "bf16i32", "bf16i16"])
+def test_rowsplit_kernel_is_deterministic_without_partials(cuda_device,
+                                                          token,
+                                                          monkeypatch):
+    """Two calls give C equal bit for bit; the CUDA path calls no
+    index_add_ and allocates less than the [C * W, d] fp32 window
+    partials it once wrote."""
+    m = serving_suite(4096)["scale-free"]()
+    layout, b, first = _rowsplit_case(m, token, cuda_device, 64)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("index_add_ on the CUDA path")
+    monkeypatch.setattr(torch.Tensor, "index_add_", refuse)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda_device)
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    second = rowsplit_spmm(layout, b)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(cuda_device) - base
+    partials = layout.num_chunks * layout.window * 64 * 4
+    assert peak < partials, f"{peak} bytes allocated, partials {partials}"
+    bits = torch.int32 if first.dtype == torch.float32 else torch.int16
+    assert torch.equal(first.view(bits), second.view(bits))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("token", ["f32i32", "bf16i32"])
 @pytest.mark.parametrize("fmt", ["csr", "binned"])
@@ -331,22 +405,19 @@ def test_grouped_kernel_matches_plain_version(cuda_device, dtype, bm, k):
     moe_block.expert_error(x, w, routed, got)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("bm", [64, 128])
-@pytest.mark.parametrize("K", [192, 256])
-def test_grouped_bf16_kernel_with_a_padding_only_expert(cuda_device, bm, K):
+def _grouped_padding_case(device, dtype, bm: int, K: int) -> None:
     """Expert 1's only row block is padding (zero rows) and must come out
-    zero; K = 192 is a multiple of the 64-deep k step but not of 128, so
-    the kernel wrapper is called directly (the reference's bk is 128)."""
+    zero; the kernel wrapper is called directly, so K need only divide by
+    the 64-deep k step (the reference's bk is 128)."""
     rng = np.random.default_rng(bm + K)
     E, N = 4, 384
     gids = torch.tensor([0, 0, 1, 2, 3, 3, 3, 0], dtype=torch.int32,
-                        device=cuda_device)
+                        device=device)
     x = rng.normal(size=(gids.numel() * bm, K)).astype(np.float32)
     x[2 * bm:3 * bm] = 0.0
-    x = torch.from_numpy(x).to(cuda_device, torch.bfloat16)
+    x = torch.from_numpy(x).to(device, dtype)
     w = torch.from_numpy(rng.normal(size=(E, K, N)).astype(np.float32)).to(
-        cuda_device, torch.bfloat16)
+        device, dtype)
     before = kernels.launch_counts()["grouped_matmul"]
     got = grouped_matmul_cuda(x, w, gids, bm=bm)
     torch.cuda.synchronize()
@@ -355,11 +426,28 @@ def test_grouped_bf16_kernel_with_a_padding_only_expert(cuda_device, bm, K):
     absprod = grouped_matmul_plain(x.abs().float(), w.abs().float(), gids,
                                    bm=bm)
     g, r = got.double(), ref.double()
-    assert bool(torch.isfinite(g).all())
+    assert got.dtype == dtype and bool(torch.isfinite(g).all())
     bound = moe_block.grouped_tolerance(absprod.double(), x.dtype, g, r)
     worst = float((g - r).abs().sub(bound).max())
-    assert worst <= 0, f"grouped bf16 bm={bm} K={K}: exceeds by {worst:.3e}"
+    assert worst <= 0, f"grouped {dtype} bm={bm} K={K}: exceeds by {worst:.3e}"
     assert not bool(got[2 * bm:3 * bm].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bm", [64, 128])
+@pytest.mark.parametrize("K", [192, 256])
+def test_grouped_bf16_kernel_with_a_padding_only_expert(cuda_device, bm, K):
+    """K = 192 is a multiple of the 64-deep k step but not of 128."""
+    _grouped_padding_case(cuda_device, torch.bfloat16, bm, K)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bm", [64, 128])
+@pytest.mark.parametrize("K", [192, 4096])
+def test_grouped_f32_kernel_with_a_padding_only_expert(cuda_device, bm, K):
+    """The 64-row and the 128-row tile, over 24 and 512 k-slices of the
+    double buffer."""
+    _grouped_padding_case(cuda_device, torch.float32, bm, K)
 
 
 @pytest.mark.gpu

@@ -240,5 +240,4 @@ def test_cuda_operand_check_states_the_tiles(dtype, bm, K, N, ok):
     else:
         with pytest.raises(ValueError, match="bm % 64, K % 64 and N % 128"):
             gm._check_cuda_operands(x, w, gids, bm)
-    assert gm.tile_rows(dtype, bm) == (
-        128 if dtype == torch.bfloat16 and bm % 128 == 0 else 64)
+    assert gm.tile_rows(bm) == (128 if bm % 128 == 0 else 64)
