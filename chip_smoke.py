@@ -16,8 +16,11 @@ Phases, in order; the first failure stops the run with a nonzero exit:
    plus scale-free forced onto the binned and the row-split kernels
    (``--spmm-strategy binned`` / ``rowsplit``), the scale-free regime's
    own kernels.  Every kernel's launch counter is zeroed before the phase
-   and read after it; each run's chosen kernel must have launched.  The
-   last request's C is held against the port's ``"torch"`` backend on the
+   and read after it; each run's chosen kernel must have launched.  A run
+   on the BCSR kernel must have launched only the variant that
+   ``bcsr_variant`` names for its shape, and ``moe-block``'s must be a fast
+   one (``tile64_f32`` at fp32, ``wgmma_bf16`` at bf16).  The last
+   request's C is held against the port's ``"torch"`` backend on the
    card.
 3. **moe** (the MoE path): ``repro_torch.launch.moe_block`` at
    qwen3-moe-235b-a22b's expert widths (4096 tokens, top-8 of 128
@@ -40,7 +43,12 @@ Phases, in order; the first failure stops the run with a nonzero exit:
    with their fold (carry rows, carries, carry-buffer bytes, empty rows),
    a check that a call allocates less than the ``[C * W, d]`` window
    partials the first version wrote, and a check that two calls give C
-   equal bit for bit.  The grouped matmul
+   equal bit for bit; the BCSR kernel with the variant each precision
+   launched (checked against ``bcsr_variant``), a check that two calls
+   give C equal bit for bit, and ``torch.sparse.mm`` with A as BSR (the
+   layout's t x t blocks, B's dtype) as a second library time,
+   ``library_bsr_ms`` (None, with the error logged, where this torch has
+   no such product).  The grouped matmul
    against its plain version on the MoE phase's operands, with
    ``torch._grouped_mm`` (bf16, where this torch has it) or a per-expert
    ``torch.matmul`` loop as the library time; the check must reject two
@@ -139,7 +147,8 @@ RECORD_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "read_per_nnz", "diagonals", "derive_host_ms", "pieces",
                "largest_piece_nnz", "split_tiles", "real_slots",
                "carry_rows", "carries", "carry_bytes", "empty_rows",
-               "call_alloc_bytes", "partials_bytes")
+               "call_alloc_bytes", "partials_bytes", "variant",
+               "library_bsr_ms")
 
 #: Every kernel, in the order of the record.
 KERNEL_NAMES = (*KERNELS, "grouped_matmul")
@@ -251,6 +260,8 @@ def serve_phase(n: int, steps: int, dev) -> dict:
     from repro_torch.launch import serve
     from repro_torch.sparse.dispatch import Dispatcher
 
+    from repro_torch.kernels import bcsr_spmm as bcsr_module
+
     matrices, dispatchers, runs = {}, {}, {}
     kernels.reset_launch_counts()
     for structure, strategy in SERVE_RUNS:
@@ -267,6 +278,7 @@ def serve_phase(n: int, steps: int, dev) -> dict:
              "--spmm-steps", str(steps), "--spmm-strategy", strategy,
              "--device", str(dev)])
         before = kernels.launch_counts()
+        variants_before = dict(bcsr_module.LAUNCHES_BY_VARIANT)
         log(f"[serve] === {structure} (strategy {strategy}) ===")
         rec = serve.serve_spmm_stream(args, dispatcher=dispatchers[structure],
                                       matrix=matrices[structure])
@@ -282,10 +294,13 @@ def serve_phase(n: int, steps: int, dev) -> dict:
         if delta <= 0:
             raise SmokeFailure(f"{structure}: kernel {kernel} of the chosen "
                                f"format {plan.chosen} never launched")
+        prec = as_precision(plan.precision)
+        if kernel == "bcsr_spmm":
+            bcsr_fast_path(structure, plan.layout.t, prec.value_torch, delta,
+                           variants_before)
         # Hold the last request's C against the torch backend on the card.
         m = matrices[structure]
         b, c = rec["last"]
-        prec = as_precision(plan.precision)
         disp = dispatchers[structure]
         ctx = registry.KernelContext(
             bcsr_block=disp.bcsr_block, plan_d=D, precision=prec,
@@ -304,6 +319,25 @@ def serve_phase(n: int, steps: int, dev) -> dict:
     log(f"[serve] launches on the serving path: {counts}")
     return {"runs": runs, "counts": counts, "matrices": matrices,
             "dispatchers": dispatchers}
+
+
+def bcsr_fast_path(structure: str, t: int, dtype, launches: int,
+                   before: dict) -> None:
+    """A serving run's BCSR launches must all have taken the variant
+    ``bcsr_variant`` names for (t, d, dtype); ``moe-block``'s a fast one."""
+    from repro_torch.kernels import bcsr_spmm as bcsr_module
+    want = bcsr_module.bcsr_variant(t, D, dtype)
+    moved = {k: v - before[k]
+             for k, v in bcsr_module.LAUNCHES_BY_VARIANT.items()
+             if v != before[k]}
+    log(f"[serve] {structure}: bcsr_spmm launches by variant {moved} "
+        f"(t={t}, d={D}, {dtype})")
+    if moved != {want: launches}:
+        raise SmokeFailure(f"{structure}: bcsr_spmm launched {moved}, not "
+                           f"{launches} x {want}")
+    if structure == "moe-block" and want == "generic":
+        raise SmokeFailure(f"moe-block: bcsr_spmm took the generic kernel "
+                           f"at t={t}, {dtype}")
 
 
 def moe_phase(quick: bool, dev) -> dict:
@@ -407,6 +441,54 @@ def carry_fold_size(layout, wrapper, b) -> dict:
             "call_alloc_bytes": alloc, "partials_bytes": partials}
 
 
+def bcsr_variant_run(layout, wrapper, b) -> dict:
+    """The BCSR kernel's variant: a call must launch the one
+    ``bcsr_variant`` names, and two calls must give C equal bit for bit."""
+    import torch
+    if not hasattr(layout, "block_ptr"):
+        return {}
+    from repro_torch.kernels import bcsr_spmm as bcsr_module
+    want = bcsr_module.bcsr_variant(layout.t, b.shape[1], b.dtype)
+    before = dict(bcsr_module.LAUNCHES_BY_VARIANT)
+    first = wrapper(layout, b)
+    second = wrapper(layout, b)
+    moved = {k: v - before[k]
+             for k, v in bcsr_module.LAUNCHES_BY_VARIANT.items()
+             if v != before[k]}
+    if moved != {want: 2}:
+        raise SmokeFailure(f"bcsr_spmm ({b.dtype}): two calls launched "
+                           f"{moved}, not 2 x {want}")
+    bits = torch.int32 if first.dtype == torch.float32 else torch.int16
+    if not torch.equal(first.view(bits), second.view(bits)):
+        raise SmokeFailure(f"bcsr_spmm ({b.dtype}): two calls differ")
+    del first, second
+    return {"variant": want}
+
+
+def bsr_library_row(layout, b, runs: int) -> dict:
+    """``torch.sparse.mm`` with A as BSR of the layout's t x t blocks in
+    B's dtype, or None (the error logged) where this torch has no such
+    product.  The BSR tensor is built from the layout's own block arrays:
+    ``to_sparse_bsr((t, t))`` of the CSR tensor gives the same blocks, but
+    its conversion time grows faster than n and does not finish at
+    n = 2**20 within a run's time limit."""
+    import torch
+    from repro_torch.core.device import median_ms
+    if not hasattr(layout, "block_ptr"):
+        return {}
+    try:
+        a = torch.sparse_bsr_tensor(layout.block_ptr.long(),
+                                    layout.block_cols.long(), layout.blocks,
+                                    size=(layout.n, layout.n))
+        ms = median_ms(lambda: torch.sparse.mm(a, b), runs)
+    except (RuntimeError, NotImplementedError, TypeError, ValueError) as e:
+        log(f"[kernel] torch.sparse.mm with A as BSR at {b.dtype}: "
+            f"{type(e).__name__}: {e}")
+        ms = None
+    empty_cache(b.device)
+    return {"library_bsr_ms": ms}
+
+
 def kernel_row(name, layout, m, b, index_bytes: int, runs: int,
                plain_runs: int) -> dict:
     """One kernel against its plain version on one layout, with times; the
@@ -425,6 +507,7 @@ def kernel_row(name, layout, m, b, index_bytes: int, runs: int,
                               abs_product(m, b), eps)
     del out, ref
     fold = carry_fold_size(layout, wrapper, b)
+    variant = bcsr_variant_run(layout, wrapper, b)
     ms = median_ms(lambda: wrapper(layout, b), runs)
     plain_ms = median_ms(lambda: plain(layout, b), plain_runs)
     a = torch_csr(m, b.device, b.dtype)
@@ -434,6 +517,7 @@ def kernel_row(name, layout, m, b, index_bytes: int, runs: int,
         log(f"[kernel] torch.sparse.mm at {b.dtype}: {e}")
         lib_ms = None
     del a
+    bsr = bsr_library_row(layout, b, runs)
     bc_bytes = 2 * b.numel() * b.element_size()
     # What the inputs need: A in the smaller of CSR at the layout's widths
     # and the packed layout (a blocked layout stores each value once and
@@ -462,7 +546,7 @@ def kernel_row(name, layout, m, b, index_bytes: int, runs: int,
             "layout_bytes": layout_nbytes, "flops": flops,
             "stored_per_nnz": stored / max(m.nnz, 1),
             **work_list_size(layout), **diagonal_walk_size(layout, m),
-            **fold}
+            **fold, **variant, **bsr}
 
 
 def log_row(name: str, structure: str, row: dict) -> None:
@@ -475,6 +559,10 @@ def log_row(name: str, structure: str, row: dict) -> None:
         work += (f"; walks {row['diagonals']} diagonals, read per nonzero "
                  f"{row['read_per_nnz']:.2f}, derived on the host in "
                  f"{row['derive_host_ms']:.1f} ms")
+    if "variant" in row:
+        work += (f"; variant {row['variant']} (two calls equal bit for "
+                 f"bit), torch.sparse.mm with A as BSR "
+                 f"{row['library_bsr_ms']} ms")
     if "carry_rows" in row:
         work += (f"; fold: {row['carry_rows']} carry rows summing "
                  f"{row['carries']} carries, carry buffer "

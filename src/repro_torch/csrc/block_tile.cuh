@@ -1,5 +1,6 @@
 // Dense t x t block times a t x 32 B tile, accumulated in registers: the
-// body of the BCSR kernel (bcsr_spmm.cu).
+// body of the generic BCSR kernel (bcsr_spmm.cu), which serves every shape
+// the t = 64 variants do not take.
 //
 // A thread block has 256 threads laid out as 32 columns x 8 row groups; the
 // thread (ty, tx) owns column tx of the block's 32-column C slice and rows

@@ -40,8 +40,6 @@
 // column tiles fastest: the blocks resident at one time cover a few
 // consecutive row tiles, so each expert's weight tiles are shared through
 // L2 and read from HBM about once.
-#include <cuda.h>
-
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -203,64 +201,6 @@ struct Tile {
       static_cast<size_t>(STAGES) * STAGE_BYTES + 1024 + 2 * STAGES * 8;
 };
 
-// A wgmma shared-memory descriptor with 128-byte swizzle (layout type 1).
-// K-major A: rows of 128 bytes, 8-row groups 1024 bytes apart (SBO).
-// MN-major B: 64-column atoms 8 KB apart (LBO), 8-k-row groups 1024 bytes
-// apart (SBO).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-// d[64] += A (64 x 16, K-major) @ B (16 x 128, MN-major), bf16 -> fp32.
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
-                                                 uint64_t desc_a,
-                                                 uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, 0, 1;\n"
-      "}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
-}
-
-// Keep the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 template <int BM>
 __global__ void __launch_bounds__(Tile<BM>::THREADS, 1)
     gmm_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
@@ -321,8 +261,8 @@ __global__ void __launch_bounds__(Tile<BM>::THREADS, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_m64n128k16(d, sw128_desc(a0 + kk * 32, 16, 1024),
-                         sw128_desc(b0 + kk * 16 * 128, HALF_B_BYTES, 1024));
+        wgmma_bf16<BN>(d, sw128_desc(a0 + kk * 32, 16, 1024),
+                       sw128_desc(b0 + kk * 16 * 128, HALF_B_BYTES, 1024));
       wgmma_commit();
       fence_acc(d);
       // The group before this one is done: release its stage.
@@ -349,47 +289,6 @@ __global__ void __launch_bounds__(Tile<BM>::THREADS, 1)
           __floats2bfloat162_rn(d[4 * j + 2], d[4 * j + 3]);
     }
   }
-}
-
-// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
-// query so the library links against nothing but cudart.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A bf16 tensor map with 128-byte swizzle: dims/box innermost first.
-bool make_map(CUtensorMap* map, const void* base, int rank,
-              const cuuint64_t* dims, const cuuint64_t* strides,
-              const cuuint32_t* box) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint32_t ones[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-            const_cast<void*>(base), dims, strides, box, ones,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int BM>

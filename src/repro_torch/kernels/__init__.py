@@ -5,7 +5,9 @@ matmul, and their registry.
 ``KernelSpec`` (layout prep, launch, roofline estimate, footprint) per
 ``(format, backend)`` pair.  Each kernel module holds the host packer, the
 CUDA wrapper, the plain PyTorch version and a launch counter
-(``<module>.LAUNCHES``); :func:`launch_counts` reads them all.
+(``<module>.LAUNCHES``; a module with several kernel variants also counts
+them by variant, ``<module>.LAUNCHES_BY_VARIANT``); :func:`launch_counts`
+reads them all.
 """
 from repro_torch.kernels import (banded_spmm, bcsr_spmm, binned_spmm,
                                  csr_spmm, grouped_matmul, registry,
@@ -28,9 +30,11 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch counter to 0."""
+    """Set every kernel's launch counter to 0, per-variant counters too."""
     for mod in KERNEL_MODULES.values():
         mod.LAUNCHES = 0
+        for variant in getattr(mod, "LAUNCHES_BY_VARIANT", {}):
+            mod.LAUNCHES_BY_VARIANT[variant] = 0
 
 
 __all__ = [

@@ -56,8 +56,9 @@ BACKENDS: Tuple[str, ...] = ("torch", "cuda")
 #: CSR and binned, with binned's fold in the kernel, 4 = the banded
 #: kernel's diagonal walk and the bf16 grouped matmul on wgmma + TMA, 5 =
 #: row-split's fold in the kernel and the fp32 grouped matmul as a
-#: register-tiled SGEMM.
-REGISTRY_VERSION: int = 5
+#: register-tiled SGEMM, 6 = the BCSR kernel's t = 64 variants (a block
+#: ring across block rows: register-tiled fp32, TMA + wgmma at bf16).
+REGISTRY_VERSION: int = 6
 
 
 def pallas_block_d(d: int) -> int:
@@ -673,8 +674,10 @@ def _bcsr_cuda_footprint(n: int, d: int, ctx: KernelContext) -> int:
 
 register(KernelSpec(
     format="bcsr", backend="cuda",
-    description="dense-block kernel, fp32 FMA on CUDA cores, one block "
-                "per block row",
+    description="dense-block kernel: at t = 64 persistent blocks walk a "
+                "ring of (A block, B tile) pairs across block rows "
+                "(register-tiled fp32 FMA; TMA + wgmma at bf16), else one "
+                "block per block row",
     prepare=_bcsr_cuda_prepare, run=_bcsr_cuda_run,
     estimate=_bcsr_estimate, footprint=_bcsr_cuda_footprint,
     # Block coordinates are per-block metadata, not per-nonzero traffic,

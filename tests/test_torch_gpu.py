@@ -10,7 +10,9 @@ PyTorch and the CUDA toolkit:
 Each SpMM kernel runs at every precision its spec declares, on the
 serving-suite structure of its regime, at small n; the grouped matmul runs
 at fp32 and bf16 on routed tokens (the full-size check is
-``chip_smoke.py``).  Tolerance: ``4 * eps * (|A| @ |B|) + ATOL + RTOL * |C|``
+``chip_smoke.py``).  The BCSR tests also run the reference's adversarial
+set (``tests/test_differential.py``'s ``ADVERSARIAL``, written out here)
+and assert which kernel variant each call launched.  Tolerance: ``4 * eps * (|A| @ |B|) + ATOL + RTOL * |C|``
 per side, the sum of both sides for two computed results; the grouped
 matmul's products are exact in fp32, so it takes
 ``moe_block.grouped_tolerance`` instead.
@@ -25,9 +27,13 @@ import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.core.patterns import COOMatrix, banded, serving_suite
+from repro_torch.core.patterns import (COOMatrix, banded, blocked,
+                                       serving_suite)
 from repro_torch.core.precision import as_precision
+from repro_torch.kernels import bcsr_spmm as bcsr_module
 from repro_torch.kernels import registry
+from repro_torch.kernels.bcsr_spmm import (bcsr_spmm, bcsr_spmm_plain,
+                                           bcsr_variant)
 from repro_torch.kernels.binned_spmm import (binned_spmm,
                                              binned_spmm_plain,
                                              csr_to_slab_bins,
@@ -41,7 +47,8 @@ from repro_torch.kernels.grouped_matmul import (grouped_matmul,
 from repro_torch.kernels.rowsplit_spmm import (rowsplit_spmm,
                                                rowsplit_spmm_plain)
 from repro_torch.launch import moe_block
-from repro_torch.sparse.formats import coo_to_dense, csr_host_arrays
+from repro_torch.sparse.formats import (BCSRMatrix, coo_to_dense,
+                                        csr_host_arrays)
 
 RTOL = ATOL = 5e-4
 
@@ -462,3 +469,159 @@ def test_grouped_kernel_refuses_what_it_does_not_tile(cuda_device):
         registry.get("grouped", "cuda").bind(
             (torch.zeros(1, 128, 128, device=cuda_device), gids[:1] + 1, 128,
              128, 128), registry.KernelContext(device=cuda_device))
+
+
+# ---------------------------------------------------------------------- #
+# BCSR: the t = 64 variants (tile64_f32, wgmma_bf16) and the generic one.
+# ---------------------------------------------------------------------- #
+
+def _adv(n, rows, cols) -> COOMatrix:
+    rows = np.asarray(rows, dtype=np.int32)
+    cols = np.asarray(cols, dtype=np.int32)
+    vals = 1.0 + np.arange(rows.shape[0], dtype=np.float32)
+    return COOMatrix(n=n, rows=rows, cols=cols, vals=vals,
+                     pattern="adversarial")
+
+
+#: The reference's adversarial set, case for case.
+ADVERSARIAL = {
+    "all_zero": _adv(16, [], []),
+    "n1_empty": _adv(1, [], []),
+    "n1_dense": _adv(1, [0], [0]),
+    "single_dense_row": _adv(16, [3] * 16, range(16)),
+    "singleton_rows": _adv(24, range(24),
+                           np.random.default_rng(0).permutation(24)),
+    "empty_rows": _adv(32, [r for r in range(32) if r % 2 == 0] * 2,
+                       list(range(0, 32, 2)) + list(range(1, 32, 2))),
+    "corner": _adv(17, [16, 16, 0], [16, 0, 16]),
+}
+
+ADV_CASES = [(case, t) for case in sorted(ADVERSARIAL)
+             for t in (1, 2, 4, 8, 16, 17) if ADVERSARIAL[case].n % t == 0]
+
+
+def _bcsr_call(layout, b):
+    """One kernel call; asserts that exactly the variant ``bcsr_variant``
+    names for the shape launched, once."""
+    want = bcsr_variant(layout.t, b.shape[1], b.dtype)
+    before = dict(bcsr_module.LAUNCHES_BY_VARIANT)
+    got = bcsr_spmm(layout, b)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k]
+             for k, v in bcsr_module.LAUNCHES_BY_VARIANT.items()}
+    assert moved == {k: int(k == want) for k in moved}, moved
+    return got
+
+
+def _bcsr_check(layout, got, b, what):
+    """``got`` against the plain version; ``|A| @ |B|`` from the plain
+    version on the blocks' and B's magnitudes in fp32 (no dense A)."""
+    ref = bcsr_spmm_plain(layout, b)
+    mag = dataclasses.replace(layout, blocks=layout.blocks.abs().float())
+    absprod = bcsr_spmm_plain(mag, b.abs().float()).double()
+    eps = float(torch.finfo(b.dtype).eps)
+    g, r = got.double(), ref.double()
+    assert g.shape == r.shape and bool(torch.isfinite(g).all()), what
+    bound = 2 * (4.0 * eps * absprod + ATOL) + RTOL * (g.abs() + r.abs())
+    worst = float((g - r).abs().sub(bound).max())
+    assert worst <= 0, f"{what}: exceeds the bound by {worst:.3e}"
+
+
+def _bcsr_prepare(m, token, device, t):
+    ctx = registry.KernelContext(bcsr_block=t, precision=as_precision(token),
+                                 device=device)
+    return registry.get("bcsr", "cuda").prepare(m, ctx)
+
+
+def _bcsr_b(n, d, token, device, seed=0):
+    return torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(n, d)).astype(np.float32)).to(device,
+                                            as_precision(token).value_torch)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 8])
+@pytest.mark.parametrize("token", ["f32i32", "bf16i32"])
+@pytest.mark.parametrize("case,t", ADV_CASES,
+                         ids=[f"{c}-t{t}" for c, t in ADV_CASES])
+def test_bcsr_kernel_on_adversarial(cuda_device, case, t, token, d):
+    m = ADVERSARIAL[case]
+    layout = _bcsr_prepare(m, token, cuda_device, t)
+    b = _bcsr_b(m.n, d, token, cuda_device, seed=d)
+    got = _bcsr_call(layout, b)
+    _bcsr_check(layout, got, b, f"{case} t={t} {token} d={d}")
+    _check(m, got, bcsr_spmm_plain(layout, b), b, as_precision(token).eps,
+           f"{case} t={t} {token} d={d} vs dense")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("token", ["f32i32", "bf16i32"])
+@pytest.mark.parametrize("d", [1, 8, 31, 64, 200])
+@pytest.mark.parametrize("t", [16, 32, 64, 128])
+def test_bcsr_kernel_at_block_edges_and_widths(cuda_device, t, d, token):
+    """Several blocks per block row at every edge; at t = 64 the fast
+    variants take d = 8, 64 and 200 (a ragged last 64-column slice), the
+    generic kernel d = 1 and 31."""
+    m = blocked(1024, 32, 160, 300.0, seed=t + d)
+    layout = _bcsr_prepare(m, token, cuda_device, t)
+    b = _bcsr_b(m.n, d, token, cuda_device)
+    got = _bcsr_call(layout, b)
+    _bcsr_check(layout, got, b, f"t={t} d={d} {token}")
+    _check(m, got, bcsr_spmm_plain(layout, b), b, as_precision(token).eps,
+           f"t={t} d={d} {token} vs dense")
+
+
+def _ring_layout(nb: int, device, dtype, seed: int) -> BCSRMatrix:
+    """t = 64 blocks, 0-5 per block row (empty rows padded), one row of
+    48 blocks: more block rows than resident thread blocks, so each walks
+    pairs inside a row and across rows."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 6, size=nb)
+    counts[nb // 2] = 48
+    rows = np.repeat(np.arange(nb), counts).astype(np.int32)
+    cols = np.concatenate([np.sort(rng.choice(nb, size=k, replace=False))
+                           for k in counts]).astype(np.int32)
+    blocks = torch.from_numpy(rng.normal(
+        size=(rows.shape[0], 64, 64)).astype(np.float32)).to(device, dtype)
+    ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    a = BCSRMatrix(blocks=blocks,
+                   block_rows=torch.from_numpy(rows).to(device),
+                   block_cols=torch.from_numpy(cols).to(device),
+                   block_ptr=torch.from_numpy(ptr).to(device),
+                   n=nb * 64, t=64, nnz=rows.shape[0] * 64 * 64)
+    return registry.pad_empty_block_rows(a)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 200])
+@pytest.mark.parametrize("token", ["f32i32", "bf16i32"])
+def test_bcsr_ring_runs_within_and_across_block_rows(cuda_device, token, d):
+    """2048 block rows of up to 48 blocks; two calls equal bit for bit."""
+    dtype = as_precision(token).value_torch
+    layout = _ring_layout(2048, cuda_device, dtype, seed=d)
+    assert bool((torch.diff(layout.block_ptr) >= 1).all())
+    b = _bcsr_b(layout.n, d, token, cuda_device)
+    first = _bcsr_call(layout, b)
+    _bcsr_check(layout, first, b, f"ring {token} d={d}")
+    second = _bcsr_call(layout, b)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(first.view(bits), second.view(bits))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("token,variant", [("f32i32", "tile64_f32"),
+                                           ("bf16i32", "wgmma_bf16")])
+def test_bcsr_fast_variants_on_the_main_path_shape(cuda_device, token,
+                                                   variant):
+    """``moe-block`` through the registry's default block edge (t = 64)
+    at d = 64: the fast variant, equal bit for bit from call to call."""
+    m = serving_suite(32768)["moe-block"]()
+    layout = registry.get("bcsr", "cuda").prepare(
+        m, registry.KernelContext(precision=as_precision(token),
+                                  device=cuda_device))
+    b = _bcsr_b(m.n, 64, token, cuda_device)
+    assert bcsr_variant(layout.t, 64, b.dtype) == variant
+    first = _bcsr_call(layout, b)
+    _bcsr_check(layout, first, b, f"moe-block {token}")
+    bits = torch.int32 if b.dtype == torch.float32 else torch.int16
+    assert torch.equal(first.view(bits), _bcsr_call(layout, b).view(bits))
