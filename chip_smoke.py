@@ -5,31 +5,46 @@
     python3 chip_smoke.py --quick    # the same phases at n = 2**14 and
                                      # small MoE widths
 
-Phases, in order; the first failure stops the run with a nonzero exit:
+Phases, in order; the first failure stops the run with a nonzero exit.
+The run reads and writes calibrations only in a fresh temporary
+``$REPRO_CALIBRATION_DIR``, removed at the end.
 
 1. **build**: compile the six CUDA kernels from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, all at once) and print ``ptxas``'s report per
    kernel function: registers, shared memory, spills.
-2. **serving** (the SpMM path): ``repro_torch.launch.serve``'s
+2. **calibrate**: ``repro_torch.launch.serve``'s ``--calibrate`` sweep
+   (``run_startup_calibration``) with the ``cuda`` kernels at n = 2**18
+   (``CARD_SCALE``; 2**14 under ``--quick``), BCSR block 64, f32i32,
+   d = 4, 16, 64, 256, host clock plus synchronise per call.  Counters are
+   zeroed first; each of the five SpMM kernels must launch, and the saved
+   file must load back at the registry's version.  One line per format:
+   peak_fraction, d_half, sustained and measured GF/s.
+3. **serving** (the SpMM path): ``repro_torch.launch.serve``'s
    ``serve_spmm_stream`` on each ``serving_suite`` structure (moe-block,
    banded, scale-free, uniform) at n = 2**20, d = 64, 8 requests each,
    plus scale-free forced onto the binned and the row-split kernels
    (``--spmm-strategy binned`` / ``rowsplit``), the scale-free regime's
-   own kernels.  Every kernel's launch counter is zeroed before the phase
+   own kernels.  These six runs plan under the default ceilings
+   (``calibration=False``), so the kernel phase measures the layouts they
+   pack.  Every kernel's launch counter is zeroed before the phase
    and read after it; each run's chosen kernel must have launched.  A run
    on the BCSR kernel must have launched only the variant that
    ``bcsr_variant`` names for its shape, and ``moe-block``'s must be a fast
    one (``tile64_f32`` at fp32, ``wgmma_bf16`` at bf16).  The last
    request's C is held against the port's ``"torch"`` backend on the
-   card.
-3. **moe** (the MoE path): ``repro_torch.launch.moe_block`` at
+   card.  Then each auto structure is planned under the calibrated
+   ceilings (classify and plan only): the default and the calibrated
+   choice with their predicted GFLOP/s; where the choice differs, the
+   structure is served again under the calibrated plan (8 requests, same
+   n, d and seed) and checked the same way.
+4. **moe** (the MoE path): ``repro_torch.launch.moe_block`` at
    qwen3-moe-235b-a22b's expert widths (4096 tokens, top-8 of 128
    experts, d_model 4096 -> moe_d_ff 1536, bm = bk = bn = 128), at bf16
    (the config's dtype) and at fp32: route, block, run the
    ``("grouped", "cuda")`` spec, and hold every routed row against its
    expert's dense product.  Counters are zeroed before the phase and read
    after it.  After both paths, every kernel must have launched on one.
-4. **kernels**: each SpMM kernel against its plain PyTorch version on the
+5. **kernels**: each SpMM kernel against its plain PyTorch version on the
    card, on the layout the serving phase packed for it (f32i32) and at
    every other precision its spec declares (bf16i32 at full n, bf16i16 at
    n = 32760, where the slab fits int16 indices); kernel, plain-version
@@ -53,6 +68,13 @@ Phases, in order; the first failure stops the run with a nonzero exit:
    ``torch._grouped_mm`` (bf16, where this torch has it) or a per-expert
    ``torch.matmul`` loop as the library time; the check must reject two
    planted faults (a dropped k-slice, +0.1 on one row).
+6. **harvest**: ``repro_torch.launch.harvest_dispatch`` on the vendored
+   corpus with the ``cuda`` kernels, d = 32 and 128, 3 repeats, the tree
+   in a temporary store root of its own; its agreement and never-worse
+   results are printed, not enforced (at n <= 256 a call is the launch
+   path).  CSVs go to ``chiprun_out/harvest``.
+
+Each phase prints its seconds.
 
 Tolerance: each side of an SpMM comparison is allowed ``4 * eps * (|A| @
 |B|) + 5e-4 + 5e-4 * |C|`` (eps of the value dtype), the bound of
@@ -82,10 +104,14 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import pathlib
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from typing import Optional
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -100,6 +126,9 @@ D = 64
 STEPS = 8
 #: n for the bf16i16 rows: int16 slab-local indices need n <= 32767.
 N_INT16 = 32760
+#: log2 n of the calibration sweep under ``--quick`` (the full run sweeps
+#: at ``repro_torch.core.calibrate.CARD_SCALE``).
+CAL_SCALE_QUICK = 14
 
 #: The serving phase: (structure, forced strategy or "auto").
 SERVE_RUNS = (("moe-block", "auto"), ("banded", "auto"),
@@ -251,16 +280,65 @@ def torch_csr(m, dev, dtype=None):
     return torch.sparse_csr_tensor(crow, col, val, size=(m.n, m.n))
 
 
-def serve_phase(n: int, steps: int, dev) -> dict:
-    """The main path: serve every run, hold C against the torch backend."""
-    import torch
+def serve_run(structure: str, strategy: str, m, disp, n: int, steps: int,
+              dev, tag: str = "") -> dict:
+    """Serve one run through ``serve_spmm_stream`` on ``disp``; the chosen
+    format's kernel must launch, and the last request's C must match the
+    port's ``"torch"`` backend on the card."""
     from repro_torch import kernels
     from repro_torch.core.precision import as_precision
+    from repro_torch.kernels import bcsr_spmm as bcsr_module
     from repro_torch.kernels import registry
     from repro_torch.launch import serve
-    from repro_torch.sparse.dispatch import Dispatcher
 
-    from repro_torch.kernels import bcsr_spmm as bcsr_module
+    what = f"{structure}/{strategy}{tag}"
+    args = serve.parser().parse_args(
+        ["--spmm-stream", "--spmm-structure", structure,
+         "--spmm-n", str(n), "--spmm-d", str(D),
+         "--spmm-steps", str(steps), "--spmm-strategy", strategy,
+         "--device", str(dev)])
+    before = kernels.launch_counts()
+    variants_before = dict(bcsr_module.LAUNCHES_BY_VARIANT)
+    log(f"[serve] === {structure} (strategy {strategy}{tag}) ===")
+    rec = serve.serve_spmm_stream(args, dispatcher=disp, matrix=m)
+    after = kernels.launch_counts()
+    plan = rec["plan"]
+    kernel = next(k for k, v in KERNELS.items() if plan.chosen in v[3])
+    delta = after[kernel] - before[kernel]
+    log(f"[serve] {what}: chosen {plan.chosen} @ {plan.precision} -> "
+        f"kernel {kernel}, launches +{delta}; startup "
+        f"{rec['startup_ms']:.1f} ms, p50 {rec['p50_us']:.1f} us, p99 "
+        f"{rec['p99_us']:.1f} us, {rec['gflops']:.2f} GFLOP/s")
+    if delta <= 0:
+        raise SmokeFailure(f"{what}: kernel {kernel} of the chosen format "
+                           f"{plan.chosen} never launched")
+    prec = as_precision(plan.precision)
+    if kernel == "bcsr_spmm":
+        bcsr_fast_path(structure, plan.layout.t, prec.value_torch, delta,
+                       variants_before)
+    # Hold the last request's C against the torch backend on the card.
+    b, c = rec["last"]
+    ctx = registry.KernelContext(
+        bcsr_block=disp.bcsr_block, plan_d=D, precision=prec,
+        convert=lambda mm, f, _p=prec: disp.convert(mm, f, precision=_p),
+        device=dev)
+    ref = registry.get(plan.chosen, "torch").bind(m, ctx)(b)
+    err, _ = check_close(f"{what} C vs torch backend", c, ref,
+                         abs_product(m, b), prec.eps)
+    log(f"[serve] {what}: C {tuple(c.shape)} finite, max |C - torch| = "
+        f"{err:.3e} within bound")
+    del ref
+    empty_cache(dev)
+    return dict(rec, kernel=kernel, launches=delta)
+
+
+def serve_phase(n: int, steps: int, dev) -> dict:
+    """The main path: serve every run under the default ceilings, then plan
+    the auto structures under the calibrated ones and serve again each
+    whose choice changed; hold every C against the torch backend."""
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+    from repro_torch.sparse.dispatch import Dispatcher
 
     matrices, dispatchers, runs = {}, {}, {}
     kernels.reset_launch_counts()
@@ -268,57 +346,77 @@ def serve_phase(n: int, steps: int, dev) -> dict:
         if structure not in matrices:
             t0 = time.perf_counter()
             matrices[structure] = serve.build_stream_matrix(structure, n)
-            dispatchers[structure] = Dispatcher(device=dev)
+            # The default ceilings: the kernel phase measures the layouts
+            # these runs pack, whatever the calibration would pick.
+            dispatchers[structure] = Dispatcher(device=dev,
+                                                calibration=False, tree=False)
             log(f"[serve] built {structure} n={n} "
                 f"nnz={matrices[structure].nnz} in "
                 f"{time.perf_counter() - t0:.1f}s")
-        args = serve.parser().parse_args(
-            ["--spmm-stream", "--spmm-structure", structure,
-             "--spmm-n", str(n), "--spmm-d", str(D),
-             "--spmm-steps", str(steps), "--spmm-strategy", strategy,
-             "--device", str(dev)])
-        before = kernels.launch_counts()
-        variants_before = dict(bcsr_module.LAUNCHES_BY_VARIANT)
-        log(f"[serve] === {structure} (strategy {strategy}) ===")
-        rec = serve.serve_spmm_stream(args, dispatcher=dispatchers[structure],
-                                      matrix=matrices[structure])
-        after = kernels.launch_counts()
-        plan = rec["plan"]
-        kernel = next(k for k, v in KERNELS.items()
-                      if plan.chosen in v[3])
-        delta = after[kernel] - before[kernel]
-        log(f"[serve] {structure}/{strategy}: chosen {plan.chosen} @ "
-            f"{plan.precision} -> kernel {kernel}, launches +{delta}; "
-            f"startup {rec['startup_ms']:.1f} ms, p50 {rec['p50_us']:.1f} "
-            f"us, p99 {rec['p99_us']:.1f} us, {rec['gflops']:.2f} GFLOP/s")
-        if delta <= 0:
-            raise SmokeFailure(f"{structure}: kernel {kernel} of the chosen "
-                               f"format {plan.chosen} never launched")
-        prec = as_precision(plan.precision)
-        if kernel == "bcsr_spmm":
-            bcsr_fast_path(structure, plan.layout.t, prec.value_torch, delta,
-                           variants_before)
-        # Hold the last request's C against the torch backend on the card.
-        m = matrices[structure]
-        b, c = rec["last"]
-        disp = dispatchers[structure]
-        ctx = registry.KernelContext(
-            bcsr_block=disp.bcsr_block, plan_d=D, precision=prec,
-            convert=lambda mm, f, _p=prec: disp.convert(mm, f, precision=_p),
-            device=dev)
-        ref = registry.get(plan.chosen, "torch").bind(m, ctx)(b)
-        err, _ = check_close(f"{structure}/{strategy} C vs torch backend",
-                             c, ref, abs_product(m, b), prec.eps)
-        log(f"[serve] {structure}/{strategy}: C {tuple(c.shape)} finite, "
-            f"max |C - torch| = {err:.3e} within bound")
-        runs[(structure, strategy)] = dict(rec, kernel=kernel,
-                                           launches=delta)
-        del ref
-        empty_cache(dev)
+        runs[(structure, strategy)] = serve_run(
+            structure, strategy, matrices[structure],
+            dispatchers[structure], n, steps, dev)
+    choices = calibrated_choices(matrices, runs, n, steps, dev)
     counts = kernels.launch_counts()
     log(f"[serve] launches on the serving path: {counts}")
     return {"runs": runs, "counts": counts, "matrices": matrices,
-            "dispatchers": dispatchers}
+            "dispatchers": dispatchers, "choices": choices}
+
+
+def _predictions(plan) -> str:
+    return ", ".join(
+        f"{c.format} {c.predicted_gflops:.1f}" for c in plan.candidates
+        if c.eligible and c.precision == "f32i32")
+
+
+def calibrated_choices(matrices: dict, runs: dict, n: int, steps: int,
+                       dev) -> dict:
+    """Plan each auto structure under the calibrated ceilings (classify and
+    plan only) beside its default plan; where the choice differs, serve it
+    again under the calibrated plan."""
+    from repro_torch.sparse.dispatch import Dispatcher
+
+    out = {}
+    for structure, strategy in SERVE_RUNS:
+        if strategy != "auto":
+            continue
+        m = matrices[structure]
+        served = runs[(structure, "auto")]
+        default = served["plan"].dispatch
+        disp = Dispatcher(device=dev, tree=False)
+        plan = disp.plan(m, D, reuse=steps)
+        chosen = plan.candidate(plan.chosen, plan.precision)
+        if chosen.ceiling_source != "calibrated":
+            raise SmokeFailure(f"{structure}: the calibrated plan's "
+                               f"{plan.chosen} reads "
+                               f"{chosen.ceiling_source} ceilings")
+        pred_default = default.candidate(
+            default.chosen, default.precision).predicted_gflops
+        log(f"[serve] calibrated {structure}: default ceilings choose "
+            f"{default.chosen} @ {default.precision} (predicted "
+            f"{pred_default:.2f} GFLOP/s, served {served['gflops']:.2f}); "
+            f"calibrated ceilings choose {plan.chosen} @ {plan.precision} "
+            f"(predicted {chosen.predicted_gflops:.2f} GFLOP/s)")
+        log(f"[serve] calibrated {structure}: predicted GFLOP/s by format, "
+            f"default: {_predictions(default)}; calibrated: "
+            f"{_predictions(plan)}")
+        rec = {"default": default.chosen, "calibrated": plan.chosen,
+               "predicted_default": pred_default,
+               "predicted_calibrated": chosen.predicted_gflops,
+               "served_default_gflops": served["gflops"]}
+        if (plan.chosen, plan.precision) != (default.chosen,
+                                             default.precision):
+            run = serve_run(structure, "auto", m, disp, n, steps, dev,
+                            tag=", calibrated ceilings")
+            if run["plan"].chosen != plan.chosen:
+                raise SmokeFailure(f"{structure}: served {run['plan'].chosen}"
+                                   f" under the calibrated plan "
+                                   f"{plan.chosen}")
+            runs[(structure, "calibrated")] = run
+            rec.update(served_calibrated_gflops=run["gflops"],
+                       p50_us=run["p50_us"], p99_us=run["p99_us"])
+        out[structure] = rec
+    return out
 
 
 def bcsr_fast_path(structure: str, t: int, dtype, launches: int,
@@ -613,7 +711,8 @@ def kernel_phase(served: dict, quick: bool, dev) -> list:
                 small = token == "bf16i16"
                 mm = serve.build_stream_matrix(structure, N_INT16) \
                     if small else m
-                dd = Dispatcher(device=dev) if small else disp
+                dd = Dispatcher(device=dev, calibration=False, tree=False) \
+                    if small else disp
                 layout = stream.plan(mm, stream.BSpec(d=D, reuse=STEPS),
                                      strategy=fmt_name, precision=token,
                                      dispatcher=dd).layout
@@ -664,7 +763,9 @@ def kernel_phase(served: dict, quick: bool, dev) -> list:
     for nn in (1001, 1002, 1004):
         mm = serve.build_stream_matrix("banded", nn)
         layout = stream.plan(mm, D, strategy="dia",
-                             dispatcher=Dispatcher(device=dev)).layout
+                             dispatcher=Dispatcher(
+                                 device=dev, calibration=False,
+                                 tree=False)).layout
         b = torch.from_numpy(rng.normal(size=(nn, D)).astype(np.float32)
                              ).to(dev)
         err, _ = check_close(f"banded_spmm t={layout.t}",
@@ -833,6 +934,78 @@ def grouped_record(moe: dict, quick: bool) -> dict:
             for r in rows[1:]]}
 
 
+def calibrate_phase(scale: Optional[int], dev) -> dict:
+    """``serve --calibrate``'s sweep on the card: every SpMM kernel must
+    launch, and the saved file must load back at this registry version."""
+    from repro_torch import kernels
+    from repro_torch.core.calibrate import CalibrationStore
+    from repro_torch.core.hardware import h100_from_device
+    from repro_torch.kernels import registry
+    from repro_torch.launch import serve
+    from repro_torch.sparse.dispatch import FORMATS
+
+    kernels.reset_launch_counts()
+    cal = serve.run_startup_calibration(dev, scale=scale)
+    counts = kernels.launch_counts()
+    log(f"[calibrate] launches in the sweep: {counts}")
+    missing = [k for k in KERNELS if counts[k] <= 0]
+    if missing:
+        raise SmokeFailure(f"the calibration sweep never launched {missing}")
+    if [e.format for e in cal.entries] != list(FORMATS):
+        raise SmokeFailure(f"the sweep fitted "
+                           f"{[e.format for e in cal.entries]}, not "
+                           f"{list(FORMATS)}")
+    for e in cal.entries:
+        measured = ", ".join(f"d={d} {g:.2f}"
+                             for d, g in sorted(e.measured.items()))
+        log(f"[calibrate] {e.format:8s} {e.precision}: peak_fraction "
+            f"{e.peak_fraction:.6f}, d_half {e.d_half:.2f}, sustained "
+            f"{e.sustained_gflops:.2f} GF/s (useful_fraction "
+            f"{e.useful_fraction:.3f}); measured GF/s {measured}")
+    loaded = CalibrationStore().load(h100_from_device(dev), "cuda")
+    if loaded is None or \
+            loaded.registry_version != registry.REGISTRY_VERSION:
+        raise SmokeFailure(f"the saved calibration does not load back at "
+                           f"registry v{registry.REGISTRY_VERSION}: "
+                           f"{loaded}")
+    log(f"[calibrate] saved {CalibrationStore().root}: backend "
+        f"{loaded.backend}, registry v{loaded.registry_version}")
+    return {"cal": cal, "counts": counts}
+
+
+def harvest_phase(dev) -> dict:
+    """The port's harvest on the vendored corpus with the CUDA kernels; the
+    tree goes to a store root of its own.  Agreement and never-worse are
+    reported, not enforced: at n <= 256 a call is the launch path."""
+    import shutil
+    import tempfile
+    from repro_torch import kernels
+    from repro_torch.data import corpus
+    from repro_torch.data.dtree import DispatchTreeStore
+    from repro_torch.launch import harvest_dispatch
+
+    args = harvest_dispatch.parser().parse_args(
+        ["--corpus-root", str(corpus.SAMPLES_DIR), "--backend", "cuda",
+         "--device", str(dev), "--d", "32", "128", "--repeats", "3",
+         "--out-dir", str(ROOT / "chiprun_out" / "harvest")])
+    root = tempfile.mkdtemp(prefix="chip-smoke-tree-")
+    try:
+        kernels.reset_launch_counts()
+        rec = harvest_dispatch.harvest(args, store=DispatchTreeStore(root))
+        counts = kernels.launch_counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    worse = [f"{r['matrix']} d={r['d']}" for r in rec["audit"]
+             if not r["never_worse"]]
+    log(f"[harvest] {len(rec['rows'])} cells timed on "
+        f"{len({r['matrix'] for r in rec['rows']})} matrices, launches "
+        f"{counts}; tree {rec['tree'].fingerprint()}; agreement "
+        f"{rec['agreement']:.4f} over {len(rec['audit'])} pairs; "
+        f"never-worse {'PASS' if rec['claim_ok'] else 'FAIL'} "
+        f"(failing pairs: {worse or 'none'})")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -851,7 +1024,21 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # The whole run reads and writes calibrations here and nowhere else:
+    # a file left in the default root must never steer it.
+    cal_root = tempfile.mkdtemp(prefix="chip-smoke-cal-")
+    os.environ["REPRO_CALIBRATION_DIR"] = cal_root
+    try:
+        return run(args.quick, n)
+    finally:
+        shutil.rmtree(cal_root, ignore_errors=True)
+
+
+def run(quick: bool, n: int) -> int:
+    """Every phase in order; a failure raises."""
+    import torch
     t_start = time.perf_counter()
+    seconds = {}
     smi = nvidia_smi()
     log(f"[gpu] {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
@@ -859,28 +1046,44 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     build.build(verbose=True)
+    seconds["build"] = time.perf_counter() - t0
     log(f"[build] {len(build.KERNELS)} kernels built in "
-        f"{time.perf_counter() - t0:.1f}s into {build.build_dir()}")
+        f"{seconds['build']:.1f}s into {build.build_dir()}")
     for name, text in build.LAST_LOG.items():
         for line in ptxas_report(text):
             log(f"[build] {name}: {line}")
     log(f"kernels: {' '.join(KERNEL_NAMES)}")
 
-    t0 = time.perf_counter()
     dev = torch.device("cuda")
-    served = serve_phase(n, STEPS, dev)
-    log(f"[serve] phase took {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    moe = moe_phase(args.quick, dev)
-    log(f"[moe] phase took {time.perf_counter() - t0:.1f}s")
+    calibrated = calibrate_phase(CAL_SCALE_QUICK if quick else None, dev)
+    seconds["calibrate"] = time.perf_counter() - t0
+    log(f"[calibrate] phase took {seconds['calibrate']:.1f}s")
+    t0 = time.perf_counter()
+    served = serve_phase(n, STEPS, dev)
+    seconds["serve"] = time.perf_counter() - t0
+    log(f"[serve] phase took {seconds['serve']:.1f}s")
+    t0 = time.perf_counter()
+    moe = moe_phase(quick, dev)
+    seconds["moe"] = time.perf_counter() - t0
+    log(f"[moe] phase took {seconds['moe']:.1f}s")
     missing = [k for k in KERNEL_NAMES
                if served["counts"][k] + moe["counts"][k] <= 0]
     if missing:
         raise SmokeFailure(f"kernels never launched on a path: {missing}")
     t0 = time.perf_counter()
-    records = kernel_phase(served, args.quick, dev)
-    records.append(grouped_record(moe, args.quick))
-    log(f"[kernel] phase took {time.perf_counter() - t0:.1f}s; total "
+    records = kernel_phase(served, quick, dev)
+    records.append(grouped_record(moe, quick))
+    for rec in records:
+        rec["calibrate_launches"] = calibrated["counts"][rec["name"]]
+    seconds["kernel"] = time.perf_counter() - t0
+    log(f"[kernel] phase took {seconds['kernel']:.1f}s")
+    t0 = time.perf_counter()
+    harvest_phase(dev)
+    seconds["harvest"] = time.perf_counter() - t0
+    log(f"[harvest] phase took {seconds['harvest']:.1f}s")
+    log(f"[time] seconds by phase: "
+        f"{', '.join(f'{k} {v:.1f}' for k, v in seconds.items())}; total "
         f"{time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)

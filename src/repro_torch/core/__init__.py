@@ -17,8 +17,8 @@ from repro_torch.core.sparsity_models import (
     mxu_utilization,
 )
 from repro_torch.core.patterns import (
-    COOMatrix, banded, block_diagonal, blocked, erdos_renyi, scale_free,
-    serving_suite,
+    COOMatrix, banded, block_diagonal, blocked, erdos_renyi, fit_generator,
+    paper_suite, scale_free, serving_suite,
 )
 from repro_torch.core.classify import StructureReport, classify
 
@@ -31,6 +31,6 @@ __all__ = [
     "expected_occupied_columns", "flops_spmm", "hub_edge_fraction",
     "mxu_utilization",
     "COOMatrix", "banded", "block_diagonal", "blocked", "erdos_renyi",
-    "scale_free", "serving_suite",
+    "fit_generator", "paper_suite", "scale_free", "serving_suite",
     "StructureReport", "classify",
 ]

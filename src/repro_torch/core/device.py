@@ -32,6 +32,12 @@ def device_of(device: Optional[torch.device]) -> torch.device:
     return torch.device("cpu") if device is None else torch.device(device)
 
 
+def synchronize(device: torch.device) -> None:
+    """Wait for ``device``'s queued work (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def median_ms(fn: Callable[[], object], runs: int) -> float:
     """Median of ``runs`` CUDA-event timings of ``fn`` (in ms) after one
     warm call; ``fn`` runs on the current CUDA stream."""

@@ -20,11 +20,12 @@ that fallback, deliberately minimal:
     provenance in ``DispatchPlan`` the way ``ceiling_source`` records
     ceiling provenance.
 
-The tree is *fitted* by ``tools/harvest_dispatch.py`` from measured
-(structure features, per-format GFLOP/s) pairs over the matrix corpus,
-and *consulted* by ``repro_torch.sparse.dispatch.Dispatcher`` only when the
-analytic top-two candidates are within a configurable margin — the
-analytic model stays authoritative everywhere it is confident.
+The tree is *fitted* by ``repro_torch.launch.harvest_dispatch`` from
+measured (structure features, per-format GFLOP/s) pairs over the matrix
+corpus, and *consulted* by ``repro_torch.sparse.dispatch.Dispatcher``
+only when the analytic top-two candidates are within a configurable
+margin — the analytic model stays authoritative everywhere it is
+confident.
 """
 from __future__ import annotations
 
@@ -281,11 +282,11 @@ class DispatchTreeStore:
                 pathlib.Path.home() / ".cache" / "repro" / "calibrations")
         self.root = pathlib.Path(root)
 
-    def path_for(self, backend: str = "jax") -> pathlib.Path:
+    def path_for(self, backend: str = "torch") -> pathlib.Path:
         """The JSON path holding ``backend``'s fitted tree."""
         return self.root / f"dispatch_tree-{backend}.json"
 
-    def save(self, tree: DecisionTree, backend: str = "jax",
+    def save(self, tree: DecisionTree, backend: str = "torch",
              meta: Optional[dict] = None) -> pathlib.Path:
         """Write the fitted tree (creating the root) and return the path."""
         from repro_torch.kernels import registry
@@ -297,8 +298,9 @@ class DispatchTreeStore:
         path.write_text(json.dumps(payload, indent=2), encoding="utf-8")
         return path
 
-    def load(self, backend: str = "jax") -> Optional[DecisionTree]:
-        """Read the tree for ``backend``; ``None`` when absent or stale."""
+    def load(self, backend: str = "torch") -> Optional[DecisionTree]:
+        """Read the tree for ``backend``; ``None`` when absent, stale, or
+        fitted for another backend (a payload without one included)."""
         path = self.path_for(backend)
         if not path.is_file():
             return None
@@ -309,7 +311,7 @@ class DispatchTreeStore:
             return None
         if tuple(tree.features) != FEATURES:
             return None                  # schema drift: refuse silently
-        if payload.get("backend", "jax") != backend:
+        if payload.get("backend") != backend:
             return None
         from repro_torch.kernels import registry
         if int(payload.get("registry_version", 0)) \

@@ -22,7 +22,7 @@ import time
 
 import torch
 
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import resolve_device, synchronize
 from repro_torch.core.hardware import H100
 
 ATOL = RTOL = 5e-4
@@ -163,7 +163,6 @@ def run(args) -> dict:
     device synchronise; the first call includes the kernel's load).
     """
     from repro_torch.kernels import registry
-    from repro_torch.launch.serve import synchronize
     device = resolve_device(args.device)
     x, w, router = make_inputs(args, device)
     synchronize(device)

@@ -14,6 +14,14 @@ The server runs on the card by default and stops with an error naming
 instead of the roofline's pick.  Each request's B is drawn on the host and
 copied to the device before its timer starts; a request's latency is the
 launch plus ``torch.cuda.synchronize()``.
+
+``--calibrate`` runs the compute-ceiling sweep
+(``repro_torch.core.calibrate``) on the device at start-up and persists
+it, so the serving plan predicts from measured ``(peak_fraction,
+d_half)`` ceilings (``ceiling_source="calibrated"``):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --spmm-stream \
+        --calibrate [--device cpu]
 """
 from __future__ import annotations
 
@@ -24,9 +32,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.device import resolve_device
+from repro_torch.core.calibrate import (CARD_SCALE, Calibration,
+                                        CalibrationStore, calibrate)
+from repro_torch.core.device import DeviceLike, resolve_device, synchronize
 from repro_torch.core.patterns import serving_suite
-from repro_torch.sparse.dispatch import STRATEGIES, Dispatcher
+from repro_torch.sparse.dispatch import (STRATEGIES, Dispatcher,
+                                         default_dispatcher)
 
 #: CLI choices derive from the shared registry so they can't drift from it.
 STREAM_STRUCTURES = tuple(serving_suite(64))
@@ -42,10 +53,42 @@ def build_stream_matrix(structure: str, n: int):
     return suite[structure]()
 
 
-def synchronize(device: torch.device) -> None:
-    """Wait for the device's queued work (a no-op on the CPU)."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def run_startup_calibration(device: DeviceLike = None,
+                            scale: Optional[int] = None) -> Calibration:
+    """Calibrate the per-format compute ceilings of the serving device.
+
+    Runs the :func:`~repro_torch.core.calibrate.calibrate` sweep against
+    the backend and hardware spec the default dispatcher of ``device``
+    resolves to, at its ``bcsr_block``, persists the result to the default
+    :class:`~repro_torch.core.calibrate.CalibrationStore`, and refreshes
+    that dispatcher, so every later plan (the ``--spmm-stream`` plan
+    included) predicts from measured ceilings.
+
+    Args:
+        device: the serving device; None means the card.
+        scale: log2 n of the sweep's matrices; None means
+            :data:`~repro_torch.core.calibrate.CARD_SCALE` on the card and
+            the sweep's default on the CPU.
+
+    Returns:
+        The fitted calibration.
+    """
+    disp = default_dispatcher(device)
+    backend = disp._resolve_backend()
+    hw = disp._resolve_hardware(backend)
+    if scale is None and disp.device.type == "cuda":
+        scale = CARD_SCALE
+    sweep = {} if scale is None else {"scale": scale}
+    t0 = time.perf_counter()
+    store = CalibrationStore()
+    cal = calibrate(hw, backend=backend, device=disp.device,
+                    bcsr_block=disp.bcsr_block, store=store, **sweep)
+    disp.refresh_calibration()
+    print(f"startup calibration ({backend} kernels on {hw.name}, "
+          f"{disp.device}) took {time.perf_counter() - t0:.1f}s -> "
+          f"{store.path_for(hw, backend)}")
+    print(cal.summary())
+    return cal
 
 
 def serve_spmm_stream(args, *, dispatcher: Optional[Dispatcher] = None,
@@ -163,6 +206,11 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="device to serve on (default: cuda; cpu runs the "
                          "plain PyTorch versions)")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="fit the compute ceilings on the device at "
+                         "start-up; the serving plan then predicts from "
+                         "measured (peak_fraction, d_half) instead of "
+                         "defaults")
     return ap
 
 
@@ -173,6 +221,8 @@ def main(argv=None) -> None:
     if not args.spmm_stream:
         ap.error("the port serves --spmm-stream only; LM decode and the "
                  "serving engine are not ported yet")
+    if args.calibrate:
+        run_startup_calibration(args.device)
     serve_spmm_stream(args)
 
 

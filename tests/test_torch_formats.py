@@ -306,6 +306,8 @@ def test_importing_port_leaves_jax_and_reference_unloaded():
         "import repro_torch.launch.serve, repro_torch.kernels.build\n"
         "import repro_torch.launch.moe_block\n"
         "import repro_torch.core.calibrate, repro_torch.data.dtree\n"
+        "import repro_torch.data.corpus\n"
+        "import repro_torch.launch.harvest_dispatch\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
         "print(bad)\n"

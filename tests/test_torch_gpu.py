@@ -625,3 +625,66 @@ def test_bcsr_fast_variants_on_the_main_path_shape(cuda_device, token,
     _bcsr_check(layout, first, b, f"moe-block {token}")
     bits = torch.int32 if b.dtype == torch.float32 else torch.int16
     assert torch.equal(first.view(bits), _bcsr_call(layout, b).view(bits))
+
+
+# ---------------------------------------------------------------------- #
+# The learning loop on the card: the calibration sweep and the harvest.
+# ---------------------------------------------------------------------- #
+
+#: The SpMM kernels the calibration sweep of the ``cuda`` backend runs.
+SWEPT_KERNELS = ("csr_spmm", "binned_spmm", "rowsplit_spmm", "bcsr_spmm",
+                 "banded_spmm")
+
+
+@pytest.mark.gpu
+def test_calibration_sweep_launches_the_kernels_and_calibrates_plans(
+        cuda_device, tmp_path):
+    from repro_torch.core.calibrate import CalibrationStore, calibrate
+    from repro_torch.core.hardware import h100_from_device
+    from repro_torch.sparse.dispatch import FORMATS, Dispatcher
+    hw = h100_from_device(cuda_device)
+    store = CalibrationStore(tmp_path)
+    kernels.reset_launch_counts()
+    cal = calibrate(hw, backend="cuda", device=cuda_device, scale=12,
+                    bcsr_block=64, repeats=1, store=store)
+    counts = kernels.launch_counts()
+    assert all(counts[k] > 0 for k in SWEPT_KERNELS), counts
+    assert [e.format for e in cal.entries] == list(FORMATS)
+    assert all(v > 0 for e in cal.entries for v in e.measured.values())
+    loaded = store.load(hw, "cuda")
+    assert loaded is not None
+    assert loaded.registry_version == registry.REGISTRY_VERSION
+    disp = Dispatcher(device=cuda_device, calibration=store, tree=False)
+    for name, gen in serving_suite(4096).items():
+        plan = disp.plan(gen(), 64)
+        assert plan.backend == "cuda"
+        assert plan.candidate(plan.chosen).ceiling_source == "calibrated", \
+            name
+
+
+@pytest.mark.gpu
+def test_harvest_on_two_vendored_matrices_with_the_kernels(cuda_device,
+                                                           tmp_path):
+    import shutil
+
+    from repro_torch.data import corpus
+    from repro_torch.data.dtree import DispatchTreeStore
+    from repro_torch.launch import harvest_dispatch
+    root = tmp_path / "corpus"
+    root.mkdir()
+    for name in ("blocked__fem_256_t32.smtx", "scale_free__hub_256_21.smtx"):
+        shutil.copy(corpus.SAMPLES_DIR / name, root / name)
+    store = DispatchTreeStore(tmp_path / "store")
+    args = harvest_dispatch.parser().parse_args(
+        ["--corpus-root", str(root), "--d", "32", "--repeats", "2",
+         "--backend", "cuda", "--device", str(cuda_device),
+         "--out-dir", str(tmp_path / "out")])
+    kernels.reset_launch_counts()
+    rec = harvest_dispatch.harvest(args, store=store)
+    assert rec["backend"] == "cuda"
+    assert sum(kernels.launch_counts().values()) > 0
+    assert {r["matrix"] for r in rec["rows"]} == {"fem_256_t32",
+                                                 "hub_256_21"}
+    assert all(g > 0 for s in rec["samples"] for g in s["measured"].values())
+    assert store.load("cuda") is not None
+    assert len(rec["audit"]) == 2
