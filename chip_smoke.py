@@ -68,7 +68,40 @@ The run reads and writes calibrations only in a fresh temporary
    ``torch._grouped_mm`` (bf16, where this torch has it) or a per-expert
    ``torch.matmul`` loop as the library time; the check must reject two
    planted faults (a dropped k-slice, +0.1 on one row).
-6. **harvest**: ``repro_torch.launch.harvest_dispatch`` on the vendored
+6. **engine** (the serving-engine path): ``repro_torch.launch.serve``'s
+   ``serve_spmm_engine`` with the default engine settings (8 MiB staging
+   budget, queue 256, policy ``wait``, 2000 requests/s per stream), twice:
+   at full width on ``moe-block`` at n = 2**20 with d = 64 and 32, 4 streams
+   x 4 requests (about 3 GiB of pinned host operands, drawn before the
+   clock), on the plan and dispatcher the serving phase built (nothing is
+   packed again); and at the reference CLI's default shape, n = 4096, 4
+   streams x 64 requests, where batches coalesce.  ``serve_spmm_engine``
+   reads the counters just before the engine starts and just after it
+   stops (its warm-up and the sync replay fall outside); the chosen
+   kernel's launches must equal the planned-width blocks of the batch log
+   (row-split: up to two per block).  Every ticket's C is held against
+   the chosen format's ``torch`` backend (the plain version) on its B,
+   and against ``plan.execute_wide`` of it; at full width staging must
+   have overlapped (a next batch's H2D enqueued before the current
+   batch's end event completed) and
+   ``execute_wide`` on a moe-block batch must return to the host before
+   its end event completes.  Printed: the engine's and the sync baseline's
+   p50, p99 and goodput, batches and coalesced requests, and per batch the
+   H2D / kernel / D2H split from CUDA events.  (``--quick``: n = 2**14 for
+   the first run; the overlap and the async return are printed, not
+   enforced: at that size the device work is too short to outlast the
+   host's staging.)
+7. **shard** (the sharded tier): ``ShardMesh(["cuda:0"] * 4)`` over the
+   four ``serving_suite`` structures at n = 2**18 (cut from 2**20 to keep
+   classification and packing of the unsharded and four sharded layouts
+   per strategy inside the phase's time; 2**12 under ``--quick``), plus
+   ``scale-free`` forced onto binned and rowsplit (at 2**18 auto already
+   picks ell_coo on ``scale-free`` and ``uniform``), at every eligible
+   ``b_strategy``: C held against the unsharded ``cuda`` plan, each
+   plan's ``summary()``, and a p50 of 8 requests per strategy beside its
+   predicted time.  Then one ``serve --spmm-stream --spmm-shards -1`` run
+   (one shard per visible card), its C held against the unsharded plan.
+8. **harvest**: ``repro_torch.launch.harvest_dispatch`` on the vendored
    corpus with the ``cuda`` kernels, d = 32 and 128, 3 repeats, the tree
    in a temporary store root of its own; its agreement and never-worse
    results are printed, not enforced (at n <= 256 a call is the launch
@@ -182,6 +215,17 @@ RECORD_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
 #: Every kernel, in the order of the record.
 KERNEL_NAMES = (*KERNELS, "grouped_matmul")
 
+#: The engine phase: (tag, n or None for the run's n, requests per stream).
+ENGINE_RUNS = (("full width", None, 4), ("CLI default shape", 4096, 64))
+ENGINE_STREAMS = 4
+#: The shard phase's structures, its n (cut from 2**20, see the
+#: docstring) and the forced formats it also shards.
+SHARD_STRUCTURES = ("moe-block", "banded", "scale-free", "uniform")
+SHARD_N = 2 ** 18
+SHARD_N_QUICK = 2 ** 12
+SHARD_FORCED = ("binned", "rowsplit")
+SHARD_DEVICES = 4
+
 
 class SmokeFailure(RuntimeError):
     """A phase found the port wrong."""
@@ -280,6 +324,19 @@ def torch_csr(m, dev, dtype=None):
     return torch.sparse_csr_tensor(crow, col, val, size=(m.n, m.n))
 
 
+def torch_backend(plan, m, disp, dev):
+    """The plain PyTorch version of ``plan``'s choice: its format's
+    ``"torch"`` backend bound to ``m`` on ``disp`` (conversions reused)."""
+    from repro_torch.core.precision import as_precision
+    from repro_torch.kernels import registry
+    prec = as_precision(plan.precision)
+    ctx = registry.KernelContext(
+        bcsr_block=disp.bcsr_block, plan_d=D, precision=prec,
+        convert=lambda mm, f, _p=prec: disp.convert(mm, f, precision=_p),
+        device=dev)
+    return registry.get(plan.chosen, "torch").bind(m, ctx)
+
+
 def serve_run(structure: str, strategy: str, m, disp, n: int, steps: int,
               dev, tag: str = "") -> dict:
     """Serve one run through ``serve_spmm_stream`` on ``disp``; the chosen
@@ -288,7 +345,6 @@ def serve_run(structure: str, strategy: str, m, disp, n: int, steps: int,
     from repro_torch import kernels
     from repro_torch.core.precision import as_precision
     from repro_torch.kernels import bcsr_spmm as bcsr_module
-    from repro_torch.kernels import registry
     from repro_torch.launch import serve
 
     what = f"{structure}/{strategy}{tag}"
@@ -318,11 +374,7 @@ def serve_run(structure: str, strategy: str, m, disp, n: int, steps: int,
                        variants_before)
     # Hold the last request's C against the torch backend on the card.
     b, c = rec["last"]
-    ctx = registry.KernelContext(
-        bcsr_block=disp.bcsr_block, plan_d=D, precision=prec,
-        convert=lambda mm, f, _p=prec: disp.convert(mm, f, precision=_p),
-        device=dev)
-    ref = registry.get(plan.chosen, "torch").bind(m, ctx)(b)
+    ref = torch_backend(plan, m, disp, dev)(b)
     err, _ = check_close(f"{what} C vs torch backend", c, ref,
                          abs_product(m, b), prec.eps)
     log(f"[serve] {what}: C {tuple(c.shape)} finite, max |C - torch| = "
@@ -934,6 +986,255 @@ def grouped_record(moe: dict, quick: bool) -> dict:
             for r in rows[1:]]}
 
 
+def kernel_of(fmt_name: str) -> str:
+    """The kernel a ``cuda`` plan of ``fmt_name`` launches."""
+    return next(k for k, v in KERNELS.items() if fmt_name in v[3])
+
+
+def async_return(plan, m, dev) -> dict:
+    """``execute_wide`` on one planned-width batch: does it hand control
+    back to the host before its end event completes?"""
+    import torch
+    b = torch.ones((m.n, D), device=dev)
+    plan.execute_wide(b)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    plan.execute_wide(b)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end = torch.cuda.Event()
+    end.record()
+    pending = not end.query()
+    end.synchronize()
+    plan.reset_stats()
+    return {"returned_before_end": pending, "host_ms": host_ms}
+
+
+def engine_run(tag: str, m, disp, requests: int, dev, check_async: bool,
+               enforce: bool) -> dict:
+    """One ``serve --engine`` run on ``disp``; every ticket checked.  With
+    ``check_async`` the staging overlap and the async return are reported,
+    and with ``enforce`` they must hold."""
+    import numpy as np
+    from repro_torch.core.precision import as_precision
+    from repro_torch.launch import serve
+
+    args = serve.parser().parse_args(
+        ["--engine", "--spmm-structure", "moe-block", "--spmm-n", str(m.n),
+         "--spmm-d", str(D), "--engine-streams", str(ENGINE_STREAMS),
+         "--engine-requests", str(ENGINE_STREAMS * requests),
+         "--engine-rate", "2000", "--engine-queue", "256",
+         "--engine-policy", "wait", "--device", str(dev)])
+    log(f"[engine] === {tag}: moe-block n={m.n}, d={D}/{D // 2}, "
+        f"{ENGINE_STREAMS} streams x {requests} requests ===")
+    rec = serve.serve_spmm_engine(args, dispatcher=disp, matrix=m)
+    counts = rec["engine_launches"]
+    plan, eng, st = rec["plan"], rec["engine"], rec["stats"]
+    kernel = kernel_of(plan.chosen)
+    # One execute per planned-width block of each batch; row-split makes
+    # a second launch where a block has carry or empty rows.
+    calls = sum(-(-r.cols // r.block_d) for r in eng.batch_log)
+    most = 2 * calls if kernel == "rowsplit_spmm" else calls
+    log(f"[engine] {tag}: chosen {plan.chosen} @ {plan.precision} -> "
+        f"{kernel}, launches from the engine's start to its stop {counts} "
+        f"for {calls} planned-width blocks in {len(eng.batch_log)} batches")
+    if not calls <= counts[kernel] <= most:
+        raise SmokeFailure(f"engine {tag}: {kernel} launched "
+                           f"{counts[kernel]} times for {calls} blocks")
+    if st["served"] != ENGINE_STREAMS * requests:
+        raise SmokeFailure(f"engine {tag}: served {st['served']} of "
+                           f"{ENGINE_STREAMS * requests}")
+    eps = as_precision(plan.precision).eps
+    plain = torch_backend(plan, m, disp, dev)
+    worst = 0.0
+    for ticket, b in rec["served"]:
+        got = ticket.result(timeout=0).to(dev)
+        bd = b.to(dev)
+        absprod = abs_product(m, bd)
+        err, _ = check_close(f"engine {tag} ticket {ticket.id}", got,
+                             plain(bd), absprod, eps)
+        check_close(f"engine {tag} ticket {ticket.id} vs plan.execute_wide",
+                    got, plan.execute_wide(bd), absprod, eps)
+        worst = max(worst, err)
+    plan.reset_stats()
+    del plain
+    log(f"[engine] {tag}: all {len(rec['served'])} tickets match the "
+        f"{plan.chosen} torch backend on their B (max |err| {worst:.3e}) "
+        f"and plan.execute_wide")
+    batches = {r.seq: r for r in eng.batch_log}
+    for t in eng.transfer_log:
+        b = batches[t.seq]
+        log(f"[engine] {tag} batch {t.seq}: x{len(b.request_ids)} widths "
+            f"{list(b.widths)} cols {b.cols}; h2d {t.h2d_ms:.4f} ms "
+            f"({t.bytes_in / 1e6:.1f} MB), kernel {t.kernel_ms:.4f} ms, "
+            f"d2h {t.d2h_ms:.4f} ms ({t.bytes_out / 1e6:.1f} MB); host: "
+            f"staging {t.stage_host_ms:.3f} ms, result buffer "
+            f"{t.result_alloc_host_ms:.3f} ms; next batch staged before "
+            f"this one ended: {t.next_staged_early}")
+    split = {k: float(np.median([getattr(t, k) for t in eng.transfer_log]))
+             for k in ("h2d_ms", "kernel_ms", "d2h_ms", "stage_host_ms",
+                       "result_alloc_host_ms")}
+    early = sum(1 for t in eng.transfer_log if t.next_staged_early)
+    out = {"n": m.n, "requests": st["served"], "batches": st["batches"],
+           "coalesced": st["coalesced"], "p50_us": st["p50_us"],
+           "p99_us": st["p99_us"], "goodput_rps": st["goodput_rps"],
+           "sync_p50_us": rec["sync_p50_us"],
+           "sync_p99_us": rec["sync_p99_us"],
+           "sync_goodput_rps": rec["sync_goodput_rps"],
+           "mean_batch_cols": st["mean_batch_cols"],
+           "staged_early": early, "counts": counts,
+           "startup_ms": rec["startup_ms"], **split}
+    log(f"[engine] {tag}: engine p50 {st['p50_us']:.1f} us, p99 "
+        f"{st['p99_us']:.1f} us, goodput {st['goodput_rps']:.1f} req/s; "
+        f"sync p50 {rec['sync_p50_us']:.1f} us, p99 "
+        f"{rec['sync_p99_us']:.1f} us, goodput "
+        f"{rec['sync_goodput_rps']:.1f} req/s; {st['batches']} batches, "
+        f"{st['coalesced']} requests coalesced, mean batch "
+        f"{st['mean_batch_cols']:.1f} columns; median per batch h2d "
+        f"{split['h2d_ms']:.4f} ms, kernel {split['kernel_ms']:.4f} ms, "
+        f"d2h {split['d2h_ms']:.4f} ms, host staging "
+        f"{split['stage_host_ms']:.3f} ms, result buffer "
+        f"{split['result_alloc_host_ms']:.3f} ms; {early} batches had the "
+        f"next staged before they ended")
+    if check_async:
+        check = async_return(plan, m, dev)
+        log(f"[engine] {tag}: execute_wide returned to the host after "
+            f"{check['host_ms']:.4f} ms, before its end event completed: "
+            f"{check['returned_before_end']}")
+        out.update(check)
+        if enforce and early <= 0:
+            raise SmokeFailure(f"engine {tag}: no batch's successor was "
+                               f"staged before the batch ended")
+        if enforce and not check["returned_before_end"]:
+            raise SmokeFailure(f"engine {tag}: execute_wide waited for the "
+                               f"card")
+    del rec
+    empty_cache(dev)
+    return out
+
+
+def engine_phase(served: dict, quick: bool, dev) -> list:
+    """The serving engine at full width on the serving phase's moe-block
+    plan, then at the reference CLI's default shape."""
+    from repro_torch.launch import serve
+    from repro_torch.sparse.dispatch import Dispatcher
+    rows = []
+    for tag, n, requests in ENGINE_RUNS:
+        if n is None:
+            m = served["matrices"]["moe-block"]
+            disp = served["dispatchers"]["moe-block"]
+        else:
+            m = serve.build_stream_matrix("moe-block", n)
+            disp = Dispatcher(device=dev, calibration=False, tree=False)
+        rows.append(dict(engine_run(tag, m, disp, requests, dev,
+                                    check_async=n is None,
+                                    enforce=n is None and not quick),
+                         tag=tag))
+    return rows
+
+
+def served_p50(fn, dev) -> float:
+    """p50 in us of ``STEPS`` calls of ``fn``, each timed on the host clock
+    from a synchronised start to a synchronise, as a served request is."""
+    import numpy as np
+    from repro_torch.core.device import synchronize
+    fn()
+    lat = []
+    for _ in range(STEPS):
+        synchronize(dev)
+        t0 = time.perf_counter()
+        fn()
+        synchronize(dev)
+        lat.append((time.perf_counter() - t0) * 1e6)
+    return float(np.median(lat))
+
+
+def shard_phase(quick: bool, dev) -> list:
+    """Sharded plans over four shards of one card against the unsharded
+    ``cuda`` plan, then ``serve --spmm-shards -1``."""
+    import numpy as np
+    import torch
+    from repro_torch.core.precision import as_precision
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import ShardMesh
+    from repro_torch.sparse import stream
+    from repro_torch.sparse.dispatch import Dispatcher
+    from repro_torch.sparse.shard import B_STRATEGIES
+
+    mesh = ShardMesh([torch.device(dev.type, dev.index or 0)]
+                     * SHARD_DEVICES)
+    rng = np.random.default_rng(11)
+    rows = []
+    runs = [(s, "auto") for s in SHARD_STRUCTURES] + \
+        [("scale-free", f) for f in SHARD_FORCED]
+    n = SHARD_N_QUICK if quick else SHARD_N
+    matrices, dispatchers = {}, {}
+    for structure, fmt_name in runs:
+        if structure not in matrices:
+            matrices[structure] = serve.build_stream_matrix(structure, n)
+            dispatchers[structure] = Dispatcher(device=dev,
+                                                calibration=False, tree=False)
+        m, disp = matrices[structure], dispatchers[structure]
+        spec = stream.BSpec(d=D, reuse=STEPS)
+        single = stream.plan(m, spec, strategy=fmt_name, dispatcher=disp)
+        b = torch.from_numpy(rng.normal(size=(n, D)).astype("float32")
+                             ).to(dev)
+        want = single.execute(b)
+        absprod = abs_product(m, b)
+        eps = as_precision(single.precision).eps
+        single_p50 = served_p50(lambda: single.execute(b), dev)
+        for strat in B_STRATEGIES:
+            what = f"{structure}/{fmt_name}/{strat}"
+            try:
+                p = stream.plan(m, spec, strategy=fmt_name, mesh=mesh,
+                                b_strategy=strat, dispatcher=disp)
+            except ValueError as e:
+                if single.chosen == "dia" and strat == "all_gather":
+                    log(f"[shard] {what} n={n}: ineligible ({e})")
+                    continue
+                raise
+            err, _ = check_close(f"shard {what} vs unsharded cuda plan",
+                                 p.execute(b), want, absprod, eps)
+            ev = next(e for e in p.strategy_evals if e.strategy == strat)
+            pred_us = ev.roofline.total_s * 1e6
+            p50 = served_p50(lambda: p.execute(b), dev)
+            log(p.summary())
+            log(f"[shard] {what} n={n} nnz={m.nnz}: {p.chosen} @ "
+                f"{p.precision} on {p.num_shards} shards, partition "
+                f"{p.partition}, shard nnz {list(map(int, p.shard_nnz))}; "
+                f"max |C - unsharded cuda| {err:.3e} within bound; p50 of "
+                f"{STEPS} requests {p50:.1f} us, predicted {pred_us:.1f} us "
+                f"(compute {ev.roofline.compute_s * 1e6:.1f}, collective "
+                f"{ev.roofline.collective_s * 1e6:.1f}); the unsharded "
+                f"cuda plan's p50 {single_p50:.1f} us")
+            rows.append({"structure": structure, "format": p.chosen,
+                         "b_strategy": strat, "n": n, "p50_us": p50,
+                         "predicted_us": pred_us, "max_abs_err": err,
+                         "unsharded_p50_us": single_p50})
+            del p
+        del single, want, absprod, b
+        empty_cache(dev)
+    args = serve.parser().parse_args(
+        ["--spmm-stream", "--spmm-shards", "-1", "--spmm-steps", str(STEPS),
+         "--device", str(dev)])
+    log("[shard] === serve --spmm-stream --spmm-shards -1 ===")
+    rec = serve.serve_spmm_stream(args)
+    plan = rec["plan"]
+    if dev.type == "cuda" and plan.num_shards != torch.cuda.device_count():
+        raise SmokeFailure(f"--spmm-shards -1 made {plan.num_shards} shards "
+                           f"on {torch.cuda.device_count()} cards")
+    b, c = rec["last"]
+    single = stream.plan(rec["matrix"], stream.BSpec(d=D, reuse=STEPS),
+                         dispatcher=plan._dispatcher)
+    err, _ = check_close("serve --spmm-shards -1 vs unsharded",
+                         c, single.execute(b), abs_product(rec["matrix"], b),
+                         as_precision(plan.precision).eps)
+    log(f"[shard] serve --spmm-shards -1: {plan.chosen} on "
+        f"{plan.num_shards} shard(s), {plan.b_strategy}; p50 "
+        f"{rec['p50_us']:.1f} us; max |C - unsharded| {err:.3e} within "
+        f"bound")
+    return rows
+
+
 def calibrate_phase(scale: Optional[int], dev) -> dict:
     """``serve --calibrate``'s sweep on the card: every SpMM kernel must
     launch, and the saved file must load back at this registry version."""
@@ -1078,6 +1379,16 @@ def run(quick: bool, n: int) -> int:
         rec["calibrate_launches"] = calibrated["counts"][rec["name"]]
     seconds["kernel"] = time.perf_counter() - t0
     log(f"[kernel] phase took {seconds['kernel']:.1f}s")
+    t0 = time.perf_counter()
+    engine = engine_phase(served, quick, dev)
+    for rec in records:
+        rec["engine_launches"] = engine[0]["counts"][rec["name"]]
+    seconds["engine"] = time.perf_counter() - t0
+    log(f"[engine] phase took {seconds['engine']:.1f}s")
+    t0 = time.perf_counter()
+    shard_phase(quick, dev)
+    seconds["shard"] = time.perf_counter() - t0
+    log(f"[shard] phase took {seconds['shard']:.1f}s")
     t0 = time.perf_counter()
     harvest_phase(dev)
     seconds["harvest"] = time.perf_counter() - t0

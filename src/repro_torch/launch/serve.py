@@ -15,6 +15,23 @@ instead of the roofline's pick.  Each request's B is drawn on the host and
 copied to the device before its timer starts; a request's latency is the
 launch plus ``torch.cuda.synchronize()``.
 
+``--spmm-shards N`` serves the same stream through the sharded tier
+(``repro_torch.sparse.shard``): the plan partitions the operator across N
+devices (``-1``: every visible card, one shard each; on the CPU, N shards
+of the one CPU device) and the printed summary adds the B-distribution
+strategy audit.
+
+``--engine`` serves the operator through the continuous-batching engine
+(``repro_torch.sparse.engine``): ``--engine-streams`` open-loop clients
+with mixed widths (d and d // 2) submit into the bounded queue, the worker
+thread coalesces them into shared ``execute_wide`` calls with pinned
+staging on a side stream, and the report gives per-request p50/p99 and
+goodput beside a synchronous per-request replay of the same requests:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine \
+        --spmm-structure moe-block --spmm-n 4096 --spmm-d 64 \
+        --engine-streams 4 --engine-requests 64 --engine-rate 2000
+
 ``--calibrate`` runs the compute-ceiling sweep
 (``repro_torch.core.calibrate``) on the device at start-up and persists
 it, so the serving plan predicts from measured ``(peak_fraction,
@@ -26,6 +43,7 @@ d_half)`` ceilings (``ceiling_source="calibrated"``):
 from __future__ import annotations
 
 import argparse
+import threading
 import time
 from typing import Optional
 
@@ -36,6 +54,7 @@ from repro_torch.core.calibrate import (CARD_SCALE, Calibration,
                                         CalibrationStore, calibrate)
 from repro_torch.core.device import DeviceLike, resolve_device, synchronize
 from repro_torch.core.patterns import serving_suite
+from repro_torch.launch.mesh import ShardMesh, make_shard_mesh
 from repro_torch.sparse.dispatch import (STRATEGIES, Dispatcher,
                                          default_dispatcher)
 
@@ -91,6 +110,18 @@ def run_startup_calibration(device: DeviceLike = None,
     return cal
 
 
+def serving_mesh(shards: int, device: torch.device) -> ShardMesh:
+    """The mesh ``--spmm-shards`` asks for on ``device``'s type.
+
+    On the card: ``shards`` distinct cards (``-1``: every visible one).
+    On the CPU, which is one device: ``shards`` shards of it (``-1``: one),
+    as the reference's CPU runs use virtual host devices.
+    """
+    if device.type == "cpu":
+        return ShardMesh([device] * max(shards, 1))
+    return make_shard_mesh(None if shards < 0 else shards, device=device)
+
+
 def serve_spmm_stream(args, *, dispatcher: Optional[Dispatcher] = None,
                       matrix=None) -> dict:
     """Serve ``--spmm-steps`` right-hand sides through one persistent plan.
@@ -98,7 +129,7 @@ def serve_spmm_stream(args, *, dispatcher: Optional[Dispatcher] = None,
     Args:
         args: parsed CLI arguments (``spmm_structure``, ``spmm_n``,
             ``spmm_d``, ``spmm_steps``, ``device``; optional
-            ``spmm_strategy`` and ``spmm_compare``).
+            ``spmm_strategy``, ``spmm_compare`` and ``spmm_shards``).
         dispatcher: plan on this dispatcher instead of a fresh one for
             ``args.device``.
         matrix: serve this operator instead of building it from
@@ -125,9 +156,11 @@ def serve_spmm_stream(args, *, dispatcher: Optional[Dispatcher] = None,
         synchronize(disp.device)
         return b
 
+    shards = getattr(args, "spmm_shards", 0)
+    mesh = serving_mesh(shards, disp.device) if shards else None
     t0 = time.perf_counter()
     plan = sparse.plan(m, sparse.BSpec(d=args.spmm_d, reuse=args.spmm_steps),
-                       strategy=strategy, dispatcher=disp)
+                       strategy=strategy, dispatcher=disp, mesh=mesh)
     plan.execute(next_batch())                    # bind + first launch
     synchronize(disp.device)
     startup_s = time.perf_counter() - t0
@@ -145,7 +178,9 @@ def serve_spmm_stream(args, *, dispatcher: Optional[Dispatcher] = None,
     flops = 2.0 * m.nnz * args.spmm_d
     gflops = flops / np.median(lat_us) / 1e3
 
-    print(plan.dispatch.summary())
+    # A ShardedPlan's summary adds the B-strategy audit under the format
+    # decision table.
+    print(plan.summary() if mesh is not None else plan.dispatch.summary())
     single = disp.plan(m, args.spmm_d, reuse=1)
     note = ("same as single-shot" if single.chosen == plan.chosen else
             f"single-shot would pick {single.chosen}")
@@ -185,14 +220,164 @@ def serve_spmm_stream(args, *, dispatcher: Optional[Dispatcher] = None,
             "last": (b, c)}
 
 
+def serve_spmm_engine(args, *, dispatcher: Optional[Dispatcher] = None,
+                      matrix=None, engine_cls=None) -> dict:
+    """Serve an open-loop arrival process through the serving engine.
+
+    ``--engine-streams`` clients each submit ``--engine-requests //
+    --engine-streams`` right-hand sides with exponential gaps at
+    ``--engine-rate`` requests/s (open loop: arrivals don't wait for
+    completions, so the queue coalesces and applies backpressure).  Even
+    streams send width d, odd ones d // 2.  Every operand is drawn on the
+    host before the clock starts (pinned when serving on the card), and
+    every result comes back to the host.  After the engine drains, the
+    same requests are replayed one by one through ``plan.execute_wide``
+    with the same transfers (H2D, launch, D2H into pinned memory, one
+    synchronize per request): the sync baseline.
+
+    Args:
+        args: parsed CLI arguments (``spmm_structure``, ``spmm_n``,
+            ``spmm_d``, ``device``, ``engine_*``; optional
+            ``spmm_strategy``).
+        dispatcher: plan on this dispatcher instead of a fresh one for
+            ``args.device`` (its conversion and layout caches are reused).
+        matrix: serve this operator instead of building it.
+        engine_cls: the engine class to serve with (default
+            ``repro_torch.sparse.ServingEngine``; another implementation
+            with its interface can be timed on the same arrivals).
+
+    Returns:
+        The run's record: ``plan``, ``engine``, ``stats`` (the engine's),
+        ``served`` (``(ticket, b)`` per admitted request),
+        ``engine_launches`` (``kernel name -> launches`` from the engine's
+        start to its stop, its warm-up and the sync baseline excluded),
+        ``startup_ms``, ``warmed``, ``sync_latency_us``, ``sync_p50_us``,
+        ``sync_p99_us`` and ``sync_goodput_rps``.
+    """
+    from repro_torch import kernels, sparse
+    device = resolve_device(getattr(args, "device", None))
+    strategy = getattr(args, "spmm_strategy", None) or "auto"
+    m = matrix if matrix is not None else build_stream_matrix(
+        args.spmm_structure, args.spmm_n)
+    disp = dispatcher or Dispatcher(device=device)
+    dev = disp.device
+    on_card = dev.type == "cuda"
+    streams = max(args.engine_streams, 1)
+    per_stream = max(args.engine_requests // streams, 1)
+    rate = max(args.engine_rate, 1e-9)      # requests/s per stream
+    half = max(args.spmm_d // 2, 1)
+
+    def width(stream: int) -> int:
+        return args.spmm_d if stream % 2 == 0 else half
+
+    def draw(w: int) -> torch.Tensor:
+        b = torch.from_numpy(rng.standard_normal((m.n, w), dtype=np.float32))
+        return b.pin_memory() if on_card else b
+
+    # Pre-draw every operand so generation stays out of both timings.
+    rng = np.random.default_rng(1)
+    reqs = [[draw(width(s)) for _ in range(per_stream)]
+            for s in range(streams)]
+    gaps = [[rng.exponential(1.0 / rate) for _ in range(per_stream)]
+            for _ in range(streams)]
+    total = streams * per_stream
+
+    t0 = time.perf_counter()
+    plan = sparse.plan(m, sparse.BSpec(d=args.spmm_d, reuse=total),
+                       strategy=strategy, dispatcher=disp)
+    plan.execute(reqs[0][0].to(dev))                # bind + first launch
+    synchronize(dev)
+    plan.reset_stats()
+    engine = (engine_cls or sparse.ServingEngine)(
+        max_queue=args.engine_queue, policy=args.engine_policy)
+    engine.register("spmm", plan)
+    worst_case_cols = sum(b.shape[1] for stream in reqs for b in stream)
+    warmed = engine.warmup("spmm", max_cols=worst_case_cols)
+    startup_s = time.perf_counter() - t0
+    launched = kernels.launch_counts()
+    engine.start()
+
+    def client(stream: int, served: list) -> None:
+        for gap, b in zip(gaps[stream], reqs[stream]):
+            time.sleep(gap)
+            try:
+                served.append((engine.submit("spmm", b), b))
+            except sparse.ShedError:
+                pass                        # counted in engine.stats()
+
+    per_client: list = [[] for _ in range(streams)]
+    threads = [threading.Thread(target=client, args=(s, per_client[s]))
+               for s in range(streams)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    served = [pair for lst in per_client for pair in lst]
+    for ticket, _ in served:
+        ticket.result(timeout=120.0)
+    engine.stop(timeout=120.0)
+    launched = {k: v - launched[k]
+                for k, v in kernels.launch_counts().items()}
+    stats = engine.stats()
+
+    # The sync baseline, warmed at each request width as the engine was.
+    for w in sorted({b.shape[1] for stream in reqs for b in stream}):
+        plan.execute_wide(torch.zeros((m.n, w), device=dev))
+    synchronize(dev)
+    plan.reset_stats()
+    sync_lat = []
+    t_sync0 = time.perf_counter()
+    for stream in reqs:
+        for b in stream:
+            t1 = time.perf_counter()
+            c = plan.execute_wide(b.to(dev, non_blocking=True))
+            host = torch.empty(c.shape, dtype=c.dtype, pin_memory=on_card)
+            host.copy_(c, non_blocking=True)
+            synchronize(dev)
+            sync_lat.append(time.perf_counter() - t1)
+    sync_span = time.perf_counter() - t_sync0
+    sync_us = np.asarray(sync_lat) * 1e6
+    sync_goodput = len(sync_lat) / max(sync_span, 1e-12)
+
+    print(plan.dispatch.summary())
+    print(f"engine serving {getattr(args, 'spmm_structure', m.pattern)} "
+          f"[{m.n}x{m.n}, nnz={m.nnz}] on {dev}: {streams} streams x "
+          f"{per_stream} requests, widths d={args.spmm_d}/{half}, "
+          f"open-loop rate {rate:.0f} req/s/stream, "
+          f"queue={args.engine_queue} policy={args.engine_policy}, "
+          f"budget {engine.budget_for('spmm')} columns")
+    print(f"startup (classify+plan+pack+first launch, {warmed} launch "
+          f"widths warmed): {startup_s * 1e3:.1f} ms")
+    print(engine.summary())
+    if engine.transfer_log:
+        split = {k: np.median([getattr(r, k) for r in engine.transfer_log])
+                 for k in ("h2d_ms", "kernel_ms", "d2h_ms")}
+        print("per batch on the card (median, CUDA events): " + ", ".join(
+            f"{k[:-3]} {v:.4f} ms" for k, v in split.items()))
+    print(f"sync per-request replay of the same {len(sync_lat)} requests: "
+          f"p50={np.percentile(sync_us, 50):.0f}us "
+          f"p99={np.percentile(sync_us, 99):.0f}us "
+          f"goodput={sync_goodput:.1f} req/s")
+    if stats["goodput_rps"] > 0:
+        print(f"engine vs sync goodput: {stats['goodput_rps']:.1f} vs "
+              f"{sync_goodput:.1f} req/s "
+              f"({stats['goodput_rps'] / max(sync_goodput, 1e-12):.2f}x)")
+    return {"plan": plan, "engine": engine, "stats": stats,
+            "served": served, "engine_launches": launched,
+            "startup_ms": startup_s * 1e3,
+            "warmed": warmed, "sync_latency_us": sync_us,
+            "sync_p50_us": float(np.percentile(sync_us, 50)),
+            "sync_p99_us": float(np.percentile(sync_us, 99)),
+            "sync_goodput_rps": sync_goodput}
+
+
 def parser() -> argparse.ArgumentParser:
     """The server's command line."""
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.serve",
         description="Serve SpMM through a persistent plan on the GPU.")
     ap.add_argument("--spmm-stream", action="store_true",
-                    help="serve SpMM through a persistent sparse.plan (the "
-                         "only mode of the port so far)")
+                    help="serve SpMM through a persistent sparse.plan")
     ap.add_argument("--spmm-structure", choices=STREAM_STRUCTURES,
                     default="moe-block")
     ap.add_argument("--spmm-n", type=int, default=4096)
@@ -203,6 +388,28 @@ def parser() -> argparse.ArgumentParser:
                     help="force a format instead of the roofline's pick")
     ap.add_argument("--spmm-compare", action="store_true",
                     help="also time per-call dispatch of the same stream")
+    ap.add_argument("--spmm-shards", type=int, default=0,
+                    help="serve through the sharded tier on this many "
+                         "devices (-1 = every visible card; on the CPU, "
+                         "this many shards of the one CPU device)")
+    ap.add_argument("--engine", action="store_true",
+                    help="serve through the continuous-batching engine "
+                         "(repro_torch.sparse.engine): open-loop concurrent "
+                         "clients, bounded queue, coalesced execute_wide "
+                         "batches, p50/p99 + goodput report vs a sync "
+                         "per-request baseline")
+    ap.add_argument("--engine-streams", type=int, default=4,
+                    help="concurrent synthetic client streams")
+    ap.add_argument("--engine-requests", type=int, default=64,
+                    help="total requests across all streams")
+    ap.add_argument("--engine-rate", type=float, default=2000.0,
+                    help="open-loop arrival rate per stream (requests/s)")
+    ap.add_argument("--engine-queue", type=int, default=256,
+                    help="bounded admission-queue depth")
+    ap.add_argument("--engine-policy", choices=("wait", "shed"),
+                    default="wait",
+                    help="backpressure when the queue is full: block the "
+                         "submitter ('wait') or reject ('shed')")
     ap.add_argument("--device", default="cuda",
                     help="device to serve on (default: cuda; cpu runs the "
                          "plain PyTorch versions)")
@@ -215,15 +422,18 @@ def parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> None:
-    """Parse arguments and run the streamed-SpMM server."""
+    """Parse arguments and run the streamed-SpMM server or the engine."""
     ap = parser()
     args = ap.parse_args(argv)
-    if not args.spmm_stream:
-        ap.error("the port serves --spmm-stream only; LM decode and the "
-                 "serving engine are not ported yet")
+    if not (args.spmm_stream or args.engine):
+        ap.error("pass --spmm-stream or --engine; the port does not serve "
+                 "LM decode yet")
     if args.calibrate:
         run_startup_calibration(args.device)
-    serve_spmm_stream(args)
+    if args.engine:
+        serve_spmm_engine(args)
+    else:
+        serve_spmm_stream(args)
 
 
 if __name__ == "__main__":

@@ -3,7 +3,10 @@
 ``plan(m, b_spec)`` is the serving entry point: it classifies the matrix,
 evaluates each format's sparsity-aware roofline on the device, converts
 and packs once, and ``plan.execute(b)`` replays the bound kernel.  Plans
-run on the card unless ``device="cpu"`` is passed.
+run on the card unless ``device="cpu"`` is passed.  ``plan(..., mesh=)``
+returns a :class:`ShardedPlan` over a device mesh, and
+:class:`ServingEngine` serves many request streams through registered
+plans with coalescing, backpressure and staged transfers.
 
 The package attribute ``spmm`` is the :mod:`repro_torch.sparse.spmm`
 submodule (the plain PyTorch implementations); the one-shot dispatching
@@ -30,6 +33,10 @@ from repro_torch.sparse.dispatch import (
     plan_spmm,
 )
 from repro_torch.sparse.stream import BSpec, StreamPlan, as_b_spec, plan
+from repro_torch.sparse.shard import B_STRATEGIES, ShardedPlan, ShardStrategyEval
+from repro_torch.sparse.engine import (
+    BatchRecord, ServingEngine, ShedError, Ticket, coalesce_budget,
+)
 
 __all__ = [
     "spmm",
@@ -46,4 +53,6 @@ __all__ = [
     "DispatchPlan", "Dispatcher", "FORMATS", "STRATEGIES",
     "default_dispatcher", "plan_spmm",
     "BSpec", "StreamPlan", "as_b_spec", "plan",
+    "B_STRATEGIES", "ShardedPlan", "ShardStrategyEval",
+    "BatchRecord", "ServingEngine", "ShedError", "Ticket", "coalesce_budget",
 ]

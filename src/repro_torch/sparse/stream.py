@@ -114,10 +114,21 @@ class StreamPlan:
                                         reuse=spec.reuse,
                                         precision=spec.precision,
                                         tolerance=spec.tolerance)
-        spec, self.layout, ctx = dispatcher.prepare(m, self.dispatch)
-        self._run = lambda b: spec.run(self.layout, b, ctx)
+        self._run = self._bind()
         self.executed = 0
         self._reuse_warned = False
+
+    def _bind(self):
+        """Resolve the executor this plan replays.
+
+        Subclasses override this hook to bind another execution tier over
+        the same DispatchPlan: :class:`~repro_torch.sparse.shard.ShardedPlan`
+        returns its sharded executor here instead of the single-device
+        kernel.
+        """
+        spec, self.layout, ctx = self._dispatcher.prepare(self._m,
+                                                          self.dispatch)
+        return lambda b: spec.run(self.layout, b, ctx)
 
     @property
     def n(self) -> int:
@@ -166,6 +177,46 @@ class StreamPlan:
         self._audit_reuse()
         return out
 
+    def execute_async(self, b: torch.Tensor) -> torch.Tensor:
+        """Enqueue one planned-width batch with no sync point.
+
+        Identical to :meth:`execute`: on the card the launch is queued on
+        the current CUDA stream and the returned tensor is not yet
+        computed (``KernelSpec.async_dispatch``), so the host is free to
+        stage the next operand meanwhile, the overlap the serving engine
+        (``repro_torch.sparse.engine``) builds on.  Wait with an event or
+        ``torch.cuda.synchronize``.
+
+        Args:
+            b: dense right-hand side, ``[n, spec.d]``, on the plan's device.
+
+        Returns:
+            ``C`` as an in-flight ``[n, spec.d]`` tensor.
+        """
+        return self.execute(b)
+
+    def execute_many_async(self, bs: Union[torch.Tensor,
+                                           Sequence[torch.Tensor],
+                                           Iterable[torch.Tensor]]) -> list:
+        """Enqueue a whole stream with no sync point and no stacking.
+
+        Args:
+            bs: a stacked ``[k, n, d]`` tensor or an iterable of ``k``
+                tensors of shape ``[n, d]``.
+
+        Returns:
+            List of ``k`` in-flight ``[n, d]`` tensors.
+        """
+        if isinstance(bs, torch.Tensor) and bs.ndim == 3:
+            bs = list(bs.unbind(0))
+        outs = []
+        for b in bs:
+            self._check(b, width=self.spec.d)
+            outs.append(self._run(b))
+            self.executed += 1
+        self._audit_reuse()
+        return outs
+
     def execute_many(self, bs: Union[torch.Tensor, Sequence[torch.Tensor],
                                      Iterable[torch.Tensor]]) -> torch.Tensor:
         """Replay the bound kernel across a stream of right-hand sides.
@@ -178,14 +229,7 @@ class StreamPlan:
             The stacked results, ``[k, n, d]``; an empty stream returns a
             ``[0, n, d]`` tensor of ``spec.dtype``.
         """
-        if isinstance(bs, torch.Tensor) and bs.ndim == 3:
-            bs = list(bs.unbind(0))
-        outs = []
-        for b in bs:
-            self._check(b, width=self.spec.d)
-            outs.append(self._run(b))
-            self.executed += 1
-        self._audit_reuse()
+        outs = self.execute_many_async(bs)
         if not outs:
             return torch.zeros((0, self.n, self.spec.d),
                                dtype=self.spec.dtype, device=self.device)
@@ -264,7 +308,7 @@ class StreamPlan:
             outs.append(self._run(b[:, lo:lo + block_d].contiguous()))
             self.executed += 1
         self._audit_reuse()
-        return torch.cat(outs, dim=1)
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
     def reset_stats(self) -> None:
         """Zero the execution counter (e.g. after warm-up calls)."""
@@ -299,8 +343,12 @@ def plan(m: COOMatrix, b_spec: Union[int, BSpec, torch.Tensor], *,
         reuse: shorthand override for ``BSpec.reuse``.
         precision: shorthand override for ``BSpec.precision``.
         tolerance: shorthand override for ``BSpec.tolerance``.
-        mesh: the sharded tier; not ported yet.
-        b_strategy: sharded-tier B-distribution strategy (needs ``mesh``).
+        mesh: optional :class:`~repro_torch.launch.mesh.ShardMesh`; when
+            given, returns a :class:`~repro_torch.sparse.shard.ShardedPlan`
+            that partitions the matrix across the mesh's devices.
+        b_strategy: sharded-tier B-distribution strategy (``"auto"`` or
+            one of ``repro_torch.sparse.shard.B_STRATEGIES``); needs
+            ``mesh``.
         dispatcher: dispatcher to plan on; defaults to the shared one of
             ``device``.
         device: where the plan runs when no dispatcher is given; None
@@ -308,10 +356,8 @@ def plan(m: COOMatrix, b_spec: Union[int, BSpec, torch.Tensor], *,
             ``device="cpu"`` to run on the CPU.
 
     Returns:
-        A bound :class:`StreamPlan`.
-
-    Raises:
-        NotImplementedError: when ``mesh`` is given.
+        A bound :class:`StreamPlan` (a ``ShardedPlan`` when ``mesh`` is
+        given).
     """
     spec = as_b_spec(b_spec, reuse=reuse)
     if precision is not None or tolerance is not None:
@@ -319,10 +365,11 @@ def plan(m: COOMatrix, b_spec: Union[int, BSpec, torch.Tensor], *,
             spec,
             precision=spec.precision if precision is None else precision,
             tolerance=spec.tolerance if tolerance is None else tolerance)
+    disp = dispatcher or _dispatch.default_dispatcher(device)
     if mesh is not None:
-        raise NotImplementedError(
-            "the sharded tier (mesh=) is not ported to repro_torch yet")
+        from repro_torch.sparse.shard import ShardedPlan
+        return ShardedPlan(disp, m, spec, mesh, strategy=strategy,
+                           b_strategy=b_strategy)
     if b_strategy != "auto":
         raise ValueError("b_strategy requires a mesh (sharded tier)")
-    disp = dispatcher or _dispatch.default_dispatcher(device)
     return StreamPlan(disp, m, spec, strategy=strategy)

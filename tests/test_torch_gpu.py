@@ -688,3 +688,105 @@ def test_harvest_on_two_vendored_matrices_with_the_kernels(cuda_device,
     assert all(g > 0 for s in rec["samples"] for g in s["measured"].values())
     assert store.load("cuda") is not None
     assert len(rec["audit"]) == 2
+
+
+# ---------------------------------------------------------------------- #
+# The reference's adversarial set through the other SpMM kernels.
+# ---------------------------------------------------------------------- #
+
+#: kernel -> the format whose ``cuda`` spec packs its layout.
+ADV_KERNELS = {"csr_spmm": "csr", "binned_spmm": "binned",
+               "rowsplit_spmm": "rowsplit", "banded_spmm": "dia"}
+ADV_KERNEL_CASES = [
+    (name, case, tok) for name, f in ADV_KERNELS.items()
+    for case in sorted(ADVERSARIAL)
+    for tok in registry.get(f, "cuda").supported_precisions]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 8])
+@pytest.mark.parametrize("name,case,token", ADV_KERNEL_CASES,
+                         ids=[f"{n}-{c}-{t}" for n, c, t in ADV_KERNEL_CASES])
+def test_kernel_on_adversarial(cuda_device, name, case, token, d):
+    m = ADVERSARIAL[case]
+    spec = registry.get(ADV_KERNELS[name], "cuda")
+    prec = as_precision(token)
+    ctx = registry.KernelContext(plan_d=d, precision=prec,
+                                 device=cuda_device)
+    layout = spec.prepare(m, ctx)
+    b = torch.from_numpy(np.random.default_rng(d).normal(
+        size=(m.n, d)).astype(np.float32)).to(cuda_device, prec.value_torch)
+    before = kernels.launch_counts()[name]
+    got = spec.run(layout, b, ctx)
+    torch.cuda.synchronize()
+    if m.nnz:
+        assert kernels.launch_counts()[name] > before
+    ref = getattr(kernels.KERNEL_MODULES[name], f"{name}_plain")(layout, b)
+    _check(m, got, ref, b, prec.eps, f"{name} {case} {token} d={d}")
+
+
+# ---------------------------------------------------------------------- #
+# The serving engine and the sharded tier on the card.
+# ---------------------------------------------------------------------- #
+
+@pytest.mark.gpu
+def test_engine_serves_a_cuda_plan_with_staged_transfers(cuda_device):
+    from repro_torch import sparse
+    from repro_torch.sparse.dispatch import Dispatcher
+    m = serving_suite(2048)["moe-block"]()
+    disp = Dispatcher(device=cuda_device, calibration=False, tree=False)
+    plan = sparse.plan(m, sparse.BSpec(d=64, reuse=64), dispatcher=disp)
+    assert plan.chosen == "bcsr"
+    eng = sparse.ServingEngine(max_queue=64)
+    eng.register("spmm", plan)
+    eng.warmup("spmm")
+    rng = np.random.default_rng(0)
+    bs = [torch.from_numpy(rng.standard_normal((m.n, w), dtype=np.float32))
+          for w in (64, 32, 64, 32, 64, 64)]
+    bs[0] = bs[0].pin_memory()          # a pinned operand is sent as is
+    kernels.reset_launch_counts()
+    eng.start()
+    try:
+        tickets = [eng.submit("spmm", b) for b in bs]
+        outs = [t.result(timeout=120.0) for t in tickets]
+    finally:
+        eng.stop(timeout=120.0)
+    # One launch per planned-width block of each batch, nothing else.
+    calls = sum(-(-r.cols // r.block_d) for r in eng.batch_log)
+    assert kernels.launch_counts()["bcsr_spmm"] == calls > 0
+    for out, b in zip(outs, bs):
+        assert out.device.type == "cpu"
+        bd = b.to(cuda_device)
+        want = bcsr_spmm_plain(plan.layout, bd)
+        _check(m, out.to(cuda_device), want, bd, 2.0 ** -23, "engine")
+    s = eng.stats()
+    assert s["served"] == len(bs)
+    assert len(eng.transfer_log) == s["batches"]
+    for rec in eng.transfer_log:
+        assert rec.kernel_ms > 0 and rec.h2d_ms >= 0 and rec.d2h_ms >= 0
+        assert rec.bytes_in > 0 and rec.bytes_out > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("structure", sorted(serving_suite(64)))
+def test_sharded_plan_on_one_card_matches_the_unsharded_plan(cuda_device,
+                                                             structure):
+    from repro_torch import sparse
+    from repro_torch.launch.mesh import ShardMesh
+    from repro_torch.sparse.dispatch import Dispatcher
+    m = serving_suite(4096)[structure]()
+    disp = Dispatcher(device=cuda_device, calibration=False, tree=False)
+    single = sparse.plan(m, 64, dispatcher=disp)
+    b = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(m.n, 64)).astype(np.float32)).to(cuda_device)
+    want = single.execute(b)
+    mesh = ShardMesh(["cuda:0"] * 4)
+    for strat in sparse.B_STRATEGIES:
+        try:
+            p = sparse.plan(m, 64, mesh=mesh, b_strategy=strat,
+                            dispatcher=disp)
+        except ValueError:
+            assert single.chosen == "dia" and strat == "all_gather"
+            continue
+        assert p.num_shards == 4 and p.chosen == single.chosen
+        _check(m, p.execute(b), want, b, 2.0 ** -23, f"{structure}/{strat}")

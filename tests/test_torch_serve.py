@@ -24,6 +24,7 @@ from repro_torch import interop, kernels
 from repro_torch import sparse as port_sparse
 from repro_torch.core import hardware as port_hw
 from repro_torch.launch import serve as port_serve
+from repro_torch.launch.mesh import ShardMesh
 from repro_torch.sparse.dispatch import Dispatcher
 
 RTOL = ATOL = 5e-4
@@ -167,8 +168,11 @@ def test_stream_plan_api_on_cpu():
         plan.execute(torch.zeros(N + 1, D))
     with pytest.raises(ValueError, match="operand is on"):
         plan.execute(torch.zeros(N, D, device="meta"))
-    with pytest.raises(NotImplementedError, match="sharded"):
-        port_sparse.plan(m, D, mesh=object(), dispatcher=disp)
+    sharded = port_sparse.plan(m, D, mesh=ShardMesh(["cpu"] * 2),
+                               dispatcher=disp)
+    assert isinstance(sharded, port_sparse.ShardedPlan)
+    assert torch.allclose(sharded.execute(bs[0]), plan.execute(bs[0]),
+                          rtol=1e-5, atol=1e-5)
     cuda_plan = port_sparse.plan(
         m, D, dispatcher=Dispatcher(backend="cuda", device="cpu",
                                     calibration=False, tree=False))
@@ -187,3 +191,80 @@ def test_sparse_package_keeps_spmm_submodule():
     assert callable(port_sparse.dispatch.spmm)
     assert set(port_sparse.spmm.IMPLEMENTATIONS) == {
         "csr", "ell", "bcsr", "dia", "binned", "rowsplit", "ell_coo"}
+
+
+@pytest.mark.parametrize("structure", ["moe-block", "scale-free"])
+def test_serve_spmm_stream_sharded_on_cpu_matches_reference(structure,
+                                                            capsys):
+    """``--spmm-shards 4`` on the CPU: four shards of the CPU device, the
+    same plan choice as the reference, C within the bound."""
+    args = port_serve.parser().parse_args(
+        ["--spmm-stream", "--spmm-structure", structure, "--spmm-n",
+         str(N), "--spmm-d", str(D), "--spmm-steps", "2", "--spmm-shards",
+         "4", "--device", "cpu"])
+    rec = port_serve.serve_spmm_stream(args)
+    plan = rec["plan"]
+    assert isinstance(plan, port_sparse.ShardedPlan)
+    assert plan.num_shards == 4
+    assert plan.mesh == ShardMesh(["cpu"] * 4)
+    out = capsys.readouterr().out
+    assert "ShardedPlan(devices=4" in out and "steady-state" in out
+    m = ref_patterns.serving_suite(N)[structure]()
+    ref = ref_sparse.plan(m, ref_sparse.BSpec(d=D, reuse=2))
+    assert plan.chosen == ref.chosen
+    b, c = rec["last"]
+    _assert_within(m, b.numpy(), c.numpy(),
+                   np.asarray(ref.execute(jnp.asarray(b.numpy()))),
+                   2.0 ** -23, structure)
+
+
+def test_serve_cli_sharded_and_engine_modes_on_cpu(capsys):
+    port_serve.main(["--spmm-stream", "--spmm-shards", "4", "--spmm-n",
+                     "128", "--spmm-d", "4", "--spmm-steps", "2",
+                     "--device", "cpu"])
+    assert "ShardedPlan(devices=4" in capsys.readouterr().out
+    port_serve.main(["--spmm-stream", "--spmm-shards", "-1", "--spmm-n",
+                     "128", "--spmm-d", "4", "--spmm-steps", "2",
+                     "--device", "cpu"])
+    assert "ShardedPlan(devices=1" in capsys.readouterr().out
+    port_serve.main(["--engine", "--spmm-n", "128", "--spmm-d", "8",
+                     "--engine-requests", "8", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "ServingEngine(policy=wait" in out and "served=8" in out
+    assert "sync per-request replay of the same 8 requests" in out
+    with pytest.raises(SystemExit):
+        port_serve.main(["--engine-requests", "8", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("policy,queue", [("wait", 256), ("shed", 2)])
+def test_serve_spmm_engine_on_cpu(policy, queue, capsys):
+    """The engine server on the CPU: every admitted request served, each
+    ticket's C equal to the plan's own replay of its B within the bound."""
+    args = port_serve.parser().parse_args(
+        ["--engine", "--spmm-structure", "scale-free", "--spmm-n", str(N),
+         "--spmm-d", str(D), "--engine-streams", "3", "--engine-requests",
+         "12", "--engine-rate", "5000", "--engine-queue", str(queue),
+         "--engine-policy", policy, "--device", "cpu"])
+    before = kernels.launch_counts()
+    rec = port_serve.serve_spmm_engine(args)
+    assert kernels.launch_counts() == before       # no card, no launch
+    assert rec["engine_launches"] == {k: 0 for k in before}
+    s = rec["stats"]
+    assert s["served"] == s["admitted"] == len(rec["served"])
+    assert s["admitted"] + s["shed"] == 12
+    if policy == "wait":
+        assert s["shed"] == 0
+    assert len(rec["sync_latency_us"]) == 12
+    assert rec["sync_p99_us"] >= rec["sync_p50_us"] > 0
+    widths = sorted({b.shape[1] for _, b in rec["served"]})
+    assert set(widths) <= {D, D // 2}
+    plan = rec["plan"]
+    m = ref_patterns.serving_suite(N)[args.spmm_structure]()
+    for ticket, b in rec["served"]:
+        got = ticket.result(timeout=0)
+        want = plan.execute_wide(b)
+        _assert_within(m, b.numpy(), got.numpy(), want.numpy(), 2.0 ** -23,
+                       f"ticket {ticket.id}")
+    out = capsys.readouterr().out
+    assert "engine serving scale-free" in out and "sync per-request" in out
+
