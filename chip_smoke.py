@@ -44,7 +44,31 @@ The run reads and writes calibrations only in a fresh temporary
    ``("grouped", "cuda")`` spec, and hold every routed row against its
    expert's dense product.  Counters are zeroed before the phase and read
    after it.  After both paths, every kernel must have launched on one.
-5. **kernels**: each SpMM kernel against its plain PyTorch version on the
+5. **lm** (the LM serving path): ``repro_torch.launch.serve``'s
+   ``serve_lm`` (``serve --arch olmoe-1b-7b``) at full width and depth
+   (16 layers, d_model 2048, 64 experts top-8, expert d_ff 1024; 2 layers
+   under ``--quick``), batch 4, prompt 32, 16 generated tokens: the model
+   is drawn from seed 0 on the card, the prompt is prefilled by stepping
+   and decoded greedily (47 ``decode_step`` calls), and every MoE layer's
+   expert FFN runs on the grouped kernel.  Counters are zeroed before
+   ``serve_lm`` and read after it: ``grouped_matmul`` must have launched
+   exactly 2 x 16 x 47 times and no other kernel at all.  Printed:
+   parameters, their bytes, ``max_memory_allocated``, tokens/s and the
+   per-step median and max (host clock, each step synchronised) beside
+   the byte bound of one step (every weight and the KV cache read once,
+   over 3.35 TB/s; also with only the routed experts' weights), and a
+   ``torch.profiler`` trace of two steps (kernels' device time and count
+   per step, device idle share, the largest kernels).  Then the kernel
+   against its plain version on the model (``lm_check``): 4
+   teacher-forced steps with ``grouped_matmul_plain`` in the model, then
+   the same steps on the kernel, each launch also run on the plain
+   version with the same operands (``moe_block.grouped_tolerance``,
+   padding rows exactly 0).  The kernel run replays the plain run's
+   routing, so the two differ only by the products' roundings, and its
+   logits must agree within ``models.model.logit_tolerance``; the
+   decisions its own router would have changed are counted.  The model is
+   freed before the next phase.
+6. **kernels**: each SpMM kernel against its plain PyTorch version on the
    card, on the layout the serving phase packed for it (f32i32) and at
    every other precision its spec declares (bf16i32 at full n, bf16i16 at
    n = 32760, where the slab fits int16 indices); kernel, plain-version
@@ -68,7 +92,7 @@ The run reads and writes calibrations only in a fresh temporary
    ``torch._grouped_mm`` (bf16, where this torch has it) or a per-expert
    ``torch.matmul`` loop as the library time; the check must reject two
    planted faults (a dropped k-slice, +0.1 on one row).
-6. **engine** (the serving-engine path): ``repro_torch.launch.serve``'s
+7. **engine** (the serving-engine path): ``repro_torch.launch.serve``'s
    ``serve_spmm_engine`` with the default engine settings (8 MiB staging
    budget, queue 256, policy ``wait``, 2000 requests/s per stream), twice:
    at full width on ``moe-block`` at n = 2**20 with d = 64 and 32, 4 streams
@@ -91,7 +115,7 @@ The run reads and writes calibrations only in a fresh temporary
    the first run; the overlap and the async return are printed, not
    enforced: at that size the device work is too short to outlast the
    host's staging.)
-7. **shard** (the sharded tier): ``ShardMesh(["cuda:0"] * 4)`` over the
+8. **shard** (the sharded tier): ``ShardMesh(["cuda:0"] * 4)`` over the
    four ``serving_suite`` structures at n = 2**18 (cut from 2**20 to keep
    classification and packing of the unsharded and four sharded layouts
    per strategy inside the phase's time; 2**12 under ``--quick``), plus
@@ -101,7 +125,7 @@ The run reads and writes calibrations only in a fresh temporary
    plan's ``summary()``, and a p50 of 8 requests per strategy beside its
    predicted time.  Then one ``serve --spmm-stream --spmm-shards -1`` run
    (one shard per visible card), its C held against the unsharded plan.
-8. **harvest**: ``repro_torch.launch.harvest_dispatch`` on the vendored
+9. **harvest**: ``repro_torch.launch.harvest_dispatch`` on the vendored
    corpus with the ``cuda`` kernels, d = 32 and 128, 3 repeats, the tree
    in a temporary store root of its own; its agreement and never-worse
    results are printed, not enforced (at n <= 256 a call is the launch
@@ -214,6 +238,15 @@ RECORD_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
 
 #: Every kernel, in the order of the record.
 KERNEL_NAMES = (*KERNELS, "grouped_matmul")
+
+#: The LM phase: ``serve --arch`` at the reference CLI's defaults (batch 4,
+#: prompt 32, 16 generated tokens) on olmoe-1b-7b at full width and depth
+#: (src/repro/configs/olmoe_1b_7b.py); ``--quick`` cuts it to 2 layers.
+LM_ARCH = "olmoe-1b-7b"
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 32, 16
+LM_QUICK_LAYERS = 2
+#: Teacher-forced steps of the kernel-against-plain check on the model.
+LM_CHECK_STEPS = 4
 
 #: The engine phase: (tag, n or None for the run's n, requests per stream).
 ENGINE_RUNS = (("full width", None, 4), ("CLI default shape", 4096, 64))
@@ -986,6 +1019,289 @@ def grouped_record(moe: dict, quick: bool) -> dict:
             for r in rows[1:]]}
 
 
+class RoutingLog:
+    """Records each call of ``repro_torch.models.moe.router`` while active
+    (one call per MoE layer per step): its weights, its top-k ids and the
+    router logits.  With ``replay`` (another log's calls), each call
+    returns the replayed call's weights and ids in place of its own."""
+
+    def __init__(self, replay: Optional[list] = None):
+        self.replay, self.calls = replay, []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._orig = moe.router
+
+        def router(x, kernel, k):
+            weights, ids = self._orig(x, kernel, k)
+            self.calls.append((weights, ids,
+                               (x.float() @ kernel.float()).cpu()))
+            if self.replay is not None:
+                weights, ids, _ = self.replay[len(self.calls) - 1]
+            return weights, ids
+        moe.router = router
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.router = self._orig
+
+
+def lm_check(model, prompts, dev) -> dict:
+    """Hold the grouped kernel against its plain version on the model's own
+    operands over ``LM_CHECK_STEPS`` teacher-forced steps.
+
+    The steps run once with ``grouped_matmul_plain`` in the model, then
+    with the kernel, whose every launch also runs the plain version on the
+    same operands and must agree within ``moe_block.grouped_tolerance``
+    (padding rows exactly 0).  The kernel run replays the plain run's
+    routing, so that the runs differ only by the products' roundings; its
+    logits must then agree within ``models.model.logit_tolerance``.  The
+    decisions its own router would have taken differently are counted,
+    with their router-logit margins."""
+    import torch
+    from repro_torch.kernels.grouped_matmul import (grouped_matmul,
+                                                    grouped_matmul_plain)
+    from repro_torch.launch.moe_block import grouped_tolerance
+    from repro_torch.models.model import logit_tolerance
+
+    worst = {"ratio": 0.0, "err": 0.0, "launches": 0}
+
+    def checked(x, w, gids, *, bm, bk, bn):
+        out = grouped_matmul(x, w, gids, bm=bm, bk=bk, bn=bn)
+        ref = grouped_matmul_plain(x, w, gids, bm=bm)
+        absprod = grouped_matmul_plain(x.abs().float(), w.abs().float(),
+                                       gids, bm=bm)
+        g, r = out.float(), ref.float()
+        err = (g - r).abs()
+        if not bool(torch.isfinite(g).all()):
+            raise SmokeFailure("lm: grouped_matmul gave non-finite values")
+        ratio = float((err / grouped_tolerance(absprod, out.dtype, g,
+                                               r)).max())
+        padding = ~x.bool().any(dim=1)
+        if bool(out[padding].any()):
+            raise SmokeFailure("lm: a padding row of the capacity buffer "
+                               "came out nonzero")
+        if ratio > 1:
+            raise SmokeFailure(f"lm: grouped_matmul vs plain on the model's "
+                               f"operands {tuple(x.shape)} x "
+                               f"{tuple(w.shape)}: err / bound {ratio:.3f}")
+        worst.update(ratio=max(worst["ratio"], ratio),
+                     err=max(worst["err"], float(err.max())),
+                     launches=worst["launches"] + 1)
+        return out
+
+    toks = torch.from_numpy(prompts.astype("int64")).to(dev)
+
+    def run(gmm, replay=None):
+        cache = model.init_cache(toks.shape[0], LM_CHECK_STEPS)
+        with RoutingLog(replay) as routes, torch.inference_mode():
+            logits = torch.stack([model.decode_step(cache, toks[:, t], t, gmm)
+                                  for t in range(LM_CHECK_STEPS)])
+        return logits, routes.calls
+
+    ref, ref_routes = run(grouped_matmul_plain)
+    got, got_routes = run(checked, replay=ref_routes)
+    if not bool(torch.isfinite(got).all()):
+        raise SmokeFailure("lm: non-finite logits")
+    k = model.cfg.num_experts_per_token
+    margins = []
+    for (_, own, _), (_, ids, z) in zip(got_routes, ref_routes):
+        same = (own.sort(dim=1).values == ids.sort(dim=1).values).all(1)
+        for b in torch.nonzero(~same).flatten().tolist():
+            zs = z[b].sort(descending=True).values
+            margins.append(float((zs[k - 1] - zs[k]) /
+                                 z[b].pow(2).mean().sqrt()))
+    rms = ref.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    bound = logit_tolerance(model.cfg, rms, ref.numel())
+    err = (got - ref).abs()
+    ratio = float((err / bound).max())
+    if ratio > 1:
+        raise SmokeFailure(f"lm: logits of the kernel run vs the plain run: "
+                           f"err / bound {ratio:.3f}")
+    experts = [len(torch.unique(ids)) for _, ids, _ in ref_routes]
+    return {"launch_ratio": worst["ratio"], "launch_err": worst["err"],
+            "checked_launches": worst["launches"],
+            "max_dlogit": float(err.max()), "logit_ratio": ratio,
+            "bound_min": float(bound.min()), "bound_max": float(bound.max()),
+            "decisions": len(ref_routes) * toks.shape[0],
+            "own_flips": len(margins),
+            "flip_margin_max": max(margins, default=None),
+            "experts_routed_mean": sum(experts) / len(experts)}
+
+
+def lm_profile(model, prompts, dev, steps: int = 2) -> dict:
+    """Where one decode step's time goes: ``torch.profiler`` over ``steps``
+    teacher-forced steps (after 2 warm ones) on a fresh cache; per step the
+    host wall time, the kernels' summed device time and count, and the
+    largest kernels.  Device time is "not measured" where the trace holds
+    no device events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    toks = torch.from_numpy(prompts.astype("int64")).to(dev)
+    cache = model.init_cache(toks.shape[0], steps + 2)
+    with torch.inference_mode():
+        for t in range(2):
+            model.decode_step(cache, toks[:, t], t)
+        torch.cuda.synchronize(dev)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for t in range(2, steps + 2):
+                model.decode_step(cache, toks[:, t], t)
+            torch.cuda.synchronize(dev)
+            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return {"wall_ms": wall_ms,
+            "device_ms": device_ms if kernels else None,
+            "kernels": sum(e.count for e in kernels) / steps,
+            "top": [(e.key[:60], e.self_device_time_total / 1e3 / steps,
+                     e.count / steps) for e in top]}
+
+
+def lm_step_bytes(model, batch: int, cache_len: int,
+                  experts_read: Optional[float] = None) -> int:
+    """Bytes one ``decode_step`` must read: every weight once (the
+    embedding table's ``batch`` rows where it is not tied), and the whole
+    KV cache; with ``experts_read``, only that many experts' weights per
+    MoE layer instead of all of them."""
+    cfg = model.cfg
+    total = 0
+    for name, p in model.named_parameters():
+        nbytes = p.numel() * p.element_size()
+        if name == "embed.table" and not cfg.tie_embeddings:
+            nbytes = batch * cfg.d_model * p.element_size()
+        elif experts_read is not None and name.endswith(
+                ("moe.w_gate_up", "moe.w_down")):
+            nbytes = nbytes * experts_read / cfg.num_experts
+        total += nbytes
+    kv = 2 * cfg.num_layers * batch * cache_len * cfg.num_kv_heads * \
+        cfg.head_dim * 2
+    return int(total + kv)
+
+
+def lm_phase(quick: bool, dev) -> dict:
+    """``serve --arch olmoe-1b-7b`` at full width and depth on the card,
+    through the port's LM path: build from seed 0, prefill 32 tokens by
+    stepping, decode 16 greedily, with the expert FFN on the grouped
+    kernel; the launches must equal the plan.  Then the kernel against its
+    plain version on the model (``lm_check``); the model is freed."""
+    import dataclasses
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import init_params
+
+    argv = ["--arch", LM_ARCH, "--batch", str(LM_BATCH), "--prompt-len",
+            str(LM_PROMPT), "--gen", str(LM_GEN), "--device", str(dev)]
+    model = None
+    if quick:
+        cfg = dataclasses.replace(get_config(LM_ARCH),
+                                  num_layers=LM_QUICK_LAYERS)
+        model = init_params(cfg, device=dev,
+                            generator=torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    log(f"[lm] === serve {' '.join(argv)}"
+        f"{f' ({LM_QUICK_LAYERS} layers)' if quick else ''} ===")
+    rec = serve.serve_lm(serve.parser().parse_args(argv), model=model)
+    counts = kernels.launch_counts()
+    model, out = rec["model"], rec["generation"]
+    cfg = model.cfg
+    steps = LM_PROMPT - 1 + LM_GEN
+    planned = model.grouped_launches_per_step() * steps
+    if counts["grouped_matmul"] != planned or \
+            any(v for k, v in counts.items() if k != "grouped_matmul"):
+        raise SmokeFailure(f"lm: launches {counts}, planned {planned} "
+                           f"grouped_matmul and nothing else")
+    tokens = out.tokens
+    if tokens.shape != (LM_BATCH, LM_GEN) or tokens.min() < 0 or \
+            tokens.max() >= cfg.vocab_size:
+        raise SmokeFailure(f"lm: tokens {tokens.shape} in "
+                           f"[{tokens.min()}, {tokens.max()}]")
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    ms = np.asarray(out.step_ms)
+    cache_len = LM_PROMPT + LM_GEN
+    step_bytes = lm_step_bytes(model, LM_BATCH, cache_len)
+    bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[lm] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{cfg.num_experts} experts top-{cfg.num_experts_per_token}, expert "
+        f"d_ff {cfg.moe_d_ff}, vocab {cfg.vocab_size} (padded "
+        f"{cfg.padded_vocab}); {n_params} parameters, {n_bytes / 1e9:.2f} GB "
+        f"on the card; max_memory_allocated {peak / 1e9:.2f} GB above the "
+        f"{base / 1e9:.2f} GB the earlier phases hold; built in "
+        f"{rec['build_s']:.1f}s")
+    log(f"[lm] {LM_BATCH} x {LM_PROMPT} prompt + {LM_GEN} generated: "
+        f"{steps} decode steps, {rec['tok_s']:.2f} tok/s; per step median "
+        f"{np.median(ms):.3f} ms, max {ms.max():.3f} ms, min {ms.min():.3f} "
+        f"ms; byte bound {bound_ms:.3f} ms ({step_bytes / 1e9:.2f} GB per "
+        f"step at {HBM_BYTES_PER_S / 1e12:.2f} TB/s, all experts' weights); "
+        f"grouped_matmul launches {counts['grouped_matmul']} = planned "
+        f"{planned}")
+    log(f"[lm] first row: {tokens[0].tolist()}")
+    prof = lm_profile(model, rec["prompts"], dev)
+    if prof["device_ms"] is None:
+        log(f"[lm] profiled step: {prof['wall_ms']:.3f} ms on the host "
+            f"clock; device time not measured (no device events traced)")
+    else:
+        log(f"[lm] profiled step (torch.profiler, 2 steps): "
+            f"{prof['wall_ms']:.3f} ms on the host clock, kernels "
+            f"{prof['device_ms']:.3f} ms of device time "
+            f"({prof['kernels']:.0f} kernels), device idle "
+            f"{1 - prof['device_ms'] / prof['wall_ms']:.1%} of the profiled "
+            f"step, {1 - prof['device_ms'] / np.median(ms):.1%} of the "
+            f"unprofiled median; largest: "
+            + "; ".join(f"{k} {ms:.3f} ms x{n:.0f}"
+                        for k, ms, n in prof["top"]))
+    t0 = time.perf_counter()
+    check = lm_check(model, rec["prompts"], dev)
+    routed_bytes = lm_step_bytes(model, LM_BATCH, cache_len,
+                                 check["experts_routed_mean"])
+    log(f"[lm] kernel vs plain on the model's operands, {LM_CHECK_STEPS} "
+        f"teacher-forced steps: {check['checked_launches']} launches, worst "
+        f"err / grouped_tolerance {check['launch_ratio']:.3f} (max |err| "
+        f"{check['launch_err']:.3e}), padding rows 0; with the plain run's "
+        f"routing replayed, logits of the kernel run vs the plain run: max "
+        f"|dlogit| {check['max_dlogit']:.4e}, bound "
+        f"{check['bound_min']:.4f}-{check['bound_max']:.4f} "
+        f"(logit_tolerance), worst err / bound {check['logit_ratio']:.3f}; "
+        f"the kernel run's own router would have taken "
+        f"{check['own_flips']} of {check['decisions']} (token, layer, step) "
+        f"decisions differently (largest router-logit margin among them "
+        f"{check['flip_margin_max']} x the row rms); "
+        f"{check['experts_routed_mean']:.1f} experts routed per layer and "
+        f"step, whose weights alone would be {routed_bytes / 1e9:.2f} GB "
+        f"per step, {routed_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; check "
+        f"took {time.perf_counter() - t0:.1f}s")
+    result = {"launches": counts["grouped_matmul"], "planned": planned,
+              "tok_s": rec["tok_s"], "step_median_ms": float(np.median(ms)),
+              "step_max_ms": float(ms.max()), "bound_ms": bound_ms,
+              "routed_bound_ms": routed_bytes / HBM_BYTES_PER_S * 1e3,
+              "params": n_params, "bytes": n_bytes, "peak_bytes": peak,
+              "max_dlogit": check["max_dlogit"],
+              "launch_ratio": check["launch_ratio"],
+              "logit_ratio": check["logit_ratio"],
+              "profiled_wall_ms": prof["wall_ms"],
+              "profiled_device_ms": prof["device_ms"],
+              "profiled_kernels": prof["kernels"]}
+    del model, rec, out
+    gc.collect()
+    empty_cache(dev)
+    return result
+
+
 def kernel_of(fmt_name: str) -> str:
     """The kernel a ``cuda`` plan of ``fmt_name`` launches."""
     return next(k for k, v in KERNELS.items() if fmt_name in v[3])
@@ -1373,10 +1689,17 @@ def run(quick: bool, n: int) -> int:
     if missing:
         raise SmokeFailure(f"kernels never launched on a path: {missing}")
     t0 = time.perf_counter()
+    lm = lm_phase(quick, dev)
+    seconds["lm"] = time.perf_counter() - t0
+    log(f"[lm] phase took {seconds['lm']:.1f}s")
+    t0 = time.perf_counter()
     records = kernel_phase(served, quick, dev)
     records.append(grouped_record(moe, quick))
     for rec in records:
         rec["calibrate_launches"] = calibrated["counts"][rec["name"]]
+        rec["lm_launches"] = lm["launches"] \
+            if rec["name"] == "grouped_matmul" else 0
+    records[-1]["lm"] = lm
     seconds["kernel"] = time.perf_counter() - t0
     log(f"[kernel] phase took {seconds['kernel']:.1f}s")
     t0 = time.perf_counter()

@@ -1,6 +1,6 @@
 """Bridges from the reference package's state, as plain numpy, to the port.
 
-Both functions take numpy arrays (or anything ``np.asarray`` accepts),
+Every function takes numpy arrays (or anything ``np.asarray`` accepts),
 never objects of the reference package, so the port stays free of it:
 
     m = coo_from_numpy(ref.n, ref.rows, ref.cols, ref.vals, ref.pattern,
@@ -81,3 +81,56 @@ def layout_from_numpy(format: str, arrays, device=None):
         return band_layout(np.asarray(arrays["band"]), int(arrays["w"]),
                            int(arrays["t"]), dev)
     raise ValueError(f"no port layout for format {format!r}")
+
+
+def _leaves(tree, prefix=()):
+    """``(path, array)`` for every leaf of a nested mapping."""
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _leaves(value, prefix + (key,))
+        else:
+            yield prefix + (key,), value
+
+
+def params_from_numpy(cfg, tree, device=None, dtype=None):
+    """The port's :class:`~repro_torch.models.model.LM` holding the
+    reference's ``init_params`` weights.
+
+    Args:
+        cfg: the model's ``ModelConfig`` (the port's copy).
+        tree: the reference's parameter pytree as nested dicts of numpy
+            (fp32 master) arrays, its layers stacked on a leading axis
+            under ``layers["p0"]``.
+        device: where the model goes (None: the CPU).
+        dtype: the compute dtype (None: ``models.model.COMPUTE_DTYPE``).
+
+    Each matrix, bias, expert weight and the embedding table are cast
+    once to the compute dtype, which is what the reference's per-use cast
+    gives; norm scales and the router stay fp32.  ``w_gate`` and ``w_up``
+    go side by side into ``w_gate_up``.
+    """
+    import torch
+    from repro_torch.models.model import LM
+    model = LM(cfg, device="meta", dtype=dtype)
+    dev = device_of(device)
+    state = {}
+    for path, value in _leaves(tree):
+        arr = np.asarray(value, dtype=np.float32)
+        if path[0] != "layers":
+            state[".".join(path)] = arr
+            continue
+        # layers / p0 / <module path>: split the stacked leading axis.
+        for i in range(arr.shape[0]):
+            state[".".join(("layers", str(i)) + path[2:])] = arr[i]
+    for i in range(cfg.num_layers):
+        gate = state.pop(f"layers.{i}.moe.w_gate", None)
+        if gate is not None:
+            state[f"layers.{i}.moe.w_gate_up"] = np.concatenate(
+                [gate, state.pop(f"layers.{i}.moe.w_up")], axis=2)
+            state[f"layers.{i}.moe.router"] = \
+                state.pop(f"layers.{i}.moe.router.kernel")
+    own = dict(model.named_parameters())
+    tensors = {name: torch.from_numpy(np.array(arr)).to(dev, own[name].dtype)
+               for name, arr in state.items()}
+    model.load_state_dict(tensors, strict=True, assign=True)
+    return model

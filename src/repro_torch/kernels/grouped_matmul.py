@@ -21,6 +21,7 @@ reference's ``preferred_element_type=float32``.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
@@ -44,10 +45,15 @@ def tile_rows(bm: int) -> int:
 
 
 def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor,
-                         group_ids: torch.Tensor, *, bm: int
-                         ) -> torch.Tensor:
+                         group_ids: torch.Tensor, *, bm: int,
+                         bk: Optional[int] = None,
+                         bn: Optional[int] = None) -> torch.Tensor:
     """The plain PyTorch version: one fp32 product per run of row blocks
-    that share an expert, cast once to x's dtype."""
+    that share an expert, cast once to x's dtype.  ``bk`` and ``bn``, where
+    given, are checked as :func:`grouped_matmul` checks them, so either
+    function can be passed where the other is expected."""
+    if bk is not None or bn is not None:
+        _check_tiles(x, w, bm, bk or 1, bn or 1)
     T, N = x.shape[0], w.shape[2]
     out = torch.empty(T, N, dtype=x.dtype, device=x.device)
     gids = group_ids.to("cpu", torch.int64).numpy()
@@ -56,6 +62,17 @@ def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor,
         rows = slice(int(s) * bm, int(e) * bm)
         out[rows] = (x[rows].float() @ w[int(gids[s])].float()).to(x.dtype)
     return out
+
+
+def _check_tiles(x: torch.Tensor, w: torch.Tensor, bm: int, bk: int,
+                 bn: int) -> None:
+    T, K = x.shape
+    E, K2, N = w.shape
+    if K != K2:
+        raise ValueError(f"grouped_matmul: x has K={K}, w has K={K2}")
+    if T % bm or K % bk or N % bn:
+        raise ValueError(f"shapes ({T},{K},{N}) not divisible by tiles "
+                         f"({bm},{bk},{bn})")
 
 
 _P = ctypes.c_void_p
@@ -146,13 +163,7 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
         ValueError: when a shape does not divide by its tile, or the
             operands lie on another device than the CUDA or the CPU.
     """
-    T, K = x.shape
-    E, K2, N = w.shape
-    if K != K2:
-        raise ValueError(f"grouped_matmul: x has K={K}, w has K={K2}")
-    if T % bm or K % bk or N % bn:
-        raise ValueError(f"shapes ({T},{K},{N}) not divisible by tiles "
-                         f"({bm},{bk},{bn})")
+    _check_tiles(x, w, bm, bk, bn)
     if x.device.type == "cuda":
         return grouped_matmul_cuda(x, w, group_ids, bm=bm)
     if x.device.type == "cpu":

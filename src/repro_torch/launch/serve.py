@@ -1,5 +1,18 @@
-"""Streamed-SpMM server: one sparse operator, many right-hand sides.
+"""Serving launcher: batched LM decode, and the streamed-SpMM server.
 
+LM serving (``--arch``): build the model at random from a fixed seed on
+the device, prefill the prompts by stepping (one ``decode_step`` per
+prompt token) and decode greedily; the MoE expert FFN runs on the
+grouped-matmul kernel.  It prints tokens/s and the per-step decode
+median and max (host clock, each step ending in
+``torch.cuda.synchronize()``):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+        --batch 4 --prompt-len 32 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+        --reduced --device cpu
+
+Streamed SpMM serving: one sparse operator, many right-hand sides.
 Hold one sparse operator for the whole process, plan once through
 ``repro_torch.sparse.plan`` with the expected request count as the reuse
 horizon, and serve every request's right-hand side through the bound
@@ -43,9 +56,10 @@ d_half)`` ceilings (``ceiling_source="calibrated"``):
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import threading
 import time
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -54,9 +68,107 @@ from repro_torch.core.calibrate import (CARD_SCALE, Calibration,
                                         CalibrationStore, calibrate)
 from repro_torch.core.device import DeviceLike, resolve_device, synchronize
 from repro_torch.core.patterns import serving_suite
+from repro_torch.kernels import launch_counts
 from repro_torch.launch.mesh import ShardMesh, make_shard_mesh
 from repro_torch.sparse.dispatch import (STRATEGIES, Dispatcher,
                                          default_dispatcher)
+
+
+@dataclasses.dataclass
+class Generation:
+    """What :func:`generate` returns."""
+
+    tokens: np.ndarray        # [B, gen] int32, the greedy tokens
+    step_ms: List[float]      # host ms of each step, prefill steps first
+
+
+def generate(model, prompts: np.ndarray, gen: int) -> Generation:
+    """Greedy decode ``gen`` tokens after prefilling ``prompts`` ``[B, S]``.
+
+    Prefill steps through the prompt one token at a time (``S - 1``
+    ``decode_step`` calls), then each of the ``gen`` steps feeds the last
+    token and takes the argmax over the real vocabulary.  Each step is
+    timed on the host clock up to ``torch.cuda.synchronize()``.
+    """
+    B, S = prompts.shape
+    dev = model.device
+    cache = model.init_cache(B, S + gen)
+    toks = torch.from_numpy(np.asarray(prompts, dtype=np.int64)).to(dev)
+    vocab = model.cfg.vocab_size
+    step_ms, out = [], []
+    with torch.inference_mode():
+        for t in range(S - 1 + gen):
+            t0 = time.perf_counter()
+            if t < S - 1:
+                model.decode_step(cache, toks[:, t], t)
+            else:
+                tok = toks[:, -1] if t == S - 1 else out[-1]
+                logits = model.decode_step(cache, tok, t)
+                out.append(torch.argmax(logits[:, :vocab], dim=-1))
+            synchronize(dev)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    tokens = torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
+    return Generation(tokens, step_ms)
+
+
+def lm_prompts(vocab_size: int, batch: int, prompt_len: int) -> np.ndarray:
+    """The reference's prompts: ``[batch, prompt_len]`` int32 tokens in
+    ``[2, vocab_size - 1)`` from ``np.random.default_rng(0)``."""
+    rng = np.random.default_rng(0)
+    return rng.integers(2, vocab_size - 1,
+                        size=(batch, prompt_len)).astype(np.int32)
+
+
+def serve_lm(args, *, model=None) -> dict:
+    """Build ``--arch`` (seed 0) on ``--device``, or take ``model`` (its
+    config then replaces ``--arch`` and ``--reduced``), and generate
+    ``--gen`` tokens for ``--batch`` prompts of ``--prompt-len``.
+
+    On the card every MoE layer's expert FFN launches the grouped-matmul
+    kernel: the launches must equal two per MoE layer per step, or this
+    raises ``RuntimeError``.  On the CPU the plain version runs and
+    launches nothing.
+
+    Returns:
+        A record: ``model``, ``prompts``, ``generation``, ``build_s``,
+        ``seconds``, ``tok_s``, ``launches`` and ``planned_launches``.
+    """
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch) if model is None else model.cfg
+    if args.reduced and model is None:
+        cfg = cfg.reduced()
+    t0 = time.perf_counter()
+    if model is None:
+        model = init_params(cfg, device=dev,
+                            generator=torch.Generator(dev).manual_seed(0))
+        synchronize(dev)
+    build_s = time.perf_counter() - t0
+    prompts = lm_prompts(cfg.vocab_size, args.batch, args.prompt_len)
+    steps = args.prompt_len - 1 + args.gen
+    before = launch_counts()["grouped_matmul"]
+    t0 = time.perf_counter()
+    out = generate(model, prompts, args.gen)
+    dt = time.perf_counter() - t0
+    launches = launch_counts()["grouped_matmul"] - before
+    planned = model.grouped_launches_per_step() * steps \
+        if dev.type == "cuda" else 0
+    ms = np.asarray(out.step_ms)
+    print(f"{cfg.name} on {dev}: built in {build_s:.1f}s; generated "
+          f"{out.tokens.shape} tokens in {dt:.2f}s "
+          f"({args.batch * args.gen / dt:.1f} tok/s); {steps} decode "
+          f"steps, median {np.median(ms):.2f} ms, max {ms.max():.2f} ms; "
+          f"grouped_matmul launches {launches} (planned {planned})")
+    print("sample:", out.tokens[0][:10])
+    if launches != planned:
+        raise RuntimeError(f"{cfg.name}: grouped_matmul launched {launches} "
+                           f"times, planned {planned}")
+    return {"model": model, "prompts": prompts, "generation": out,
+            "build_s": build_s, "seconds": dt,
+            "tok_s": args.batch * args.gen / dt, "launches": launches,
+            "planned_launches": planned}
+
 
 #: CLI choices derive from the shared registry so they can't drift from it.
 STREAM_STRUCTURES = tuple(serving_suite(64))
@@ -375,7 +487,14 @@ def parser() -> argparse.ArgumentParser:
     """The server's command line."""
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.serve",
-        description="Serve SpMM through a persistent plan on the GPU.")
+        description="Serve LM decode, or SpMM through a persistent plan, "
+                    "on the GPU.")
+    ap.add_argument("--arch", help="serve this model's greedy decode")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the arch's tiny same-family config")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--spmm-stream", action="store_true",
                     help="serve SpMM through a persistent sparse.plan")
     ap.add_argument("--spmm-structure", choices=STREAM_STRUCTURES,
@@ -422,18 +541,21 @@ def parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> None:
-    """Parse arguments and run the streamed-SpMM server or the engine."""
+    """Parse arguments and run the engine, the streamed-SpMM server or the
+    LM server."""
     ap = parser()
     args = ap.parse_args(argv)
-    if not (args.spmm_stream or args.engine):
-        ap.error("pass --spmm-stream or --engine; the port does not serve "
-                 "LM decode yet")
+    if not (args.spmm_stream or args.engine or args.arch):
+        ap.error("--arch is required unless --spmm-stream or --engine is "
+                 "set")
     if args.calibrate:
         run_startup_calibration(args.device)
     if args.engine:
         serve_spmm_engine(args)
-    else:
+    elif args.spmm_stream:
         serve_spmm_stream(args)
+    else:
+        serve_lm(args)
 
 
 if __name__ == "__main__":

@@ -790,3 +790,117 @@ def test_sharded_plan_on_one_card_matches_the_unsharded_plan(cuda_device,
             continue
         assert p.num_shards == 4 and p.chosen == single.chosen
         _check(m, p.execute(b), want, b, 2.0 ** -23, f"{structure}/{strat}")
+
+
+# ---------------------------------------------------------------------- #
+# The LM serving path: the MoE expert FFN on the grouped kernel.
+# ---------------------------------------------------------------------- #
+
+def _lm_config(layers: int = 2):
+    """olmoe-1b-7b's reduced config at the widths the kernel tiles:
+    d_model = moe_d_ff = 128 (K % 64 and N % 128 must be 0)."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("olmoe-1b-7b").reduced(),
+                               d_model=128, moe_d_ff=128, num_layers=layers)
+
+
+class _CheckedGrouped:
+    """A grouped product that launches the kernel and holds every launch
+    against the plain version on the same operands within
+    ``moe_block.grouped_tolerance``; padding rows (all-zero x rows) must
+    come out exactly 0."""
+
+    def __init__(self):
+        self.launches, self.bounds = 0, []
+
+    def __call__(self, x, w, gids, *, bm, bk, bn):
+        out = grouped_matmul(x, w, gids, bm=bm, bk=bk, bn=bn)
+        ref = grouped_matmul_plain(x, w, gids, bm=bm, bk=bk, bn=bn)
+        absprod = grouped_matmul_plain(x.abs().float(), w.abs().float(),
+                                       gids, bm=bm)
+        g, r = out.double(), ref.double()
+        assert out.dtype == x.dtype and bool(torch.isfinite(g).all())
+        bound = moe_block.grouped_tolerance(absprod.double(), x.dtype, g, r)
+        worst = float((g - r).abs().sub(bound).max())
+        assert worst <= 0, f"grouped {tuple(x.shape)}: exceeds by {worst}"
+        padding = ~x.bool().any(dim=1)
+        assert bool(padding.any()) and not bool(out[padding].any())
+        self.launches += 1
+        self.bounds.append(float(bound.max()))
+        return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tokens", [4, 96])
+def test_moe_ffn_kernel_matches_plain_version(cuda_device, tokens):
+    """4 tokens: a decode step's batch (no slot dropped); 96: capacity
+    overflows.  Each launch within the grouped tolerance; the layer's
+    output, a combine of rows with weights summing to 1, within the
+    largest launch bound plus two bf16 roundings per side."""
+    from repro_torch.models.moe import MoE
+    cfg = _lm_config()
+    gen = torch.Generator(cuda_device).manual_seed(tokens)
+    moe = MoE(cfg.d_model, cfg.moe_d_ff, cfg.num_experts,
+              cfg.num_experts_per_token, cfg.moe_capacity_factor,
+              dtype=torch.bfloat16, device=cuda_device, generator=gen)
+    x = torch.randn(1, tokens, cfg.d_model, generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    checked = _CheckedGrouped()
+    got = moe(x, checked)
+    ref = moe(x, grouped_matmul_plain)
+    torch.cuda.synchronize()
+    assert checked.launches == 2
+    g, r = got.double(), ref.double()
+    eps = float(torch.finfo(torch.bfloat16).eps)
+    bound = max(checked.bounds) + 2 * eps * (g.abs() + r.abs())
+    worst = float((g - r).abs().sub(bound).max())
+    assert worst <= 0, f"moe_ffn T={tokens}: exceeds by {worst:.3e}"
+
+
+@pytest.mark.gpu
+def test_decode_step_launches_the_planned_grouped_count(cuda_device):
+    from repro_torch.models.model import init_params
+    cfg = _lm_config(layers=2)
+    model = init_params(cfg, device=cuda_device,
+                        generator=torch.Generator(cuda_device).manual_seed(0))
+    cache = model.init_cache(4, 8)
+    tokens = torch.tensor([3, 5, 7, 11], device=cuda_device)
+    before = dict(kernels.launch_counts())
+    logits = model.decode_step(cache, tokens, 0)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert model.grouped_launches_per_step() == 4
+    assert after["grouped_matmul"] - before["grouped_matmul"] == 4
+    assert all(after[k] == before[k] for k in after if k != "grouped_matmul")
+    assert logits.shape == (4, cfg.padded_vocab)
+    assert logits.dtype == torch.float32 and bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.gpu
+def test_capacity_buffer_padding_rows_come_out_zero(cuda_device):
+    """The [E, C_pad, d] buffer's rows past each expert's routed tokens are
+    zero going in and must be exactly zero coming out of both launches."""
+    from repro_torch.models.moe import (MoE, bucket_local, capacity,
+                                        padded_capacity, router)
+    cfg = _lm_config()
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    moe = MoE(cfg.d_model, cfg.moe_d_ff, cfg.num_experts,
+              cfg.num_experts_per_token, cfg.moe_capacity_factor,
+              dtype=torch.bfloat16, device=cuda_device, generator=gen)
+    x = torch.randn(4, cfg.d_model, generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    weights, ids = router(x, moe.router, moe.k)
+    cap = capacity(4, moe.k, moe.num_experts, moe.capacity_factor)
+    buf, (e_idx, c_idx, w) = bucket_local(x, weights, ids, 0,
+                                          moe.num_experts, cap,
+                                          rows=padded_capacity(cap))
+    assert buf.shape == (moe.num_experts, 64, cfg.d_model)
+    out = moe.expert_ffn(buf)
+    torch.cuda.synchronize()
+    occupied = torch.zeros(buf.shape[:2], dtype=torch.bool,
+                           device=cuda_device)
+    occupied[e_idx[w > 0], c_idx[w > 0]] = True
+    assert int(occupied.sum()) == 4 * moe.k
+    assert not bool(buf[~occupied].any())
+    assert not bool(out[~occupied].any())
+    assert bool(out[occupied].any(dim=-1).all())
