@@ -68,7 +68,29 @@ The run reads and writes calibrations only in a fresh temporary
    logits must agree within ``models.model.logit_tolerance``; the
    decisions its own router would have changed are counted.  The model is
    freed before the next phase.
-6. **kernels**: each SpMM kernel against its plain PyTorch version on the
+6. **train** (the training path): ``repro_torch.train.trainer.Trainer`` on
+   olmoe-1b-7b at full width with the depth cut to 4 of 16 layers (fp32
+   masters, gradients and AdamW's mu and nu take 16 B per parameter: 111
+   GB at full depth; 2 layers under ``--quick``), batch 4 x sequence 512,
+   8 steps at lr 3e-4 (warmup 2): the first trainer is preempted after 4
+   steps and saves its checkpoint (about 22.6 GB of ``.npy`` in a
+   temporary directory), a second trainer restores it and runs steps 4 to
+   7.  Counters are zeroed before the first trainer and read after the
+   second: ``grouped_matmul`` must have launched 6 x 4 x 8 = 192 times
+   (forward, recompute and input gradient of each MoE layer) and no other
+   kernel at all.  Printed: parameters, bytes and ``max_memory_allocated``;
+   the loss of every step (finite, or the phase fails); the step median
+   beside the byte bound (``TRAIN_BYTES_PER_PARAM``) and the FLOP bound
+   (``ModelConfig.model_flops`` over the bf16 peak), tokens/s and ``mfu``
+   (useful FLOPs over step time over 989 TFLOP/s); save and restore
+   seconds; a ``torch.profiler`` pass over 2 more steps (kernels per step,
+   device idle share, the largest kernels); the transposed-weight copies
+   of the input gradient; and the kernel's ``dx`` and ``dw`` against the
+   plain version's on every grouped launch of one step of the model,
+   within a bound that scales with the gradients and that four planted
+   faults must break (``train_grad_check``, ``grad_ratio``).  The model
+   and its state are freed before the next phase.
+7. **kernels**: each SpMM kernel against its plain PyTorch version on the
    card, on the layout the serving phase packed for it (f32i32) and at
    every other precision its spec declares (bf16i32 at full n, bf16i16 at
    n = 32760, where the slab fits int16 indices); kernel, plain-version
@@ -92,7 +114,7 @@ The run reads and writes calibrations only in a fresh temporary
    ``torch._grouped_mm`` (bf16, where this torch has it) or a per-expert
    ``torch.matmul`` loop as the library time; the check must reject two
    planted faults (a dropped k-slice, +0.1 on one row).
-7. **engine** (the serving-engine path): ``repro_torch.launch.serve``'s
+8. **engine** (the serving-engine path): ``repro_torch.launch.serve``'s
    ``serve_spmm_engine`` with the default engine settings (8 MiB staging
    budget, queue 256, policy ``wait``, 2000 requests/s per stream), twice:
    at full width on ``moe-block`` at n = 2**20 with d = 64 and 32, 4 streams
@@ -115,7 +137,7 @@ The run reads and writes calibrations only in a fresh temporary
    the first run; the overlap and the async return are printed, not
    enforced: at that size the device work is too short to outlast the
    host's staging.)
-8. **shard** (the sharded tier): ``ShardMesh(["cuda:0"] * 4)`` over the
+9. **shard** (the sharded tier): ``ShardMesh(["cuda:0"] * 4)`` over the
    four ``serving_suite`` structures at n = 2**18 (cut from 2**20 to keep
    classification and packing of the unsharded and four sharded layouts
    per strategy inside the phase's time; 2**12 under ``--quick``), plus
@@ -125,7 +147,7 @@ The run reads and writes calibrations only in a fresh temporary
    plan's ``summary()``, and a p50 of 8 requests per strategy beside its
    predicted time.  Then one ``serve --spmm-stream --spmm-shards -1`` run
    (one shard per visible card), its C held against the unsharded plan.
-9. **harvest**: ``repro_torch.launch.harvest_dispatch`` on the vendored
+10. **harvest**: ``repro_torch.launch.harvest_dispatch`` on the vendored
    corpus with the ``cuda`` kernels, d = 32 and 128, 3 repeats, the tree
    in a temporary store root of its own; its agreement and never-worse
    results are printed, not enforced (at n <= 256 a call is the launch
@@ -139,7 +161,9 @@ Tolerance: each side of an SpMM comparison is allowed ``4 * eps * (|A| @
 allowed the sum of both.  The grouped matmul forms its products exactly
 in fp32, so each side is allowed ``4 * eps_f32 * (|x| @ |w|) + 5e-4``
 plus one rounding to the output dtype (``moe_block.grouped_tolerance``),
-on the routed rows; the padding rows must be 0.
+on the routed rows; the padding rows must be 0.  The train phase's
+gradients are far smaller than that ``5e-4`` floor, so they are held
+without it (``grad_ratio``).
 
 ``bound_ms`` counts what the inputs need: A in the smaller of two forms
 (CSR at the layout's widths, i.e. nnz * (value + column index) bytes plus
@@ -152,8 +176,10 @@ version reads).  The grouped matmul's TFLOP/s count 2 * K * N per padded
 row and per routed row; its tile traffic is what its tiling copies into
 shared memory (each output tile's x rows and w columns), over kernel ms.
 
-The last lines are the ``{"kernels": [...]}`` record, the card's name and
-power limit from ``nvidia-smi``, and ``{"ok": true, "device": ...}``.
+The last lines are the ``{"kernels": [...]}`` record (the grouped
+matmul's with its ``lm_launches`` and ``train_launches`` and the two
+phases' figures), the card's name and power limit from ``nvidia-smi``,
+and ``{"ok": true, "device": ...}``.
 Without a GPU, or without the port beside it, the script exits nonzero
 and prints no result.
 """
@@ -247,6 +273,25 @@ LM_BATCH, LM_PROMPT, LM_GEN = 4, 32, 16
 LM_QUICK_LAYERS = 2
 #: Teacher-forced steps of the kernel-against-plain check on the model.
 LM_CHECK_STEPS = 4
+
+#: The train phase: ``Trainer`` on olmoe-1b-7b at full width with the
+#: depth cut from 16 to 4 layers (fp32 masters, gradients and AdamW's mu
+#: and nu hold 16 B per parameter: 111 GB at full depth, 30.2 GB at 4),
+#: batch 4 x sequence 512, 8 steps at lr 3e-4 (warmup 2, cosine to step
+#: 8), preempted after 4 steps and resumed from its checkpoint; ``--quick``
+#: cuts it to 2 layers.
+TRAIN_LAYERS, TRAIN_QUICK_LAYERS = 4, 2
+TRAIN_BATCH, TRAIN_SEQ = 4, 512
+TRAIN_STEPS, TRAIN_STOP = 8, 4
+TRAIN_LR = 3e-4
+TRAIN_SCHEDULE = {"warmup_steps": 2, "total_steps": TRAIN_STEPS}
+#: Bytes per parameter a train step must move at the least: AdamW reads
+#: the master, the gradient, mu and nu and writes the master, mu and nu
+#: (28, fp32 state); the backward writes the gradient (4); the forward and
+#: the backward each read the master once (8); the layers' masters are
+#: read once more by the recompute (``TRAIN_RECOMPUTE_BYTES``).
+TRAIN_BYTES_PER_PARAM = 28 + 4 + 8
+TRAIN_RECOMPUTE_BYTES = 4
 
 #: The engine phase: (tag, n or None for the run's n, requests per stream).
 ENGINE_RUNS = (("full width", None, 4), ("CLI default shape", 4096, 64))
@@ -1067,8 +1112,9 @@ def lm_check(model, prompts, dev) -> dict:
 
     worst = {"ratio": 0.0, "err": 0.0, "launches": 0}
 
-    def checked(x, w, gids, *, bm, bk, bn):
-        out = grouped_matmul(x, w, gids, bm=bm, bk=bk, bn=bn)
+    def checked(x, w, gids, *, bm, bk, bn, expert_rows=None):
+        out = grouped_matmul(x, w, gids, bm=bm, bk=bk, bn=bn,
+                             expert_rows=expert_rows)
         ref = grouped_matmul_plain(x, w, gids, bm=bm)
         absprod = grouped_matmul_plain(x.abs().float(), w.abs().float(),
                                        gids, bm=bm)
@@ -1299,6 +1345,350 @@ def lm_phase(quick: bool, dev) -> dict:
     del model, rec, out
     gc.collect()
     empty_cache(dev)
+    return result
+
+
+def train_bounds(model, shape) -> dict:
+    """The least time one train step could take on the card: the bytes
+    ``TRAIN_BYTES_PER_PARAM`` (and the recompute's) count over 3.35 TB/s,
+    and the useful FLOPs (``ModelConfig.model_flops``: 6 x the active
+    parameters x the tokens, plus attention) over the bf16 peak."""
+    n = sum(p.numel() for p in model.parameters())
+    n_layers = sum(p.numel() for name, p in model.named_parameters()
+                   if name.startswith("layers."))
+    nbytes = n * TRAIN_BYTES_PER_PARAM + n_layers * TRAIN_RECOMPUTE_BYTES
+    flops = model.cfg.model_flops(shape)
+    return {"bytes": nbytes, "flops": flops,
+            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "flops_ms": flops / PEAK_FLOPS["bfloat16"] * 1e3}
+
+
+def train_profile(trainer, steps: int = 2) -> dict:
+    """``torch.profiler`` over ``steps`` more train steps (the pipeline's
+    next batches) after the run: per step the host wall time, the
+    kernels' device time and count, and the largest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = trainer.device
+    first = trainer.history[-1]["step"] + 1
+    batches = [trainer._put_batch(trainer.pipeline.batch_for_step(first + i))
+               for i in range(steps)]
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i, batch in enumerate(batches):
+            m = trainer.step_fn(trainer.model, trainer.opt_state, batch,
+                                first + i)
+            float(m["loss"])
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {"wall_ms": wall_ms,
+            "device_ms": device_ms if kernels else None,
+            "kernels": sum(e.count for e in kernels) / steps,
+            "top": [(e.key[:60], e.self_device_time_total / 1e3 / steps,
+                     e.count / steps) for e in top]}
+
+
+def transpose_ms(model) -> float:
+    """Device ms of the ``wᵀ`` copies one micro-batch's backward makes
+    (each MoE layer's gate|up and down weights, in the compute dtype):
+    CUDA events, warm, median of 5 per copy, summed."""
+    from repro_torch.core.device import median_ms
+    total = 0.0
+    for block in model.layers:
+        for master in (block.moe.w_gate_up, block.moe.w_down):
+            w = master.detach().to(model.dtype)
+            total += median_ms(lambda: w.transpose(1, 2).contiguous(), 5)
+            del w
+    return total
+
+
+def grad_ratio(got, ref, absprod, dtype, extra: float) -> tuple:
+    """``(worst err / bound, max |err|)`` of a gradient against the plain
+    version's.  Bound: ``8 * eps_f32 * absprod`` (two fp32 sums of exact
+    products), one rounding to ``dtype`` on each side (``eps(dtype) *
+    (|got| + |ref|)``) and ``extra * absprod``.  No absolute floor: the
+    gradients of a mean loss over a step's tokens are far below
+    ``grouped_tolerance``'s ``ATOL``, which would pass a zeroed gradient.
+    Where the bound is 0 the error must be 0; a non-finite ``got`` gives
+    an infinite ratio."""
+    import torch
+    from repro_torch.launch.moe_block import EPS_F32
+    g, r = got.float(), ref.float()
+    err = (g - r).abs()
+    if not bool(torch.isfinite(g).all()):
+        return float("inf"), float("inf")
+    bound = (8 * EPS_F32 + extra) * absprod + \
+        float(torch.finfo(dtype).eps) * (g.abs() + r.abs())
+    ratio = torch.where(bound > 0, err / bound,
+                        torch.where(err > 0, float("inf"), 0.0))
+    return float(ratio.max()), float(err.max())
+
+
+def train_grad_check(trainer) -> dict:
+    """The kernel's gradients against the plain version's on the model's
+    own operands: one forward and backward of the next batch (no remat),
+    every grouped launch recorded with its ``dout`` and the ``dx`` and
+    ``dw`` that ``GroupedMatmulFn`` gave; each launch then also runs
+    through autograd of ``grouped_matmul_plain`` on the same operands.
+    ``dx`` must agree within :func:`grad_ratio`'s bound on ``|dout| @
+    |w|ᵀ``, ``dw`` within that on ``|x|ᵀ @ |dout|`` plus ``eps(dtype)``
+    times it (cuBLAS may reduce split-K partials in bf16); padding rows
+    must get exactly zero ``dx``.  The same comparison must reject four
+    planted faults on every launch: a zeroed ``dx``, the kernel's ``dx``
+    with the first ``TILE_K``-wide slice of its contraction dropped, a
+    zeroed ``dw``, and ``dw`` without each expert's first block of rows.
+    The model is not updated."""
+    import torch
+    from repro_torch.kernels.grouped_matmul import (
+        TILE_K, grouped_matmul, grouped_matmul_plain)
+    from repro_torch.train.train_step import softmax_xent
+
+    model, dev = trainer.model, trainer.device
+    step = trainer.history[-1]["step"] + 1
+    batch = trainer._put_batch(trainer.pipeline.batch_for_step(step))
+    records = []
+
+    def recording(x, w, gids, *, bm, bk, bn, expert_rows=None):
+        rec = {"x": x.detach(), "w": w.detach(), "gids": gids, "bm": bm,
+               "bk": bk, "bn": bn}
+        x.register_hook(lambda g: rec.__setitem__("dx", g))
+        w.register_hook(lambda g: rec.__setitem__("dw", g))
+        out = grouped_matmul(x, w, gids, bm=bm, bk=bk, bn=bn,
+                             expert_rows=expert_rows)
+        out.register_hook(lambda g: rec.__setitem__("dout", g))
+        records.append(rec)
+        return out
+
+    logits = model(batch["tokens"], recording, remat=False)
+    loss = softmax_xent(logits, batch["labels"], model.cfg.vocab_size)
+    del logits
+    params = [p for p in model.parameters()]
+    torch.autograd.grad(loss, params)
+    worst = {"dx": 0.0, "dw": 0.0, "dx_err": 0.0, "dw_err": 0.0,
+             "dx_max": 0.0, "dw_max": 0.0}
+    faults = {}
+    for rec in records:
+        x, w, gids, bm, dout = (rec["x"], rec["w"], rec["gids"], rec["bm"],
+                                rec["dout"])
+        xp, wp = x.clone().requires_grad_(), w.clone().requires_grad_()
+        grouped_matmul_plain(xp, wp, gids, bm=bm).backward(dout)
+        e = w.shape[0]
+        w_t = w.transpose(1, 2).contiguous()
+        abs_dx = grouped_matmul_plain(dout.abs().float(), w_t.abs().float(),
+                                      gids, bm=bm)
+        abs_dw = torch.bmm(x.abs().float().reshape(e, -1, x.shape[1])
+                           .transpose(1, 2),
+                           dout.abs().float().reshape(e, -1, dout.shape[1]))
+        eps = float(torch.finfo(w.dtype).eps)
+        cut = dout.clone()
+        cut[:, :TILE_K] = 0
+        x_cut = x.reshape(e, -1, x.shape[1]).clone()
+        x_cut[:, :bm] = 0
+        planted = {
+            "dx": {"zeroed": torch.zeros_like(rec["dx"]),
+                   "first k-slice dropped": grouped_matmul(
+                       cut, w_t, gids, bm=bm, bk=rec["bn"], bn=rec["bk"])},
+            "dw": {"zeroed": torch.zeros_like(rec["dw"]),
+                   "first row block of each expert dropped": torch.bmm(
+                       x_cut.transpose(1, 2),
+                       dout.reshape(e, -1, dout.shape[1])).to(w.dtype)}}
+        del cut, x_cut, w_t
+        for what, got, ref, absprod, extra in (
+                ("dx", rec["dx"], xp.grad, abs_dx, 0.0),
+                ("dw", rec["dw"], wp.grad, abs_dw, eps)):
+            ratio, err = grad_ratio(got, ref, absprod, w.dtype, extra)
+            if ratio > 1:
+                raise SmokeFailure(f"train: {what} of a grouped launch "
+                                   f"{tuple(x.shape)} x {tuple(w.shape)} vs "
+                                   f"the plain version: err / bound "
+                                   f"{ratio:.3f}")
+            worst[what] = max(worst[what], ratio)
+            worst[what + "_err"] = max(worst[what + "_err"], err)
+            worst[what + "_max"] = max(worst[what + "_max"],
+                                       float(ref.abs().max()))
+            for fault, bad in planted[what].items():
+                bad_ratio, _ = grad_ratio(bad, ref, absprod, w.dtype, extra)
+                if bad_ratio <= 1:
+                    raise SmokeFailure(f"train: the {what} check let a "
+                                       f"planted fault through ({fault}: "
+                                       f"err / bound {bad_ratio:.3f})")
+                key = f"{what} {fault}"
+                faults[key] = min(faults.get(key, float("inf")), bad_ratio)
+        padding = ~x.bool().any(dim=1)
+        if not bool(padding.any()) or bool(rec["dx"][padding].any()):
+            raise SmokeFailure("train: padding rows of the capacity buffer "
+                               "got a nonzero dx (or there were none)")
+        del xp, wp, abs_dx, abs_dw, planted
+    n = len(records)
+    records.clear()
+    return {"checked_launches": n, **worst, "faults": faults}
+
+
+def train_phase(quick: bool, dev) -> dict:
+    """``Trainer`` on olmoe-1b-7b at full width (``TRAIN_LAYERS`` layers) on
+    the card: 8 AdamW steps of batch 4 x 512, preempted after 4 with a
+    checkpoint and resumed from it by a second trainer.  Counters are
+    zeroed before the first trainer starts and read after the second one
+    ends: ``grouped_matmul`` must have launched 6 x layers x 8 times and
+    no other kernel at all.  Then a profile of 2 more steps, the
+    transposed-weight copies, and the kernel's gradients against the plain
+    version's (``train_grad_check``); everything is freed after."""
+    import dataclasses
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(
+        get_config(LM_ARCH),
+        num_layers=TRAIN_QUICK_LAYERS if quick else TRAIN_LAYERS)
+    shape = ShapeConfig("train-smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    tcfg = TrainerConfig(ckpt_dir=ckpt_dir, ckpt_every=TRAIN_STEPS, keep=1,
+                         schedule_kwargs=TRAIN_SCHEDULE)
+    saves = []
+
+    def trainer():
+        tr = Trainer(cfg, shape, tcfg, opt_cfg=adamw.AdamWConfig(lr=TRAIN_LR),
+                     data_cfg=DataConfig(seed=0), device=dev)
+        save = tr.ckpt.save
+
+        def timed(step, tree):
+            t0 = time.perf_counter()
+            path = save(step, tree)
+            saves.append((step, time.perf_counter() - t0))
+            return path
+        tr.ckpt.save = timed
+        return tr
+
+    log(f"[train] === Trainer {cfg.name}: {cfg.num_layers} of 16 layers, "
+        f"d {cfg.d_model}, {cfg.num_experts} experts top-"
+        f"{cfg.num_experts_per_token}, expert d_ff {cfg.moe_d_ff}; batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} steps, preempted after "
+        f"{TRAIN_STOP}; checkpoints in {ckpt_dir} "
+        f"({shutil.disk_usage(ckpt_dir).free / 1e9:.1f} GB free) ===")
+    try:
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        first = trainer()
+        first.run(TRAIN_STEPS, stop_after=TRAIN_STOP)
+        history = list(first.history)
+        del first
+        gc.collect()
+        empty_cache(dev)
+        second = trainer()
+        t0 = time.perf_counter()
+        start = second.init_or_restore()
+        torch.cuda.synchronize(dev)
+        restore_s = time.perf_counter() - t0
+        second.run(TRAIN_STEPS)
+        counts = kernels.launch_counts()
+        history += second.history
+        model = second.model
+        planned = model.grouped_launches_per_step(train=True) * TRAIN_STEPS
+        if start != TRAIN_STOP or [h["step"] for h in history] != \
+                list(range(TRAIN_STEPS)):
+            raise SmokeFailure(f"train: resumed at {start}, ran steps "
+                               f"{[h['step'] for h in history]}")
+        if counts["grouped_matmul"] != planned or \
+                any(v for k, v in counts.items() if k != "grouped_matmul"):
+            raise SmokeFailure(f"train: launches {counts}, planned {planned} "
+                               f"grouped_matmul and nothing else")
+        losses = [h["loss"] for h in history]
+        if not np.all(np.isfinite(losses)):
+            raise SmokeFailure(f"train: losses {losses}")
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        n_params = sum(p.numel() for p in model.parameters())
+        ckpt_bytes = sum(f.stat().st_size for f in
+                         pathlib.Path(ckpt_dir).rglob("*.npy"))
+        ms = np.asarray([h["dt"] for h in history]) * 1e3
+        median = float(np.median(ms))
+        bounds = train_bounds(model, shape)
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        log(f"[train] {n_params} parameters, {n_params * 4 / 1e9:.2f} GB of "
+            f"fp32 masters, {n_params * 16 / 1e9:.2f} GB with gradients, mu "
+            f"and nu; max_memory_allocated {peak / 1e9:.2f} GB above the "
+            f"{base / 1e9:.2f} GB the earlier phases hold")
+        log(f"[train] losses by step: "
+            + ", ".join(f"{h['step']}: {h['loss']:.4f}" for h in history))
+        log(f"[train] step ms by step: "
+            + ", ".join(f"{h['step']}: {h['dt'] * 1e3:.1f}"
+                        for h in history))
+        log(f"[train] step median {median:.3f} ms (max {ms.max():.3f}, min "
+            f"{ms.min():.3f}); bounds: bytes {bounds['bytes_ms']:.3f} ms "
+            f"({bounds['bytes'] / 1e9:.1f} GB), FLOPs "
+            f"{bounds['flops_ms']:.3f} ms ({bounds['flops'] / 1e12:.3f} "
+            f"TFLOP useful); {tokens / median * 1e3:.1f} tokens/s, mfu "
+            f"{bounds['flops'] / (median / 1e3) / PEAK_FLOPS['bfloat16']:.4f}"
+            f"; grouped_matmul launches {counts['grouped_matmul']} = "
+            f"planned {planned}")
+        log(f"[train] checkpoints: "
+            + ", ".join(f"step {s} saved in {t:.1f}s" for s, t in saves)
+            + f"; {ckpt_bytes / 1e9:.2f} GB of .npy; restored in "
+            f"{restore_s:.1f}s, resumed at step {start}")
+        prof = train_profile(second)
+        if prof["device_ms"] is None:
+            log(f"[train] profiled step: {prof['wall_ms']:.3f} ms on the "
+                f"host clock; device time not measured (no device events "
+                f"traced)")
+        else:
+            log(f"[train] profiled step (torch.profiler, 2 steps): "
+                f"{prof['wall_ms']:.3f} ms on the host clock, kernels "
+                f"{prof['device_ms']:.3f} ms of device time "
+                f"({prof['kernels']:.0f} kernels), device idle "
+                f"{1 - prof['device_ms'] / prof['wall_ms']:.1%} of the "
+                f"profiled step; largest: "
+                + "; ".join(f"{k} {t:.3f} ms x{c:.0f}"
+                            for k, t, c in prof["top"]))
+        t_ms = transpose_ms(model)
+        log(f"[train] the dx path's transposed weight copies: {t_ms:.3f} ms "
+            f"per step ({2 * cfg.num_layers} copies)")
+        t0 = time.perf_counter()
+        check = train_grad_check(second)
+        log(f"[train] kernel gradients vs the plain version on the model's "
+            f"operands, {check['checked_launches']} grouped launches of one "
+            f"step: dx worst err / bound {check['dx']:.3f} (max |err| "
+            f"{check['dx_err']:.3e}, max |dx| {check['dx_max']:.3e}), dw "
+            f"worst err / bound {check['dw']:.3f} (max |err| "
+            f"{check['dw_err']:.3e}, max |dw| {check['dw_max']:.3e}); "
+            f"padding rows' dx 0; planted faults rejected on every launch, "
+            f"least err / bound: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in check["faults"].items())
+            + f"; check took {time.perf_counter() - t0:.1f}s")
+        result = {"launches": counts["grouped_matmul"], "planned": planned,
+                  "layers": cfg.num_layers, "losses": losses,
+                  "step_median_ms": median, "step_max_ms": float(ms.max()),
+                  "bound_bytes_ms": bounds["bytes_ms"],
+                  "bound_flops_ms": bounds["flops_ms"],
+                  "tokens_per_s": tokens / median * 1e3,
+                  "mfu": bounds["flops"] / (median / 1e3)
+                  / PEAK_FLOPS["bfloat16"],
+                  "params": n_params, "peak_bytes": peak,
+                  "ckpt_bytes": ckpt_bytes,
+                  "save_s": [t for _, t in saves], "restore_s": restore_s,
+                  "profiled_wall_ms": prof["wall_ms"],
+                  "profiled_device_ms": prof["device_ms"],
+                  "profiled_kernels": prof["kernels"],
+                  "transpose_ms": t_ms, "grad_check": check}
+        del model, second
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        gc.collect()
+        empty_cache(dev)
     return result
 
 
@@ -1693,13 +2083,19 @@ def run(quick: bool, n: int) -> int:
     seconds["lm"] = time.perf_counter() - t0
     log(f"[lm] phase took {seconds['lm']:.1f}s")
     t0 = time.perf_counter()
+    train = train_phase(quick, dev)
+    seconds["train"] = time.perf_counter() - t0
+    log(f"[train] phase took {seconds['train']:.1f}s")
+    t0 = time.perf_counter()
     records = kernel_phase(served, quick, dev)
     records.append(grouped_record(moe, quick))
     for rec in records:
+        grouped = rec["name"] == "grouped_matmul"
         rec["calibrate_launches"] = calibrated["counts"][rec["name"]]
-        rec["lm_launches"] = lm["launches"] \
-            if rec["name"] == "grouped_matmul" else 0
+        rec["lm_launches"] = lm["launches"] if grouped else 0
+        rec["train_launches"] = train["launches"] if grouped else 0
     records[-1]["lm"] = lm
+    records[-1]["train"] = train
     seconds["kernel"] = time.perf_counter() - t0
     log(f"[kernel] phase took {seconds['kernel']:.1f}s")
     t0 = time.perf_counter()

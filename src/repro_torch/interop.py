@@ -92,7 +92,7 @@ def _leaves(tree, prefix=()):
             yield prefix + (key,), value
 
 
-def params_from_numpy(cfg, tree, device=None, dtype=None):
+def params_from_numpy(cfg, tree, device=None, dtype=None, masters=False):
     """The port's :class:`~repro_torch.models.model.LM` holding the
     reference's ``init_params`` weights.
 
@@ -103,15 +103,16 @@ def params_from_numpy(cfg, tree, device=None, dtype=None):
             under ``layers["p0"]``.
         device: where the model goes (None: the CPU).
         dtype: the compute dtype (None: ``models.model.COMPUTE_DTYPE``).
+        masters: keep every weight as a trainable fp32 master (training).
 
-    Each matrix, bias, expert weight and the embedding table are cast
-    once to the compute dtype, which is what the reference's per-use cast
-    gives; norm scales and the router stay fp32.  ``w_gate`` and ``w_up``
-    go side by side into ``w_gate_up``.
+    Without ``masters``, each matrix, bias, expert weight and the
+    embedding table are cast once to the compute dtype, which is what the
+    reference's per-use cast gives; norm scales and the router stay fp32.
+    ``w_gate`` and ``w_up`` go side by side into ``w_gate_up``.
     """
     import torch
     from repro_torch.models.model import LM
-    model = LM(cfg, device="meta", dtype=dtype)
+    model = LM(cfg, device="meta", dtype=dtype, masters=masters)
     dev = device_of(device)
     state = {}
     for path, value in _leaves(tree):
@@ -134,3 +135,53 @@ def params_from_numpy(cfg, tree, device=None, dtype=None):
                for name, arr in state.items()}
     model.load_state_dict(tensors, strict=True, assign=True)
     return model
+
+
+def tree_to_numpy(cfg, named) -> dict:
+    """The reference's pytree layout of per-parameter tensors keyed by the
+    port's parameter names: the inverse of :func:`params_from_numpy`'s
+    mapping, for the weights, their gradients or AdamW's ``mu`` / ``nu``.
+
+    Args:
+        cfg: the model's ``ModelConfig``.
+        named: ``{name: tensor}`` as ``dict(model.named_parameters())``.
+
+    Returns:
+        Nested dicts of fp32 numpy arrays (bf16 leaves are widened): the
+        layers stacked on a leading axis under ``layers["p0"]``,
+        ``w_gate_up`` split back into ``w_gate`` / ``w_up`` and the router
+        under ``router["kernel"]``.
+    """
+    import torch
+    flat = {}
+    for name, t in named.items():
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        parts = name.split(".")
+        if parts[0] != "layers":
+            flat[tuple(parts)] = arr
+            continue
+        i, path = int(parts[1]), tuple(parts[2:])
+        if path == ("moe", "w_gate_up"):
+            f = arr.shape[2] // 2
+            pieces = {("moe", "w_gate"): arr[..., :f],
+                      ("moe", "w_up"): arr[..., f:]}
+        elif path == ("moe", "router"):
+            pieces = {("moe", "router", "kernel"): arr}
+        else:
+            pieces = {path: arr}
+        for sub, a in pieces.items():
+            flat.setdefault(("layers", "p0") + sub,
+                            [None] * cfg.num_layers)[i] = a
+    tree: dict = {}
+    for path, value in flat.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.stack(value) if path[0] == "layers" else value
+    return tree
+
+
+def params_to_numpy(model) -> dict:
+    """The reference's parameter pytree of a port
+    :class:`~repro_torch.models.model.LM` (see :func:`tree_to_numpy`)."""
+    return tree_to_numpy(model.cfg, dict(model.named_parameters()))

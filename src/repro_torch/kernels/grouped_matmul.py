@@ -17,6 +17,17 @@ way) and takes the plain PyTorch version
 :func:`grouped_matmul_plain` for CPU operands.  Products are exact in fp32,
 sums run in fp32 and the output is cast once to x's dtype, as the
 reference's ``preferred_element_type=float32``.
+
+Where an operand requires a gradient, :func:`grouped_matmul` goes through
+:class:`GroupedMatmulFn`.  Its input gradient is a grouped product of the
+same form, ``dx = dout @ w[g]^T``, launched on the same kernel with the
+weights transposed into a copy (``[E, N, K]``).  Its weight gradient
+``dw[e] = sum over the blocks i of expert e of x_i^T dout_i`` is a plain
+batched product (``torch.bmm``, as the reference leaves the gradient of
+its expert einsum to XLA) and needs the MoE layout: expert-major blocks
+in equal runs of ``expert_rows`` rows each, which the caller states
+(``MoE.expert_ffn``); without it the weight gradient raises.  The reference's
+Pallas kernel has no backward, so no second kernel is owed.
 """
 from __future__ import annotations
 
@@ -47,13 +58,17 @@ def tile_rows(bm: int) -> int:
 def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor,
                          group_ids: torch.Tensor, *, bm: int,
                          bk: Optional[int] = None,
-                         bn: Optional[int] = None) -> torch.Tensor:
+                         bn: Optional[int] = None,
+                         expert_rows: Optional[int] = None) -> torch.Tensor:
     """The plain PyTorch version: one fp32 product per run of row blocks
-    that share an expert, cast once to x's dtype.  ``bk`` and ``bn``, where
-    given, are checked as :func:`grouped_matmul` checks them, so either
-    function can be passed where the other is expected."""
+    that share an expert, cast once to x's dtype.  ``bk``, ``bn`` and
+    ``expert_rows``, where given, are checked as :func:`grouped_matmul`
+    checks them, so either function can be passed where the other is
+    expected (its autograd takes any layout)."""
     if bk is not None or bn is not None:
         _check_tiles(x, w, bm, bk or 1, bn or 1)
+    if expert_rows is not None:
+        _check_expert_rows(x, w, group_ids, bm, expert_rows)
     T, N = x.shape[0], w.shape[2]
     out = torch.empty(T, N, dtype=x.dtype, device=x.device)
     gids = group_ids.to("cpu", torch.int64).numpy()
@@ -141,11 +156,84 @@ def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
+def _grouped(x: torch.Tensor, w: torch.Tensor, group_ids: torch.Tensor,
+             bm: int, bk: int, bn: int) -> torch.Tensor:
+    """The product without autograd: the kernel or the plain version."""
+    _check_tiles(x, w, bm, bk, bn)
+    if x.device.type == "cuda":
+        return grouped_matmul_cuda(x, w, group_ids, bm=bm)
+    if x.device.type == "cpu":
+        return grouped_matmul_plain(x, w, group_ids, bm=bm)
+    raise ValueError(f"grouped_matmul runs on CUDA or the CPU, not "
+                     f"{x.device}")
+
+
+def _check_expert_rows(x: torch.Tensor, w: torch.Tensor,
+                       group_ids: torch.Tensor, bm: int,
+                       expert_rows: int) -> None:
+    """Raise ``ValueError`` unless the shapes fit the stated layout: each of
+    w's E experts owns ``expert_rows`` rows of x, whole blocks of ``bm``."""
+    e = w.shape[0]
+    if expert_rows <= 0 or expert_rows % bm or \
+            x.shape[0] != e * expert_rows or \
+            group_ids.shape[0] != x.shape[0] // bm:
+        raise ValueError(f"grouped_matmul: expert_rows={expert_rows} does "
+                         f"not fit x {tuple(x.shape)}, {e} experts, bm={bm} "
+                         f"and {group_ids.shape[0]} group ids")
+
+
+class GroupedMatmulFn(torch.autograd.Function):
+    """:func:`grouped_matmul` with a backward.
+
+    ``dx = dout @ w[g]^T`` runs on the same kernel (CUDA operands) or the
+    plain version (CPU ones), with ``w`` transposed into a contiguous
+    ``[E, N, K]`` copy; its tiles are the forward's ``bn`` and ``bk``
+    swapped.  ``dw`` is one ``torch.bmm`` over the ``[E, T / E, .]`` views
+    in w's dtype, valid for the expert-major layout only: the caller states
+    it by passing ``expert_rows`` (each expert's rows, whole blocks), and
+    the weight gradient raises ``ValueError`` where it did not.
+    Padding rows of x are zero and get zero ``dout`` from the combine, so
+    their share of ``dw`` is exactly zero.
+    """
+
+    @staticmethod
+    def forward(ctx, x, w, group_ids, bm: int, bk: int, bn: int,
+                expert_rows: Optional[int] = None):
+        if expert_rows is not None:
+            _check_expert_rows(x, w, group_ids, bm, expert_rows)
+        ctx.save_for_backward(x, w, group_ids)
+        ctx.tiles = (bm, bk, bn)
+        ctx.expert_rows = expert_rows
+        return _grouped(x, w, group_ids, bm, bk, bn)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, w, group_ids = ctx.saved_tensors
+        bm, bk, bn = ctx.tiles
+        dout = dout.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _grouped(dout, w.transpose(1, 2).contiguous(), group_ids,
+                          bm, bn, bk)
+        if ctx.needs_input_grad[1]:
+            if ctx.expert_rows is None:
+                raise ValueError("grouped_matmul: the weight gradient needs "
+                                 "expert-major group ids in equal runs "
+                                 "(the MoE capacity buffer's layout), "
+                                 "stated by expert_rows")
+            e = w.shape[0]
+            dw = torch.bmm(x.reshape(e, -1, x.shape[1]).transpose(1, 2),
+                           dout.reshape(e, -1, dout.shape[1])).to(w.dtype)
+        return dx, dw, None, None, None, None, None
+
+
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
                    group_ids: torch.Tensor, *, bm: int = 128, bk: int = 128,
-                   bn: int = 128) -> torch.Tensor:
+                   bn: int = 128,
+                   expert_rows: Optional[int] = None) -> torch.Tensor:
     """``out[r] = x[r] @ w[group_ids[r // bm]]``: the CUDA kernel for CUDA
-    operands, :func:`grouped_matmul_plain` for CPU ones.
+    operands, :func:`grouped_matmul_plain` for CPU ones; through
+    :class:`GroupedMatmulFn` where x or w requires a gradient.
 
     Args:
         x: ``[T, K]`` expert-sorted, block-aligned rows (float32 or
@@ -155,18 +243,19 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
             ``[0, E)``; the kernel does not check them
             (:func:`check_group_ids` does, once per operand).
         bm, bk, bn: the reference's tiles; T, K and N must divide by them.
+        expert_rows: where given, the caller's statement that the ids are
+            expert-major in equal runs of this many rows (the MoE capacity
+            buffer's layout), which the weight gradient needs.
 
     Returns:
         ``[T, N]`` in x's dtype.
 
     Raises:
-        ValueError: when a shape does not divide by its tile, or the
-            operands lie on another device than the CUDA or the CPU.
+        ValueError: when a shape does not divide by its tile or does not
+            fit ``expert_rows``, or the operands lie on another device than
+            the CUDA or the CPU.
     """
-    _check_tiles(x, w, bm, bk, bn)
-    if x.device.type == "cuda":
-        return grouped_matmul_cuda(x, w, group_ids, bm=bm)
-    if x.device.type == "cpu":
-        return grouped_matmul_plain(x, w, group_ids, bm=bm)
-    raise ValueError(f"grouped_matmul runs on CUDA or the CPU, not "
-                     f"{x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return GroupedMatmulFn.apply(x, w, group_ids, bm, bk, bn,
+                                     expert_rows)
+    return _grouped(x, w, group_ids, bm, bk, bn)

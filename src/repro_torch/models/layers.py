@@ -5,10 +5,12 @@ The counterpart of the reference's ``repro.models.layers``.  The plain
 functions take tensors; the modules hold their weights and call them.
 Compute runs in the model's compute dtype (bf16, ``models.model``) with
 fp32 statistics in the norms and fp32 rotary angles.  The reference keeps
-fp32 masters and casts each weight to the compute dtype where it is used;
-a module here holds the weight already in the dtype it is used in (a
-matrix in the compute dtype, a norm scale in fp32), cast once when it is
-made, which is the same tensor bit for bit.
+fp32 masters and casts each weight to the compute dtype where it is used.
+A module here holds each weight in the ``dtype`` it is given: for serving,
+the dtype it is used in (a matrix in the compute dtype, a norm scale in
+fp32), cast once when it is made, which is the same tensor bit for bit as
+the reference's per-use cast; for training, fp32 masters that are
+``trainable`` and cast at each use, as the reference does.
 """
 from __future__ import annotations
 
@@ -38,9 +40,11 @@ def normal(shape, std: float, *, generator: Optional[torch.Generator],
     return torch.randn(shape, generator=generator, device=device) * std
 
 
-def frozen(t: torch.Tensor) -> nn.Parameter:
-    """A weight the serving path reads and never trains."""
-    return nn.Parameter(t, requires_grad=False)
+def weight(t: torch.Tensor, dtype: torch.dtype,
+           trainable: bool = False) -> nn.Parameter:
+    """``t`` in ``dtype`` as a parameter: a trainable master, or a frozen
+    weight the serving path reads."""
+    return nn.Parameter(t.to(dtype), requires_grad=trainable)
 
 
 # ---------------------------------------------------------------------------
@@ -59,10 +63,12 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
 class RMSNorm(nn.Module):
     """``scale`` starts at zero (the identity gain) and stays fp32."""
 
-    def __init__(self, d: int, eps: float, *, device: torch.device):
+    def __init__(self, d: int, eps: float, *, device: torch.device,
+                 trainable: bool = False):
         super().__init__()
         self.eps = eps
-        self.scale = frozen(torch.zeros(d, device=device))
+        self.scale = weight(torch.zeros(d, device=device), torch.float32,
+                            trainable)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return rmsnorm(x, self.scale, self.eps)
@@ -88,12 +94,13 @@ class Dense(nn.Module):
 
     def __init__(self, d_in: int, d_out: int, *, bias: bool = False,
                  dtype: torch.dtype, device: torch.device,
-                 generator: Optional[torch.Generator]):
+                 generator: Optional[torch.Generator],
+                 trainable: bool = False):
         super().__init__()
-        self.kernel = frozen(he_init((d_in, d_out), generator=generator,
-                                     device=device).to(dtype))
-        self.bias = frozen(torch.zeros(d_out, dtype=dtype, device=device)) \
-            if bias else None
+        self.kernel = weight(he_init((d_in, d_out), generator=generator,
+                                     device=device), dtype, trainable)
+        self.bias = weight(torch.zeros(d_out, device=device), dtype,
+                           trainable) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return dense(x, self.kernel, self.bias)
@@ -117,10 +124,12 @@ class MLP(nn.Module):
 
     def __init__(self, d: int, d_ff: int, variant: str, *,
                  dtype: torch.dtype, device: torch.device,
-                 generator: Optional[torch.Generator]):
+                 generator: Optional[torch.Generator],
+                 trainable: bool = False):
         super().__init__()
         self.variant = variant
-        kw = dict(dtype=dtype, device=device, generator=generator)
+        kw = dict(dtype=dtype, device=device, generator=generator,
+                  trainable=trainable)
         if variant in ("swiglu", "geglu"):
             self.wi_gate = Dense(d, d_ff, **kw)
             self.wi_up = Dense(d, d_ff, **kw)
@@ -166,11 +175,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # Embedding.
 # ---------------------------------------------------------------------------
 
-def embed(table: torch.Tensor, tokens: torch.Tensor,
-          scale: bool = False) -> torch.Tensor:
-    """Rows of ``table`` (already in the compute dtype), times
-    ``sqrt(d_model)`` rounded to that dtype when ``scale`` (gemma)."""
-    x = table[tokens]
+def embed(table: torch.Tensor, tokens: torch.Tensor, scale: bool = False,
+          dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Rows of ``table`` cast to ``dtype`` (default the table's), times
+    ``sqrt(d_model)`` rounded to that dtype when ``scale`` (gemma).  The
+    rows are gathered before the cast, which gives the reference's
+    cast-then-gather bit for bit without casting the whole table; the
+    gradient of an fp32 table then sums a repeated token's rows in fp32,
+    where the reference sums them in ``dtype``."""
+    x = table[tokens].to(dtype or table.dtype)
     if scale:
         x = x * torch.tensor(math.sqrt(table.shape[1]), dtype=x.dtype,
                              device=x.device)
@@ -187,7 +200,8 @@ class Embedding(nn.Module):
 
     def __init__(self, vocab: int, d: int, *, dtype: torch.dtype,
                  device: torch.device,
-                 generator: Optional[torch.Generator]):
+                 generator: Optional[torch.Generator],
+                 trainable: bool = False):
         super().__init__()
-        self.table = frozen(normal((vocab, d), 0.02, generator=generator,
-                                   device=device).to(dtype))
+        self.table = weight(normal((vocab, d), 0.02, generator=generator,
+                                   device=device), dtype, trainable)

@@ -10,14 +10,18 @@ keep the reference's semantics:
 * :func:`init_params` builds an :class:`LM` on a device from a
   ``torch.Generator`` (random weights, as the reference draws them);
 * :meth:`LM.forward` gives fp32 logits ``[B, S, V_padded]`` for a token
-  batch (chunked causal attention);
+  batch (chunked causal attention), each layer checkpointed
+  (``torch.utils.checkpoint``) where gradients are recorded, as the
+  reference's per-layer ``jax.checkpoint``;
 * :meth:`LM.init_cache` / :meth:`LM.decode_step` run one token per
   sequence against a KV cache, writing slot ``min(pos, S_c - 1)`` and
   attending to slots ``<= pos``.
 
-Weights are held in the dtype each use casts them to in the reference:
-matrices, expert weights, biases and the embedding table in
-:data:`COMPUTE_DTYPE`, norm scales and the router in fp32.  Other
+For serving, weights are held in the dtype each use casts them to in the
+reference: matrices, expert weights, biases and the embedding table in
+:data:`COMPUTE_DTYPE`, norm scales and the router in fp32.  For training
+(``masters=True``) every weight is a trainable fp32 master, cast to the
+compute dtype at each use, as the reference's parameters are.  Other
 families and layer kinds raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -27,6 +31,7 @@ from typing import Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import DeviceLike, resolve_device
@@ -154,7 +159,7 @@ class Block(nn.Module):
     def __init__(self, cfg: ModelConfig, **kw):
         super().__init__()
         d = cfg.d_model
-        norm_kw = dict(device=kw["device"])
+        norm_kw = dict(device=kw["device"], trainable=kw["trainable"])
         self.ln1 = L.RMSNorm(d, cfg.norm_eps, **norm_kw)
         self.attn = Attention(cfg, **kw)
         self.ln2 = L.RMSNorm(d, cfg.norm_eps, **norm_kw)
@@ -196,6 +201,8 @@ class LM(nn.Module):
             are drawn from.
         dtype: the compute dtype (default :data:`COMPUTE_DTYPE`, read
             when the model is made).
+        masters: hold every weight as a trainable fp32 master (for
+            training) instead of a frozen copy in the dtype of its use.
 
     Raises:
         NotImplementedError: for another family or layer kind.
@@ -203,17 +210,19 @@ class LM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, masters: bool = False):
         super().__init__()
         check_supported(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
         self.dtype = dtype or COMPUTE_DTYPE
-        kw = dict(dtype=self.dtype, device=dev, generator=generator)
+        kw = dict(dtype=torch.float32 if masters else self.dtype, device=dev,
+                  generator=generator, trainable=masters)
         self.embed = L.Embedding(cfg.padded_vocab, cfg.d_model, **kw)
         self.layers = nn.ModuleList(Block(cfg, **kw)
                                     for _ in range(cfg.num_layers))
-        self.final_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, device=dev)
+        self.final_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, device=dev,
+                                    trainable=masters)
         self.lm_head = None if cfg.tie_embeddings else \
             L.Dense(cfg.d_model, cfg.padded_vocab, **kw)
 
@@ -223,23 +232,39 @@ class LM(nn.Module):
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         return L.embed(self.embed.table, tokens.to(self.device),
-                       scale=scale_embed(self.cfg))
+                       scale=scale_embed(self.cfg), dtype=self.dtype)
 
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.final_norm(x)
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        """Final-norm hidden states -> fp32 logits."""
         if self.lm_head is None:
             return L.unembed(self.embed.table, x).float()
         return self.lm_head(x).float()
 
+    def unembed_table(self) -> torch.Tensor:
+        """``[V_padded, d]`` output-projection table (tied or separate), in
+        the dtype it is stored in."""
+        if self.lm_head is None:
+            return self.embed.table
+        return self.lm_head.kernel.T
+
     def forward(self, tokens: torch.Tensor,
-                gmm: GroupedMatmul = grouped_matmul) -> torch.Tensor:
-        """tokens ``[B, S]`` -> fp32 logits ``[B, S, V_padded]``."""
+                gmm: GroupedMatmul = grouped_matmul, *, remat: bool = True,
+                return_pre_logits: bool = False) -> torch.Tensor:
+        """tokens ``[B, S]`` -> fp32 logits ``[B, S, V_padded]``, or the
+        final-norm hidden states ``[B, S, d]`` when ``return_pre_logits``
+        (the chunked loss).  With ``remat``, where gradients are recorded,
+        each layer is checkpointed: its activations are recomputed in the
+        backward pass (the MoE layers' grouped launches too)."""
         x = self._embed(tokens)
         b, s = tokens.shape
         positions = torch.arange(s, device=self.device)[None].expand(b, s)
         for block in self.layers:
-            x = block(x, positions, gmm)
-        return self._logits(x)
+            if remat and torch.is_grad_enabled():
+                x = checkpoint(block, x, positions, gmm, use_reentrant=False)
+            else:
+                x = block(x, positions, gmm)
+        x = self.final_norm(x)
+        return x if return_pre_logits else self._head(x)
 
     def init_cache(self, batch: int,
                    cache_len: int) -> List[Dict[str, torch.Tensor]]:
@@ -262,17 +287,24 @@ class LM(nn.Module):
         x = self._embed(tokens[:, None])
         for block, layer_cache in zip(self.layers, cache):
             x = block.decode(x, layer_cache, pos, gmm)
-        return self._logits(x)[:, 0]
+        return self._head(self.final_norm(x))[:, 0]
 
-    def grouped_launches_per_step(self) -> int:
-        """Grouped-matmul launches one ``decode_step`` or ``forward`` makes
-        on the card: two per MoE layer."""
-        return LAUNCHES_PER_LAYER * self.cfg.num_layers \
-            if self.cfg.num_experts else 0
+    def grouped_launches_per_step(self, train: bool = False,
+                                  remat: bool = True) -> int:
+        """Grouped-matmul launches on the card per MoE layer times the
+        layers: for one ``decode_step`` or ``forward``, two per layer (gate
+        and up share one); for one micro-batch of a train step, those two,
+        their recompute under ``remat``, and the two input gradients."""
+        if not self.cfg.num_experts:
+            return 0
+        passes = (3 if remat else 2) if train else 1
+        return LAUNCHES_PER_LAYER * passes * self.cfg.num_layers
 
 
 def init_params(cfg: ModelConfig, *, device: DeviceLike = None,
                 generator: Optional[torch.Generator] = None,
-                dtype: Optional[torch.dtype] = None) -> LM:
+                dtype: Optional[torch.dtype] = None,
+                masters: bool = False) -> LM:
     """A randomly initialised :class:`LM` (see its arguments)."""
-    return LM(cfg, device=device, generator=generator, dtype=dtype)
+    return LM(cfg, device=device, generator=generator, dtype=dtype,
+              masters=masters)

@@ -14,7 +14,9 @@ buffer is padded from C to ``C_pad`` rows, a multiple of the kernel's
 over the gate and up weights side by side (``[E, d, 2 * d_ff]``: each
 output column is its own product, so one launch gives both, bit for bit)
 and one over the down weights, with SwiGLU between them.  Padding rows
-are zero going in and come out zero.
+are zero going in and come out zero.  Under autograd each launch goes
+through ``GroupedMatmulFn``, whose input gradient is a third launch of the
+same kernel (``kernels.grouped_matmul``).
 """
 from __future__ import annotations
 
@@ -27,11 +29,12 @@ from torch import nn
 
 from repro_torch.kernels.grouped_matmul import (TILE_M, check_group_ids,
                                                 grouped_matmul)
-from repro_torch.models.layers import frozen, he_init
+from repro_torch.models.layers import he_init, weight
 
-#: ``(x, w, group_ids, *, bm, bk, bn) -> out``: the grouped product the
-#: expert FFN calls (the kernel by default; tests and ``chip_smoke.py``
-#: pass ``grouped_matmul_plain`` to run the same model on the plain one).
+#: ``(x, w, group_ids, *, bm, bk, bn, expert_rows) -> out``: the grouped
+#: product the expert FFN calls (the kernel by default; tests and
+#: ``chip_smoke.py`` pass ``grouped_matmul_plain`` to run the same model on
+#: the plain one).
 GroupedMatmul = Callable[..., torch.Tensor]
 
 #: Grouped-matmul launches per MoE layer: gate and up share one.
@@ -123,26 +126,30 @@ def tile(n: int) -> int:
 class MoE(nn.Module):
     """Router ``[d, E]`` (fp32), ``w_gate_up`` ``[E, d, 2 * d_ff]`` (the
     reference's ``w_gate`` and ``w_up`` side by side) and ``w_down`` ``[E,
-    d_ff, d]``, both in the compute dtype."""
+    d_ff, d]``, both in ``dtype`` (the compute dtype, or fp32 masters that
+    :meth:`expert_ffn` casts at each use)."""
 
     def __init__(self, d: int, d_ff: int, num_experts: int, k: int,
                  capacity_factor: float, *, dtype: torch.dtype,
                  device: torch.device,
-                 generator: Optional[torch.Generator]):
+                 generator: Optional[torch.Generator],
+                 trainable: bool = False):
         super().__init__()
         self.k, self.num_experts = k, num_experts
         self.capacity_factor = capacity_factor
-        self.router = frozen(he_init((d, num_experts), generator=generator,
-                                     device=device))
+        self.router = weight(he_init((d, num_experts), generator=generator,
+                                     device=device), torch.float32,
+                             trainable)
         gate = he_init((num_experts, d, d_ff), fan_in=d, generator=generator,
                        device=device).to(dtype)
         up = he_init((num_experts, d, d_ff), fan_in=d, generator=generator,
                      device=device).to(dtype)
-        self.w_gate_up = frozen(torch.cat([gate, up], dim=2))
+        self.w_gate_up = weight(torch.cat([gate, up], dim=2), dtype,
+                                trainable)
         del gate, up
-        self.w_down = frozen(he_init((num_experts, d_ff, d), fan_in=d_ff,
-                                     generator=generator,
-                                     device=device).to(dtype))
+        self.w_down = weight(he_init((num_experts, d_ff, d), fan_in=d_ff,
+                                     generator=generator, device=device),
+                             dtype, trainable)
         self._group_ids: Dict[int, torch.Tensor] = {}
 
     def group_ids(self, rows: int) -> torch.Tensor:
@@ -164,10 +171,11 @@ class MoE(nn.Module):
         f = self.w_down.shape[1]
         gids = self.group_ids(rows)
         x = buf.reshape(e * rows, d)
-        gu = gmm(x, self.w_gate_up, gids, bm=TILE_M, bk=tile(d),
-                 bn=tile(2 * f))
+        gu = gmm(x, self.w_gate_up.to(buf.dtype), gids, bm=TILE_M,
+                 bk=tile(d), bn=tile(2 * f), expert_rows=rows)
         h = F.silu(gu[:, :f]) * gu[:, f:]
-        out = gmm(h, self.w_down, gids, bm=TILE_M, bk=tile(f), bn=tile(d))
+        out = gmm(h, self.w_down.to(buf.dtype), gids, bm=TILE_M, bk=tile(f),
+                  bn=tile(d), expert_rows=rows)
         return out.reshape(e, rows, d)
 
     def forward(self, x: torch.Tensor,
@@ -190,10 +198,12 @@ def moe_ffn_dense(moe: MoE, x: torch.Tensor) -> torch.Tensor:
     flat = x.reshape(B * S, d)
     f = moe.w_down.shape[1]
     weights, ids = router(flat, moe.router, moe.k)
-    w_gate, w_up = moe.w_gate_up[..., :f], moe.w_gate_up[..., f:]
+    w_gate_up = moe.w_gate_up.to(x.dtype)
+    w_gate, w_up = w_gate_up[..., :f], w_gate_up[..., f:]
     h = F.silu(torch.einsum("td,edf->tef", flat, w_gate)) * \
         torch.einsum("td,edf->tef", flat, w_up)
-    all_out = torch.einsum("tef,efd->ted", h, moe.w_down)    # [T, E, d]
+    all_out = torch.einsum("tef,efd->ted", h,
+                           moe.w_down.to(x.dtype))              # [T, E, d]
     gate = torch.zeros(flat.shape[0], moe.num_experts, device=x.device)
     gate.scatter_add_(1, ids, weights)
     out = torch.einsum("ted,te->td", all_out.float(), gate)

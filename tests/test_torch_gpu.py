@@ -813,9 +813,11 @@ class _CheckedGrouped:
     def __init__(self):
         self.launches, self.bounds = 0, []
 
-    def __call__(self, x, w, gids, *, bm, bk, bn):
-        out = grouped_matmul(x, w, gids, bm=bm, bk=bk, bn=bn)
-        ref = grouped_matmul_plain(x, w, gids, bm=bm, bk=bk, bn=bn)
+    def __call__(self, x, w, gids, *, bm, bk, bn, expert_rows=None):
+        out = grouped_matmul(x, w, gids, bm=bm, bk=bk, bn=bn,
+                             expert_rows=expert_rows)
+        ref = grouped_matmul_plain(x, w, gids, bm=bm, bk=bk, bn=bn,
+                                   expert_rows=expert_rows)
         absprod = grouped_matmul_plain(x.abs().float(), w.abs().float(),
                                        gids, bm=bm)
         g, r = out.double(), ref.double()
@@ -904,3 +906,191 @@ def test_capacity_buffer_padding_rows_come_out_zero(cuda_device):
     assert not bool(buf[~occupied].any())
     assert not bool(out[~occupied].any())
     assert bool(out[occupied].any(dim=-1).all())
+
+
+# ---------------------------------------------------------------------- #
+# The training path: the grouped kernel's backward, a train step's
+# launches, checkpoints of CUDA state.
+# ---------------------------------------------------------------------- #
+
+def _grouped_grad_case(dev, dtype, experts=8, rows=128, d=128, n=256,
+                       routed=88, seed=0):
+    """x ``[E * rows, d]`` whose rows past ``routed`` in each expert's run
+    are zero (padding), w ``[E, d, n]``, dout zero on the padding rows (as
+    the combine leaves it), and the expert-major group ids at bm = 64."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn(experts, rows, d, generator=gen, device=dev)
+    x[:, routed:] = 0
+    dout = torch.randn(experts, rows, n, generator=gen, device=dev)
+    dout[:, routed:] = 0
+    w = torch.randn(experts, d, n, generator=gen, device=dev) * d ** -0.5
+    gids = torch.arange(experts, dtype=torch.int32,
+                        device=dev).repeat_interleave(rows // 64)
+    return (x.reshape(-1, d).to(dtype), w.to(dtype),
+            dout.reshape(-1, n).to(dtype), gids)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_grouped_autograd_on_the_kernel_matches_plain(cuda_device, dtype):
+    """``GroupedMatmulFn`` on the card: forward and ``dx`` launch the kernel
+    (2 launches), ``dw`` is the batched product; each against autograd
+    through ``grouped_matmul_plain`` within ``grouped_tolerance`` of its
+    own |.| product.  ``dw`` may also reduce split-K partials in bf16
+    (cuBLAS), which one more ``eps(dtype) * |x|^T |dout|`` covers.
+    Padding rows get exactly zero ``dx``."""
+    x, w, dout, gids = _grouped_grad_case(cuda_device, dtype)
+    grads = {}
+    for name, fn in (("kernel", grouped_matmul),
+                     ("plain", grouped_matmul_plain)):
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        before = kernels.launch_counts()["grouped_matmul"]
+        fn(xg, wg, gids, bm=64, bk=128, bn=128,
+           expert_rows=x.shape[0] // w.shape[0]).backward(dout)
+        torch.cuda.synchronize()
+        launched = kernels.launch_counts()["grouped_matmul"] - before
+        assert launched == (2 if name == "kernel" else 0)
+        grads[name] = (xg.grad, wg.grad)
+    (dx, dw), (dx_p, dw_p) = grads["kernel"], grads["plain"]
+    assert dx.dtype == dtype and dw.dtype == dtype
+    eps = float(torch.finfo(dtype).eps)
+    abs_dx = grouped_matmul_plain(dout.abs().float(),
+                                  w.abs().float().transpose(1, 2)
+                                  .contiguous(), gids, bm=64)
+    e = w.shape[0]
+    abs_dw = torch.bmm(x.abs().float().reshape(e, -1, x.shape[1])
+                       .transpose(1, 2),
+                       dout.abs().float().reshape(e, -1, dout.shape[1]))
+    for what, got, ref, absprod, extra in (
+            ("dx", dx, dx_p, abs_dx, 0.0), ("dw", dw, dw_p, abs_dw, eps)):
+        g, r = got.double(), ref.double()
+        assert bool(torch.isfinite(g).all()), what
+        bound = moe_block.grouped_tolerance(absprod.double(), dtype, g, r) \
+            + extra * absprod.double()
+        worst = float((g - r).abs().sub(bound).max())
+        assert worst <= 0, f"{what} {dtype}: exceeds the bound by {worst}"
+    padding = ~dout.bool().any(dim=1)
+    assert bool(padding.any()) and not bool(dx[padding].any())
+
+
+def _train_batch(cfg, dev, batch=2, seq=64, seed=0):
+    toks = np.random.default_rng(seed).integers(
+        2, cfg.vocab_size - 1, size=(batch, seq + 1))
+    t = torch.from_numpy(toks).to(dev)
+    return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+
+
+@pytest.mark.gpu
+def test_train_step_launches_six_grouped_per_moe_layer(cuda_device):
+    """One ``step_fn`` of a 2-layer MoE model with fp32 masters: forward,
+    recompute and input gradient launch the kernel, 6 x 2 times, and the
+    loss, the gradients and the updated weights are finite."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step
+    cfg = _lm_config(layers=2)
+    model = init_params(cfg, device=cuda_device, masters=True,
+                        generator=torch.Generator(cuda_device).manual_seed(0))
+    assert all(p.dtype == torch.float32 and p.requires_grad
+               for p in model.parameters())
+    batch = _train_batch(cfg, cuda_device)
+    planned = model.grouped_launches_per_step(train=True)
+    assert planned == 12
+    before = kernels.launch_counts()["grouped_matmul"]
+    loss, grads = train_step.make_grads(cfg)(model, batch)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["grouped_matmul"] - before == planned
+    assert bool(torch.isfinite(loss)) and set(grads) == \
+        {n for n, _ in model.named_parameters()}
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+    assert float(grads["layers.0.moe.w_gate_up"].abs().max()) > 0
+    step = train_step.make_train_step(
+        cfg, ShapeConfig("t", 64, 2, "train"),
+        schedule_kwargs={"warmup_steps": 1, "total_steps": 4})
+    opt = adamw.init_state(dict(model.named_parameters()),
+                           adamw.AdamWConfig())
+    before = dict(kernels.launch_counts())
+    metrics = step(model, opt, batch, 1)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["grouped_matmul"] - before["grouped_matmul"] == planned
+    assert all(after[k] == before[k] for k in after if k != "grouped_matmul")
+    assert bool(torch.isfinite(metrics["loss"]))
+    assert float(metrics["grad_norm"]) > 0 and int(opt["count"]) == 1
+    assert all(bool(torch.isfinite(p).all()) for p in model.parameters())
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_of_cuda_state_with_bf16_moments(cuda_device,
+                                                               tmp_path):
+    """A CUDA model's masters and bf16 ``mu`` / ``nu`` after one step come
+    back from disk onto the card bit for bit, the bf16 leaves as
+    ``"bfloat16"`` in the manifest."""
+    import json
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.tree import leaves
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step
+    cfg = _lm_config(layers=2)
+    model = init_params(cfg, device=cuda_device, masters=True,
+                        generator=torch.Generator(cuda_device).manual_seed(1))
+    opt_cfg = adamw.AdamWConfig(state_dtype="bfloat16")
+    opt = adamw.init_state(dict(model.named_parameters()), opt_cfg)
+    train_step.make_train_step(cfg, ShapeConfig("t", 64, 2, "train"),
+                               opt_cfg=opt_cfg)(
+        model, opt, _train_batch(cfg, cuda_device), 600)
+    tree = {"params": {n: p.detach() for n, p in model.named_parameters()},
+            "opt": opt}
+    ck = Checkpointer(str(tmp_path))
+    path = ck.save(0, tree)
+    back = ck.restore(device=cuda_device, like=tree)
+    with open(f"{path}/manifest.json") as f:
+        dtypes = {k: v["dtype"] for k, v in json.load(f)["arrays"].items()}
+    assert dtypes["opt/mu/layers.0.moe.w_down"] == "bfloat16"
+    assert dtypes["params/layers.0.moe.w_down"] == "float32"
+    assert int(back["opt"]["count"]) == 1
+    got = dict(leaves(back))
+    for name, leaf in leaves(tree):
+        assert got[name].device.type == "cuda", name
+        assert got[name].dtype == leaf.dtype, name
+        assert torch.equal(got[name], leaf), name
+
+
+@pytest.mark.gpu
+def test_restart_on_the_card_equals_uninterrupted_training(cuda_device,
+                                                           tmp_path):
+    """A 2-layer MoE model trained 6 steps without a break, and trained 3
+    steps, checkpointed, restored by a new trainer and trained 3 more, end
+    with every weight and AdamW leaf equal bit for bit: the stated bound
+    on the card is 0.  Every reduction on this path is ordered the same
+    from run to run (``index_put_`` with ``accumulate`` sorts its indices
+    on CUDA; the grouped kernel sums each tile in one block; cuBLAS picks
+    the same algorithm for the same shapes): on an H100 a restart and a
+    rerun both reproduced the run bit for bit."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.tree import leaves
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = _lm_config(layers=2)
+
+    def trainer(d, every):
+        return Trainer(cfg, ShapeConfig("t", 64, 4, "train"),
+                       TrainerConfig(ckpt_dir=str(tmp_path / d),
+                                     ckpt_every=every,
+                                     schedule_kwargs={"warmup_steps": 2,
+                                                      "total_steps": 6}),
+                       device=cuda_device)
+    full = trainer("full", 100)
+    full.run(6)
+    first = trainer("resumed", 100)
+    first.run(6, stop_after=3)
+    second = trainer("resumed", 100)
+    assert second.init_or_restore() == 3
+    second.run(6)
+    assert [h["loss"] for h in first.history + second.history] == \
+        [h["loss"] for h in full.history]
+    got = dict(leaves(second.state()))
+    for name, leaf in leaves(full.state()):
+        assert torch.equal(got[name], leaf), name
