@@ -68,7 +68,36 @@ The run reads and writes calibrations only in a fresh temporary
    logits must agree within ``models.model.logit_tolerance``; the
    decisions its own router would have changed are counted.  The model is
    freed before the next phase.
-6. **train** (the training path): ``repro_torch.train.trainer.Trainer`` on
+6. **families** (the ``local``, ``vlm`` and ``encdec`` families, no
+   port kernel on the path): counters are zeroed first and must all read
+   0 after.  gemma3-12b at full width and depth (48 layers, five local to
+   one global; one period of 6 under ``--quick``) through ``serve
+   --arch``, as in ``lm`` (parameters, ``max_memory_allocated``, tok/s,
+   the step median and max beside the byte bound: every weight the step
+   uses and the KV cache once over 3.35 TB/s), with a ``torch.profiler``
+   pass over two steps.  The ring check at full width on one period (5
+   local + 1 global layers, ``models.decode_check``): one ``forward`` of
+   1 x 1536 tokens, whose local layers take ``local_attention`` over three
+   q blocks of 512, against 1536 teacher-forced ``decode_step`` calls,
+   whose 1024-slot rings wrap at step 1024; the logits and every
+   attention output within their rounding bounds, and three planted
+   faults that the check must reject (the ring writes slot ``(pos + 1) %
+   S_c``, a local layer attends to every slot before its ring is full,
+   the forward's local layers ignore the window).  whisper-base at full
+   width and depth through ``serve --arch`` (the reference's meaning:
+   zero cross K/V), then ``encode`` -> ``prime_cross_cache`` -> 48
+   teacher-forced steps of batch 4 against ``forward(tokens, frames=...)``,
+   rejecting a zeroed cross cache and an encoder without its sinusoidal
+   positions.  qwen2-vl-7b at full width and depth (2 layers under
+   ``--quick``) through ``serve --arch`` (1-D RoPE, the reference's
+   meaning); its decode against ``forward`` over 4 x 256 tokens with the
+   data pipeline's ``positions_3d`` (64 patch tokens on an 8 x 8 grid:
+   three distinct streams, which decode takes column by column),
+   rejecting a decode whose M-RoPE swaps the height and width streams;
+   and one forward of 1 x 1024 tokens with the pipeline's stubs (256
+   patch tokens on a 16 x 16 grid, their embeddings through ``mm_proj``),
+   whose logits must be finite.  Each model is freed before the next.
+7. **train** (the training path): ``repro_torch.train.trainer.Trainer`` on
    olmoe-1b-7b at full width with the depth cut to 4 of 16 layers (fp32
    masters, gradients and AdamW's mu and nu take 16 B per parameter: 111
    GB at full depth; 2 layers under ``--quick``), batch 4 x sequence 512,
@@ -90,7 +119,7 @@ The run reads and writes calibrations only in a fresh temporary
    within a bound that scales with the gradients and that four planted
    faults must break (``train_grad_check``, ``grad_ratio``).  The model
    and its state are freed before the next phase.
-7. **kernels**: each SpMM kernel against its plain PyTorch version on the
+8. **kernels**: each SpMM kernel against its plain PyTorch version on the
    card, on the layout the serving phase packed for it (f32i32) and at
    every other precision its spec declares (bf16i32 at full n, bf16i16 at
    n = 32760, where the slab fits int16 indices); kernel, plain-version
@@ -114,7 +143,7 @@ The run reads and writes calibrations only in a fresh temporary
    ``torch._grouped_mm`` (bf16, where this torch has it) or a per-expert
    ``torch.matmul`` loop as the library time; the check must reject two
    planted faults (a dropped k-slice, +0.1 on one row).
-8. **engine** (the serving-engine path): ``repro_torch.launch.serve``'s
+9. **engine** (the serving-engine path): ``repro_torch.launch.serve``'s
    ``serve_spmm_engine`` with the default engine settings (8 MiB staging
    budget, queue 256, policy ``wait``, 2000 requests/s per stream), twice:
    at full width on ``moe-block`` at n = 2**20 with d = 64 and 32, 4 streams
@@ -137,7 +166,7 @@ The run reads and writes calibrations only in a fresh temporary
    the first run; the overlap and the async return are printed, not
    enforced: at that size the device work is too short to outlast the
    host's staging.)
-9. **shard** (the sharded tier): ``ShardMesh(["cuda:0"] * 4)`` over the
+10. **shard** (the sharded tier): ``ShardMesh(["cuda:0"] * 4)`` over the
    four ``serving_suite`` structures at n = 2**18 (cut from 2**20 to keep
    classification and packing of the unsharded and four sharded layouts
    per strategy inside the phase's time; 2**12 under ``--quick``), plus
@@ -147,7 +176,7 @@ The run reads and writes calibrations only in a fresh temporary
    plan's ``summary()``, and a p50 of 8 requests per strategy beside its
    predicted time.  Then one ``serve --spmm-stream --spmm-shards -1`` run
    (one shard per visible card), its C held against the unsharded plan.
-10. **harvest**: ``repro_torch.launch.harvest_dispatch`` on the vendored
+11. **harvest**: ``repro_torch.launch.harvest_dispatch`` on the vendored
    corpus with the ``cuda`` kernels, d = 32 and 128, 3 repeats, the tree
    in a temporary store root of its own; its agreement and never-worse
    results are printed, not enforced (at n <= 256 a call is the launch
@@ -176,16 +205,17 @@ version reads).  The grouped matmul's TFLOP/s count 2 * K * N per padded
 row and per routed row; its tile traffic is what its tiling copies into
 shared memory (each output tile's x rows and w columns), over kernel ms.
 
-The last lines are the ``{"kernels": [...]}`` record (the grouped
-matmul's with its ``lm_launches`` and ``train_launches`` and the two
-phases' figures), the card's name and power limit from ``nvidia-smi``,
-and ``{"ok": true, "device": ...}``.
+The last lines are the ``{"kernels": [...]}`` record (each kernel with
+its launches per path, ``families_launches`` 0; the grouped matmul's with
+the ``lm`` and ``train`` phases' figures), the card's name and power
+limit from ``nvidia-smi``, and ``{"ok": true, "device": ...}``.
 Without a GPU, or without the port beside it, the script exits nonzero
 and prints no result.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import pathlib
@@ -273,6 +303,21 @@ LM_BATCH, LM_PROMPT, LM_GEN = 4, 32, 16
 LM_QUICK_LAYERS = 2
 #: Teacher-forced steps of the kernel-against-plain check on the model.
 LM_CHECK_STEPS = 4
+
+#: The families phase: gemma3-12b, whisper-base and qwen2-vl-7b through
+#: ``serve --arch`` at full width and depth (``--quick``: gemma3's one
+#: pattern period, qwen2-vl's first 2 layers); the ring check on one
+#: period of gemma3 at full width over 1536 tokens (3 q blocks of 512; the
+#: 1024-slot rings wrap at step 1024), its planted decode faults over the
+#: first 64 steps; whisper's decode-vs-forward check over 48 steps of
+#: batch 4; qwen2-vl's over 256 steps of batch 4 (the pipeline's stubs put
+#: 64 patch tokens on an 8 x 8 grid, whose first 64 steps the M-RoPE
+#: fault runs); qwen2-vl's forward of the pipeline's stubs at 1 x 1024
+#: (256 patch tokens on a 16 x 16 grid).
+FAMILIES_QUICK_LAYERS = {"gemma3-12b": 6, "qwen2-vl-7b": 2}
+RING_TOKENS, RING_FAULT_STEPS = 1536, 64
+WHISPER_STEPS, VLM_CHECK_STEPS = 48, 256
+VLM_FORWARD = (1, 1024)
 
 #: The train phase: ``Trainer`` on olmoe-1b-7b at full width with the
 #: depth cut from 16 to 4 layers (fp32 masters, gradients and AdamW's mu
@@ -1212,13 +1257,19 @@ def lm_profile(model, prompts, dev, steps: int = 2) -> dict:
 
 def lm_step_bytes(model, batch: int, cache_len: int,
                   experts_read: Optional[float] = None) -> int:
-    """Bytes one ``decode_step`` must read: every weight once (the
-    embedding table's ``batch`` rows where it is not tied), and the whole
-    KV cache; with ``experts_read``, only that many experts' weights per
-    MoE layer instead of all of them."""
+    """Bytes one ``decode_step`` must read: every weight it uses once (the
+    embedding table's ``batch`` rows where it is not tied; not whisper's
+    encoder nor qwen2-vl's ``mm_proj``, which decode does not run), and
+    the whole KV cache: ``cache_len`` slots per global layer, ``min(
+    cache_len, window)`` per local layer's ring, and whisper's cross K/V of
+    ``encoder_seq`` slots per layer; with ``experts_read``, only that many
+    experts' weights per MoE layer instead of all of them."""
+    from repro_torch.models.model import layer_kinds
     cfg = model.cfg
     total = 0
     for name, p in model.named_parameters():
+        if name.startswith(("encoder.", "mm_proj.")):
+            continue
         nbytes = p.numel() * p.element_size()
         if name == "embed.table" and not cfg.tie_embeddings:
             nbytes = batch * cfg.d_model * p.element_size()
@@ -1226,8 +1277,11 @@ def lm_step_bytes(model, batch: int, cache_len: int,
                 ("moe.w_gate_up", "moe.w_down")):
             nbytes = nbytes * experts_read / cfg.num_experts
         total += nbytes
-    kv = 2 * cfg.num_layers * batch * cache_len * cfg.num_kv_heads * \
-        cfg.head_dim * 2
+    slots = sum(min(cache_len, cfg.window_size) if kind == "local"
+                else cache_len for kind in layer_kinds(cfg))
+    if cfg.family == "encdec":
+        slots += cfg.encoder_seq * cfg.num_layers
+    kv = 2 * batch * slots * cfg.num_kv_heads * cfg.head_dim * 2
     return int(total + kv)
 
 
@@ -1345,6 +1399,304 @@ def lm_phase(quick: bool, dev) -> dict:
     del model, rec, out
     gc.collect()
     empty_cache(dev)
+    return result
+
+
+@contextlib.contextmanager
+def patched(mod, name: str, value):
+    """Set ``mod.name`` to ``value`` while the block runs: a planted
+    fault."""
+    saved = getattr(mod, name)
+    setattr(mod, name, value)
+    try:
+        yield
+    finally:
+        setattr(mod, name, saved)
+
+
+def decode_check_run(model, tokens, fwd_kw: dict, enc_out=None):
+    """``models.decode_check`` on the card: one ``forward`` of ``tokens``
+    (``fwd_kw``: ``frames``, ``positions_3d``) against ``tokens.shape[1]``
+    teacher-forced ``decode_step`` calls (primed with ``enc_out``, fed the
+    forward's ``positions_3d``), the logits and every attention output
+    within their rounding bounds.  Raises ``SmokeFailure`` when they are
+    not; returns the record and both traces, for :func:`reject`."""
+    import torch
+    from repro_torch.models import decode_check as DC
+
+    steps = tokens.shape[1]
+    t0 = time.perf_counter()
+    fwd = DC.forward_trace(model, tokens, **fwd_kw)
+    dec = DC.decode_trace(model, tokens, steps, enc_out=enc_out,
+                          positions_3d=fwd_kw.get("positions_3d"))
+    torch.cuda.synchronize()
+    honest = DC.compare(model, fwd, dec)
+    rec = {"honest": honest, "steps": steps,
+           "seconds": time.perf_counter() - t0, "faults": {}}
+    if not honest["ok"]:
+        raise SmokeFailure(f"families: {model.cfg.name} decode vs forward "
+                           f"over {steps} steps: {honest}")
+    return rec, fwd, dec
+
+
+def reject(rec: dict, fault: str, model, fwd: dict, dec: dict) -> None:
+    """``decode_check.compare`` of two traces, one of them run with the
+    planted ``fault``: raises ``SmokeFailure`` when the check passes it;
+    records the ratios in ``rec["faults"]``."""
+    from repro_torch.models import decode_check as DC
+
+    got = DC.compare(model, fwd, dec)
+    rec["faults"][fault] = got
+    if got["ok"]:
+        raise SmokeFailure(f"families: the check passed the planted fault "
+                           f"{fault!r}: {got}")
+
+
+def log_check(tag: str, rec: dict) -> None:
+    h = rec["honest"]
+    log(f"[families] {tag}: decode vs forward over {rec['steps']} "
+        f"teacher-forced steps ({rec['seconds']:.1f}s): worst err / bound "
+        f"logits {h['logits']:.3f} (max |dlogit| {h['max_dlogit']:.4e}), "
+        f"attention outputs {h['attn']:.3f} (layer {h['layer']})")
+    for name, f in rec["faults"].items():
+        log(f"[families] {tag}: planted fault {name!r} rejected: err / "
+            f"bound logits {f['logits']:.3f}, attention outputs "
+            f"{f['attn']:.3f} (layer {f['layer']})")
+
+
+def families_serve(arch: str, layers: Optional[int], dev) -> dict:
+    """``serve --arch ARCH`` (the reference's meaning: qwen2-vl decodes
+    with 1-D RoPE, whisper against zero cross K/V) at full width, its depth
+    cut to ``layers`` where given; prints parameters, memory, tok/s and the
+    step median and max beside the byte bound.  Returns the record with
+    the model."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import init_params
+
+    argv = ["--arch", arch, "--batch", str(LM_BATCH), "--prompt-len",
+            str(LM_PROMPT), "--gen", str(LM_GEN), "--device", str(dev)]
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = None
+    if layers:
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        model = init_params(cfg, device=dev,
+                            generator=torch.Generator(dev).manual_seed(0))
+    log(f"[families] === serve {' '.join(argv)}"
+        f"{f' ({layers} layers)' if layers else ''} ===")
+    rec = serve.serve_lm(serve.parser().parse_args(argv), model=model)
+    model, out = rec["model"], rec["generation"]
+    cfg = model.cfg
+    tokens = out.tokens
+    if tokens.shape != (LM_BATCH, LM_GEN) or tokens.min() < 0 or \
+            tokens.max() >= cfg.vocab_size:
+        raise SmokeFailure(f"families: {arch} tokens {tokens.shape} in "
+                           f"[{tokens.min()}, {tokens.max()}]")
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    ms = np.asarray(out.step_ms)
+    step_bytes = lm_step_bytes(model, LM_BATCH, LM_PROMPT + LM_GEN)
+    bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[families] {cfg.name}: {cfg.num_layers} layers "
+        f"({'/'.join(cfg.layer_pattern)}), d {cfg.d_model}, "
+        f"{cfg.num_heads} x {cfg.head_dim} heads, kv {cfg.num_kv_heads}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (padded "
+        f"{cfg.padded_vocab}); {n_params} parameters, {n_bytes / 1e9:.2f} "
+        f"GB on the card; max_memory_allocated {peak / 1e9:.2f} GB above "
+        f"the {base / 1e9:.2f} GB held before; built in "
+        f"{rec['build_s']:.1f}s")
+    log(f"[families] {cfg.name}: {LM_BATCH} x {LM_PROMPT} prompt + {LM_GEN} "
+        f"generated: {len(ms)} decode steps, {rec['tok_s']:.2f} tok/s; per "
+        f"step median {np.median(ms):.3f} ms, max {ms.max():.3f} ms, min "
+        f"{ms.min():.3f} ms; byte bound {bound_ms:.4f} ms "
+        f"({step_bytes / 1e9:.4f} GB per step at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); first row "
+        f"{tokens[0].tolist()}")
+    return {"model": model, "prompts": rec["prompts"], "params": n_params,
+            "bytes": n_bytes, "peak_bytes": peak, "tok_s": rec["tok_s"],
+            "step_median_ms": float(np.median(ms)),
+            "step_max_ms": float(ms.max()), "bound_ms": bound_ms}
+
+
+def free(dev) -> None:
+    """Return the memory of the models the caller has dropped."""
+    import gc
+    gc.collect()
+    empty_cache(dev)
+
+
+def families_phase(quick: bool, dev) -> dict:
+    """The ``local``, ``vlm`` and ``encdec`` families on the card, through
+    the port's LM path, with no port kernel launched (the counters are
+    zeroed first and must read 0 after).  gemma3-12b at full width and
+    depth (one period under ``--quick``): ``serve --arch`` and a profile of
+    two steps; the ring check at full width on one period (5 local + 1
+    global layers); whisper-base: serve, then the encoder and primed cross
+    cache against ``forward``; qwen2-vl-7b (2 layers under ``--quick``):
+    serve, decode against ``forward`` with the pipeline's distinct
+    ``positions_3d`` streams, and one forward of the pipeline's patch
+    stubs.  Each check must reject its planted faults.  Each model is freed before the
+    next."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.models import attention as A
+    from repro_torch.models import decode_check as DC
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    kernels.reset_launch_counts()
+    result = {}
+
+    def stubs(cfg, seq, batch):
+        return {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in
+                Pipeline(cfg, ShapeConfig("families", seq, batch, "train"),
+                         DataConfig(seed=0)).batch_for_step(0).items()}
+
+    # gemma3-12b: serve at full depth, and profile two steps.
+    g = families_serve("gemma3-12b", FAMILIES_QUICK_LAYERS["gemma3-12b"]
+                       if quick else None, dev)
+    prof = lm_profile(g["model"], g["prompts"], dev)
+    if prof["device_ms"] is None:
+        log(f"[families] gemma3-12b profiled step: {prof['wall_ms']:.3f} ms "
+            f"on the host clock; device time not measured")
+    else:
+        log(f"[families] gemma3-12b profiled step (torch.profiler, 2 "
+            f"steps): {prof['wall_ms']:.3f} ms on the host clock, kernels "
+            f"{prof['device_ms']:.3f} ms of device time "
+            f"({prof['kernels']:.0f} kernels), device idle "
+            f"{1 - prof['device_ms'] / prof['wall_ms']:.1%} of the profiled "
+            f"step; largest: " + "; ".join(
+                f"{k} {t:.3f} ms x{n:.0f}" for k, t, n in prof["top"]))
+    g["profile"] = {k: prof[k] for k in ("wall_ms", "device_ms", "kernels")}
+    del g["model"]
+    result["gemma3-12b"] = g
+    free(dev)
+
+    # The ring at full width: one period, RING_TOKENS tokens.
+    cfg = dataclasses.replace(get_config("gemma3-12b"),
+                              num_layers=len(get_config("gemma3-12b")
+                                             .layer_pattern))
+    model = M.init_params(cfg, device=dev,
+                          generator=torch.Generator(dev).manual_seed(0))
+    toks = stubs(cfg, RING_TOKENS, 1)["tokens"]
+
+    def slot_one_off(kind, pos, s_c, _orig=M.cache_slot):
+        return (pos + 1) % s_c if kind == "local" else _orig(kind, pos, s_c)
+
+    def full_from_the_start(kind, pos, s_c, device, _orig=M.cache_mask):
+        if kind == "local":
+            return torch.ones(s_c, dtype=torch.bool, device=device)
+        return _orig(kind, pos, s_c, device)
+
+    def no_window(q, k, v, window, q_block=512):
+        return A.chunked_attention(q, k, v, causal=True)
+
+    ring, fwd, dec = decode_check_run(model, toks, {})
+    n = RING_FAULT_STEPS
+    with patched(M, "cache_slot", slot_one_off):
+        reject(ring, "ring writes slot (pos + 1) % S_c", model, fwd,
+               DC.decode_trace(model, toks[:, :n], n, cache_len=RING_TOKENS))
+    with patched(M, "cache_mask", full_from_the_start):
+        reject(ring, "local layer attends to every slot before the ring is "
+               "full", model, fwd,
+               DC.decode_trace(model, toks[:, :n], n, cache_len=RING_TOKENS))
+    with patched(A, "local_attention", no_window):
+        reject(ring, "forward's local layers ignore the window", model,
+               DC.forward_trace(model, toks), dec)
+    log_check(f"ring check, gemma3-12b at full width, {cfg.num_layers} "
+              f"layers ({'/'.join(cfg.layer_pattern)}), 1 x {RING_TOKENS} "
+              f"tokens: the local layers' forward takes local_attention over "
+              f"{RING_TOKENS // 512} q blocks of 512, their rings of "
+              f"{cfg.window_size} slots wrap at step {cfg.window_size}",
+              ring)
+    result["ring"] = ring
+    del model, toks, fwd, dec
+    free(dev)
+
+    # whisper-base: serve, then encode, prime and decode against forward.
+    w = families_serve("whisper-base", None, dev)
+    model = w.pop("model")
+    batch = stubs(model.cfg, WHISPER_STEPS, LM_BATCH)
+    with torch.inference_mode():
+        enc = model.encode(batch["frames"])
+        x = batch["frames"].to(model.dtype)
+        for block in model.encoder.layers:
+            x = block(x, None)
+        no_pos = model.encoder.norm(x)
+    toks = batch["tokens"]
+    w["check"], fwd, _ = decode_check_run(
+        model, toks, {"frames": batch["frames"]}, enc_out=enc)
+    reject(w["check"], "zeroed cross cache", model, fwd,
+           DC.decode_trace(model, toks, WHISPER_STEPS))
+    reject(w["check"], "encoder without its sinusoidal positions", model,
+           fwd, DC.decode_trace(model, toks, WHISPER_STEPS, enc_out=no_pos))
+    log_check(f"whisper-base, {LM_BATCH} x {WHISPER_STEPS} tokens, "
+              f"{model.cfg.encoder_seq} frames encoded and primed", w["check"])
+    result["whisper-base"] = w
+    del model, enc, no_pos, x, batch, toks, fwd
+    free(dev)
+
+    # qwen2-vl-7b: serve, decode against forward with M-RoPE positions,
+    # and one forward of the pipeline's patch stubs.
+    q = families_serve("qwen2-vl-7b", FAMILIES_QUICK_LAYERS["qwen2-vl-7b"]
+                       if quick else None, dev)
+    model = q.pop("model")
+    batch = stubs(model.cfg, VLM_CHECK_STEPS, LM_BATCH)
+    toks, pos3 = batch["tokens"], batch["positions_3d"]
+    n_mm = batch["mm_embeds"].shape[1]
+    q["check"], fwd, _ = decode_check_run(model, toks,
+                                          {"positions_3d": pos3})
+    mrope = L.apply_mrope
+    with patched(L, "apply_mrope",
+                 lambda x, p, theta: mrope(x, p[[0, 2, 1]], theta)):
+        reject(q["check"], "M-RoPE swaps the height and width streams",
+               model, fwd, DC.decode_trace(model, toks[:, :n_mm], n_mm,
+                                           cache_len=VLM_CHECK_STEPS,
+                                           positions_3d=pos3))
+    log_check(f"qwen2-vl-7b, {LM_BATCH} x {VLM_CHECK_STEPS} tokens, the "
+              f"pipeline's positions_3d ({n_mm} patch tokens on a grid of "
+              f"{int(pos3[1, 0, :n_mm].max()) + 1} x "
+              f"{int(pos3[2, 0, :n_mm].max()) + 1})", q["check"])
+    del fwd
+    b, s = VLM_FORWARD
+    batch = stubs(model.cfg, s, b)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits = model(batch["tokens"], mm_embeds=batch["mm_embeds"],
+                       positions_3d=batch["positions_3d"])
+    torch.cuda.synchronize(dev)
+    n_mm = batch["mm_embeds"].shape[1]
+    finite = bool(torch.isfinite(logits).all())
+    log(f"[families] qwen2-vl-7b forward of {b} x {s} tokens with the "
+        f"pipeline's stubs ({n_mm} patch tokens on a "
+        f"{int(batch['positions_3d'][1, 0, :n_mm].max()) + 1} x "
+        f"{int(batch['positions_3d'][2, 0, :n_mm].max()) + 1} grid): logits "
+        f"{tuple(logits.shape)}, finite {finite}, "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    if not finite or logits.shape != (b, s, model.cfg.padded_vocab):
+        raise SmokeFailure(f"families: qwen2-vl-7b stub forward gave "
+                           f"{tuple(logits.shape)}, finite {finite}")
+    result["qwen2-vl-7b"] = q
+    del model, logits, batch, toks, pos3
+    free(dev)
+
+    counts = kernels.launch_counts()
+    if any(counts.values()):
+        raise SmokeFailure(f"families: port kernels launched in the phase: "
+                           f"{counts}")
+    log(f"[families] port kernel launches in the phase: {dict(counts)}")
+    result["launches"] = dict(counts)
     return result
 
 
@@ -2083,6 +2435,10 @@ def run(quick: bool, n: int) -> int:
     seconds["lm"] = time.perf_counter() - t0
     log(f"[lm] phase took {seconds['lm']:.1f}s")
     t0 = time.perf_counter()
+    families = families_phase(quick, dev)
+    seconds["families"] = time.perf_counter() - t0
+    log(f"[families] phase took {seconds['families']:.1f}s")
+    t0 = time.perf_counter()
     train = train_phase(quick, dev)
     seconds["train"] = time.perf_counter() - t0
     log(f"[train] phase took {seconds['train']:.1f}s")
@@ -2093,6 +2449,7 @@ def run(quick: bool, n: int) -> int:
         grouped = rec["name"] == "grouped_matmul"
         rec["calibrate_launches"] = calibrated["counts"][rec["name"]]
         rec["lm_launches"] = lm["launches"] if grouped else 0
+        rec["families_launches"] = families["launches"][rec["name"]]
         rec["train_launches"] = train["launches"] if grouped else 0
     records[-1]["lm"] = lm
     records[-1]["train"] = train

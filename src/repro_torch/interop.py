@@ -92,6 +92,36 @@ def _leaves(tree, prefix=()):
             yield prefix + (key,), value
 
 
+def _split_stacked(cfg, path):
+    """For a reference leaf stacked over layers, the port's name of entry
+    ``i`` as ``name(i)``; None for an unstacked leaf.
+
+    ``layers / p{j} / ...`` stacks group ``g`` of the pattern's ``j``-th
+    kind (port layer ``g * period + j``); ``encoder / layers / ...`` stacks
+    the encoder's layers."""
+    if path[0] == "layers":
+        j, period = int(path[1][1:]), len(cfg.layer_pattern)
+        rest = path[2:]
+        return lambda g: ".".join(("layers", str(g * period + j)) + rest)
+    if path[:2] == ("encoder", "layers"):
+        return lambda i: ".".join(("encoder", "layers", str(i)) + path[2:])
+    return None
+
+
+def _stacked_slot(cfg, parts):
+    """The inverse of :func:`_split_stacked` for a port name split on dots:
+    ``(reference path prefix, entry index, entries, the rest)``, or None
+    for an unstacked parameter."""
+    if parts[0] == "layers":
+        n, period = int(parts[1]), len(cfg.layer_pattern)
+        return (("layers", f"p{n % period}"), n // period,
+                cfg.num_layers // period, tuple(parts[2:]))
+    if parts[:2] == ["encoder", "layers"]:
+        return (("encoder", "layers"), int(parts[2]), cfg.encoder_layers,
+                tuple(parts[3:]))
+    return None
+
+
 def params_from_numpy(cfg, tree, device=None, dtype=None, masters=False):
     """The port's :class:`~repro_torch.models.model.LM` holding the
     reference's ``init_params`` weights.
@@ -99,16 +129,19 @@ def params_from_numpy(cfg, tree, device=None, dtype=None, masters=False):
     Args:
         cfg: the model's ``ModelConfig`` (the port's copy).
         tree: the reference's parameter pytree as nested dicts of numpy
-            (fp32 master) arrays, its layers stacked on a leading axis
-            under ``layers["p0"]``.
+            (fp32 master) arrays: each kind ``j`` of the layer pattern
+            stacked over its groups under ``layers["p{j}"]`` (group ``g``
+            is layer ``g * period + j``), whisper's encoder layers stacked
+            under ``encoder["layers"]``.
         device: where the model goes (None: the CPU).
         dtype: the compute dtype (None: ``models.model.COMPUTE_DTYPE``).
         masters: keep every weight as a trainable fp32 master (training).
 
     Without ``masters``, each matrix, bias, expert weight and the
     embedding table are cast once to the compute dtype, which is what the
-    reference's per-use cast gives; norm scales and the router stay fp32.
-    ``w_gate`` and ``w_up`` go side by side into ``w_gate_up``.
+    reference's per-use cast gives; norm scales and biases and the router
+    stay fp32.  ``w_gate`` and ``w_up`` go side by side into
+    ``w_gate_up``.
     """
     import torch
     from repro_torch.models.model import LM
@@ -117,12 +150,12 @@ def params_from_numpy(cfg, tree, device=None, dtype=None, masters=False):
     state = {}
     for path, value in _leaves(tree):
         arr = np.asarray(value, dtype=np.float32)
-        if path[0] != "layers":
+        name = _split_stacked(cfg, path)
+        if name is None:
             state[".".join(path)] = arr
             continue
-        # layers / p0 / <module path>: split the stacked leading axis.
         for i in range(arr.shape[0]):
-            state[".".join(("layers", str(i)) + path[2:])] = arr[i]
+            state[name(i)] = arr[i]
     for i in range(cfg.num_layers):
         gate = state.pop(f"layers.{i}.moe.w_gate", None)
         if gate is not None:
@@ -148,19 +181,21 @@ def tree_to_numpy(cfg, named) -> dict:
 
     Returns:
         Nested dicts of fp32 numpy arrays (bf16 leaves are widened): the
-        layers stacked on a leading axis under ``layers["p0"]``,
-        ``w_gate_up`` split back into ``w_gate`` / ``w_up`` and the router
-        under ``router["kernel"]``.
+        layers stacked per kind of the pattern under ``layers["p{j}"]`` and
+        the encoder's under ``encoder["layers"]``, ``w_gate_up`` split back
+        into ``w_gate`` / ``w_up`` and the router under
+        ``router["kernel"]``.
     """
     import torch
     flat = {}
     for name, t in named.items():
         arr = t.detach().to("cpu", torch.float32).numpy()
         parts = name.split(".")
-        if parts[0] != "layers":
+        slot = _stacked_slot(cfg, parts)
+        if slot is None:
             flat[tuple(parts)] = arr
             continue
-        i, path = int(parts[1]), tuple(parts[2:])
+        prefix, i, count, path = slot
         if path == ("moe", "w_gate_up"):
             f = arr.shape[2] // 2
             pieces = {("moe", "w_gate"): arr[..., :f],
@@ -170,14 +205,14 @@ def tree_to_numpy(cfg, named) -> dict:
         else:
             pieces = {path: arr}
         for sub, a in pieces.items():
-            flat.setdefault(("layers", "p0") + sub,
-                            [None] * cfg.num_layers)[i] = a
+            flat.setdefault(prefix + sub, [None] * count)[i] = a
     tree: dict = {}
     for path, value in flat.items():
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = np.stack(value) if path[0] == "layers" else value
+        node[path[-1]] = np.stack(value) if isinstance(value, list) \
+            else value
     return tree
 
 

@@ -88,7 +88,10 @@ def generate(model, prompts: np.ndarray, gen: int) -> Generation:
     Prefill steps through the prompt one token at a time (``S - 1``
     ``decode_step`` calls), then each of the ``gen`` steps feeds the last
     token and takes the argmax over the real vocabulary.  Each step is
-    timed on the host clock up to ``torch.cuda.synchronize()``.
+    timed on the host clock up to ``torch.cuda.synchronize()``.  As in the
+    reference, no step is given ``positions_3d`` (qwen2-vl decodes with
+    1-D RoPE) and the cross cache is not primed (whisper decodes against
+    zero cross K/V).
     """
     B, S = prompts.shape
     dev = model.device

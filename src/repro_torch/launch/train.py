@@ -10,9 +10,9 @@ The flags are the reference's (``--seq-len`` and ``--batch`` override
 the shape's, as there) plus two: ``--device``, and ``--layers``, which
 cuts the depth and keeps the widths (full-width olmoe-1b-7b's training
 state, 16 B per parameter, fits one 80 GB card only at 4 of 16 layers).
-One meaning differs: ``--reduced`` trains the arch's tiny same-family
-config at :data:`SMOKE_SHAPE` (4 x 32) where the reference keeps
-``--shape``, since ``train_4k``'s million tokens a step exhaust a host
+``--shape`` trains at that shape, as the reference does; without it the
+shape is ``train_4k``, or :data:`SMOKE_SHAPE` (4 x 32) under
+``--reduced``, since ``train_4k``'s million tokens a step exhaust a host
 even at the reduced widths.  The trainer resumes from the newest
 committed checkpoint in ``--ckpt-dir``.  On the card every MoE layer's
 expert FFN launches the grouped-matmul kernel in the forward, its
@@ -38,8 +38,9 @@ from repro_torch.kernels import launch_counts
 from repro_torch.optim import adamw
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
-#: The shape ``--reduced`` trains at (the reference's tests' small shape):
-#: ``train_4k``'s million tokens a step would not fit a host.
+#: The shape ``--reduced`` trains at without ``--shape`` (the reference's
+#: tests' small shape): ``train_4k``'s million tokens a step would not fit
+#: a host.
 SMOKE_SHAPE = ShapeConfig("smoke", 32, 4, "train")
 
 
@@ -49,7 +50,9 @@ def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train",
                                  description="Train an arch on the GPU.")
     ap.add_argument("--arch", required=True)
-    ap.add_argument("--shape", default="train_4k")
+    ap.add_argument("--shape", default=None,
+                    help="the shape to train at (default: train_4k, or the "
+                         "4 x 32 smoke shape under --reduced)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--layers", type=int, default=0,
@@ -80,7 +83,10 @@ def make_trainer(args) -> Trainer:
         cfg = cfg.reduced()
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
-    shape = SMOKE_SHAPE if args.reduced else SHAPES[args.shape]
+    if args.shape:
+        shape = SHAPES[args.shape]
+    else:
+        shape = SMOKE_SHAPE if args.reduced else SHAPES["train_4k"]
     if args.seq_len or args.batch:
         shape = ShapeConfig("custom", args.seq_len or shape.seq_len,
                             args.batch or shape.global_batch, "train")

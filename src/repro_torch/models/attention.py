@@ -1,12 +1,15 @@
-"""Attention: chunked (flash-style) causal attention for ``forward`` and
-one-token attention against a KV cache for ``decode_step``.
+"""Attention: chunked (flash-style) causal or bidirectional attention and
+sliding-window (``local``) attention for ``forward``, and one-token
+attention against a KV cache (linear or ring) for ``decode_step``.
 
 The counterpart of the reference's ``repro.models.attention`` with its
 default causal implementation, ``"masked"``: every (q block, kv block)
-pair is computed and the upper triangle masked.  Logits, softmax
-statistics and accumulators are fp32; the probabilities that multiply V
-are rounded to V's dtype, as in the reference.  The ``"triangle"``
-implementation and sliding-window (``local``) attention are not ported.
+pair is computed and the upper triangle masked.  Local attention is the
+paper's banded regime applied to attention: each q block reads one band of
+``window`` keys before it, so its traffic and FLOPs scale with the window,
+not the sequence.  Logits, softmax statistics and accumulators are fp32;
+the probabilities that multiply V are rounded to V's dtype, as in the
+reference.  The ``"triangle"`` causal implementation is not ported.
 """
 from __future__ import annotations
 
@@ -90,6 +93,42 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             acc, m_acc, l_acc = _merge(acc, m_acc, l_acc, out, m, l)
         out = acc / torch.clamp(l_acc[..., None], min=1e-30)
         # [B,Hkv,G,bq,D] -> [B,bq,Hq,D]
+        blocks.append(out.permute(0, 3, 1, 2, 4).reshape(b, bq, hq, d)
+                      .to(q.dtype))
+    return torch.cat(blocks, dim=1)
+
+
+def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int, q_block: int = 512) -> torch.Tensor:
+    """Sliding-window causal attention: query ``i`` sees keys ``j`` with
+    ``i - window < j <= i``.
+
+    q: ``[B,S,Hq,D]``; k/v: ``[B,S,Hkv,D]``.  K and V are padded on the
+    left by ``window``; q block ``i`` (``bq`` rows) takes the band of ``bq +
+    window`` padded rows that starts at ``i * bq``, masks ``q >= k``, ``q -
+    k < window`` and the padded slots, and is normalised once (no online
+    merge: the band is one tile).  Returns ``[B,S,Hq,D]`` in q's dtype.
+    """
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    bq = _pick_block(s, q_block)
+    band = bq + window
+    kp = torch.nn.functional.pad(k, (0, 0, 0, 0, window, 0))
+    vp = torch.nn.functional.pad(v, (0, 0, 0, 0, window, 0))
+    qe = _gqa_expand(q, hkv) * (1.0 / math.sqrt(d))
+    # In band coordinates query row r sits at r + window; band slot t holds
+    # absolute position start + t - window.
+    q_pos = torch.arange(bq, device=q.device)[:, None] + window
+    k_pos = torch.arange(band, device=q.device)
+    in_window = (q_pos >= k_pos) & (q_pos - k_pos < window)
+    blocks = []
+    for i in range(s // bq):
+        start = i * bq
+        mask = in_window & (start + k_pos - window >= 0)[None, :]
+        out, _, l = _attn_block(qe[:, start:start + bq],
+                                kp[:, start:start + band],
+                                vp[:, start:start + band], mask)
+        out = out / torch.clamp(l[..., None], min=1e-30)
         blocks.append(out.permute(0, 3, 1, 2, 4).reshape(b, bq, hq, d)
                       .to(q.dtype))
     return torch.cat(blocks, dim=1)

@@ -1,5 +1,6 @@
-"""Shared building blocks: norms, dense layers, MLPs, rotary embeddings,
-embeddings and their initialisers.
+"""Shared building blocks: norms, dense layers, MLPs, rotary embeddings
+(with qwen2-vl's M-RoPE), whisper's sinusoidal positions, embeddings and
+their initialisers.
 
 The counterpart of the reference's ``repro.models.layers``.  The plain
 functions take tensors; the modules hold their weights and call them.
@@ -72,6 +73,34 @@ class RMSNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return rmsnorm(x, self.scale, self.eps)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with fp32 statistics (the biased variance), the result in
+    x's dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    return (scale * ((xf - mu) * torch.rsqrt(var + eps)) + bias).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """The ``encdec`` family's norm: fp32 ``scale`` (ones) and ``bias``
+    (zeros).  Its eps is 1e-5, the reference's ``layernorm`` default, which
+    it uses whatever ``cfg.norm_eps`` says."""
+
+    def __init__(self, d: int, eps: float = 1e-5, *, device: torch.device,
+                 trainable: bool = False):
+        super().__init__()
+        self.eps = eps
+        self.scale = weight(torch.ones(d, device=device), torch.float32,
+                            trainable)
+        self.bias = weight(torch.zeros(d, device=device), torch.float32,
+                           trainable)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layernorm(x, self.scale, self.bias, self.eps)
 
 
 # ---------------------------------------------------------------------------
@@ -164,11 +193,52 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """
     freqs = rope_frequencies(x.shape[-1], theta, x.device)      # [D/2]
     angles = positions[..., None].float() * freqs               # [B,S,D/2]
+    return _rotate(x, angles)
+
+
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Rotate the halves of x ``[B, S, H, D]`` by ``angles`` ``[B, S,
+    D/2]`` in fp32; the result in x's dtype."""
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+#: qwen2-vl's M-RoPE: the share of the D/2 frequency slots each position
+#: stream (temporal, height, width) rotates.
+MROPE_SECTION_FRACTIONS = (0.25, 0.375, 0.375)
+
+
+def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor,
+                theta: float) -> torch.Tensor:
+    """qwen2-vl's multimodal RoPE.
+
+    x: ``[B, S, H, D]``; positions_3d: ``[3, B, S]`` (temporal, height,
+    width ids).  The D/2 frequency slots are cut into three consecutive
+    sections (:data:`MROPE_SECTION_FRACTIONS`), each rotated by its own
+    position stream.
+    """
+    half = x.shape[-1] // 2
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)      # [half]
+    sec_t = int(half * MROPE_SECTION_FRACTIONS[0])
+    sec_h = int(half * MROPE_SECTION_FRACTIONS[1])
+    slot = torch.arange(half, device=x.device)
+    which = (slot >= sec_t).long() + (slot >= sec_t + sec_h).long()
+    pos = positions_3d.to(x.device).float()[which]            # [half,B,S]
+    return _rotate(x, pos.permute(1, 2, 0) * freqs)
+
+
+def sinusoidal_positions(seq: int, d: int,
+                         device: Optional[torch.device] = None
+                         ) -> torch.Tensor:
+    """Whisper's fixed sinusoidal position table ``[seq, d]`` in fp32: the
+    sines of ``pos / 10000**(2i/d)`` for ``i < d/2``, then the cosines."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / (10000.0 ** (2 * dim / d))
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,28 +1,38 @@
-"""Model assembly: the decoder-only LM of the ``dense`` and ``moe`` families.
+"""Model assembly: the LM of the ``dense``, ``moe``, ``vlm`` and ``encdec``
+families, with global and sliding-window (``local``) attention layers.
 
-The counterpart of the reference's ``repro.models.model`` for configs
-whose ``layer_pattern`` is ``("global",)``: llama3.2-1b, gemma-2b,
-qwen2-72b, olmoe-1b-7b and qwen3-moe-235b-a22b.  The reference stacks
-its layers on a leading axis and scans them; here :class:`LM` holds one
-:class:`Block` per layer in a ``ModuleList``.  The public entry points
-keep the reference's semantics:
+The counterpart of the reference's ``repro.models.model`` for llama3.2-1b,
+gemma-2b, qwen2-72b, olmoe-1b-7b, qwen3-moe-235b-a22b, gemma3-12b (five
+``local`` layers to one ``global``), qwen2-vl-7b (M-RoPE and projected
+patch embeddings) and whisper-base (an encoder, and cross-attention in
+every decoder layer).  The reference stacks each kind of layer of
+``cfg.layer_pattern`` on a leading axis and scans the groups; here
+:class:`LM` holds one :class:`Block` per layer in a ``ModuleList``, layer
+``i`` of kind ``layer_pattern[i % period]``.  The public entry points keep
+the reference's semantics:
 
 * :func:`init_params` builds an :class:`LM` on a device from a
   ``torch.Generator`` (random weights, as the reference draws them);
 * :meth:`LM.forward` gives fp32 logits ``[B, S, V_padded]`` for a token
-  batch (chunked causal attention), each layer checkpointed
-  (``torch.utils.checkpoint``) where gradients are recorded, as the
-  reference's per-layer ``jax.checkpoint``;
+  batch, with whisper's ``frames``, qwen2-vl's ``mm_embeds`` and
+  ``positions_3d``; a global layer runs chunked causal attention, a local
+  layer sliding-window attention once ``S`` exceeds its window; each layer
+  is checkpointed (``torch.utils.checkpoint``) where gradients are
+  recorded, as the reference's per-layer ``jax.checkpoint``;
+* :meth:`LM.encode` and :meth:`LM.prime_cross_cache` run whisper's
+  encoder and fill the decoder's cross-attention K/V;
 * :meth:`LM.init_cache` / :meth:`LM.decode_step` run one token per
-  sequence against a KV cache, writing slot ``min(pos, S_c - 1)`` and
-  attending to slots ``<= pos``.
+  sequence against a KV cache: a global layer writes slot ``min(pos, S_c
+  - 1)`` of ``cache_len`` slots and attends to slots ``<= pos``; a local
+  layer's cache is a ring of ``min(cache_len, window)`` slots written at
+  ``pos % S_c``.
 
 For serving, weights are held in the dtype each use casts them to in the
 reference: matrices, expert weights, biases and the embedding table in
 :data:`COMPUTE_DTYPE`, norm scales and the router in fp32.  For training
 (``masters=True``) every weight is a trainable fp32 master, cast to the
 compute dtype at each use, as the reference's parameters are.  Other
-families and layer kinds raise ``NotImplementedError``.
+families (``ssm``, ``hybrid``) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -42,10 +52,14 @@ from repro_torch.models.moe import LAUNCHES_PER_LAYER, GroupedMatmul, MoE
 
 COMPUTE_DTYPE = torch.bfloat16
 
-#: What brings each family or layer kind the port does not run yet
-#: (``ROADMAP.md`` Queue A, item 7).
-NOT_PORTED = ("the local, vlm, ssm, hybrid and encdec families "
-              "(ROADMAP.md Queue A item 7)")
+#: What brings the families the port does not run yet (``ROADMAP.md``
+#: Queue A).
+NOT_PORTED = ('the ssm and hybrid families (ROADMAP.md Queue A, "Model '
+              'families, part 2")')
+
+#: The families and layer kinds the port runs.
+FAMILIES = ("dense", "moe", "vlm", "encdec")
+LAYER_KINDS = ("global", "local")
 
 
 #: Roundings to the compute dtype per layer on the path from the embedding
@@ -55,6 +69,23 @@ NOT_PORTED = ("the local, vlm, ssm, hybrid and encdec families "
 #: combine's product and sum, the residual add).  A dense FFN has two
 #: roundings fewer, so this counts a dense layer high.
 ROUNDINGS_PER_LAYER = 15
+
+#: Roundings of a decoder layer's cross-attention (``encdec``): ln_cross,
+#: q, the attention output, wo, the residual add.
+CROSS_ROUNDINGS = 5
+
+#: Roundings of an encoder layer, which feed every cross K/V: ln1, the
+#: q/k/v projections, q's scale, the probabilities, the attention output,
+#: wo, the residual add, ln2, wi, the gelu, wo, the residual add.
+ENCODER_ROUNDINGS_PER_LAYER = 12
+
+#: Roundings around the encoder and the decoder's embedding (``encdec``):
+#: the frames' sinusoidal positions, the encoder's final norm, the cross
+#: K/V projections of its output, and the decoder's sinusoidal positions.
+ENCODER_EXTRA_ROUNDINGS = 4
+
+#: Roundings of qwen2-vl's front: ``mm_proj`` of the patch embeddings.
+MM_PROJ_ROUNDINGS = 1
 
 
 def rounding_tolerance(stages: int, scale: torch.Tensor, compared: int,
@@ -79,25 +110,95 @@ def rounding_tolerance(stages: int, scale: torch.Tensor, compared: int,
     return lam * u * math.sqrt(2.0 * stages) * scale
 
 
+def roundings(cfg: ModelConfig, layers: Optional[int] = None) -> int:
+    """Roundings to the compute dtype on the path from the inputs to
+    ``cfg``'s logits, per family:
+
+    * every decoder layer, global or local: :data:`ROUNDINGS_PER_LAYER`
+      (M-RoPE rounds where RoPE does); the final norm and the logits: 2;
+    * ``encdec``: :data:`CROSS_ROUNDINGS` per decoder layer,
+      :data:`ENCODER_ROUNDINGS_PER_LAYER` per encoder layer and
+      :data:`ENCODER_EXTRA_ROUNDINGS` (whisper-base: 6 * 15 + 2 + 6 * 5 + 6
+      * 12 + 4 = 198);
+    * ``vlm``: :data:`MM_PROJ_ROUNDINGS` (qwen2-vl-7b: 28 * 15 + 2 + 1 =
+      423).
+
+    gemma3-12b has 48 * 15 + 2 = 722.  With ``layers``, the count through
+    the first ``layers`` decoder layers only (at least those before any
+    value that layer ``layers - 1`` computes).
+    """
+    layers = cfg.num_layers if layers is None else layers
+    n = ROUNDINGS_PER_LAYER * layers + 2
+    if cfg.family == "encdec":
+        n += CROSS_ROUNDINGS * layers + ENCODER_EXTRA_ROUNDINGS + \
+            ENCODER_ROUNDINGS_PER_LAYER * cfg.encoder_layers
+    if cfg.family == "vlm":
+        n += MM_PROJ_ROUNDINGS
+    return n
+
+
+def unshared_roundings(cfg: ModelConfig,
+                       layers: Optional[int] = None) -> int:
+    """Roundings ``forward`` does that ``decode_step`` does not, in all
+    decoder layers or the first ``layers``: each of its attention tiles
+    rounds the probabilities that multiply V to the compute dtype, where
+    decode keeps them fp32 (one per self-attention layer, and one per
+    cross-attention layer).  The encoder runs the same code in both."""
+    layers = cfg.num_layers if layers is None else layers
+    return layers * (2 if cfg.family == "encdec" else 1)
+
+
 def logit_tolerance(cfg: ModelConfig, logits_rms: torch.Tensor,
                     compared: int, dtype: torch.dtype = torch.bfloat16,
                     alpha: float = 1e-6) -> torch.Tensor:
-    """:func:`rounding_tolerance` of two runs of ``cfg``'s logits: ``S =
-    ROUNDINGS_PER_LAYER * num_layers + 2`` roundings (the final norm and
-    the logits add two), relative to each row's rms (``logits_rms``,
-    broadcast against the logits)."""
-    return rounding_tolerance(ROUNDINGS_PER_LAYER * cfg.num_layers + 2,
-                              logits_rms, compared, dtype, alpha)
+    """:func:`rounding_tolerance` of two runs of ``cfg``'s logits over
+    :func:`roundings` ``(cfg)`` stages, relative to each row's rms
+    (``logits_rms``, broadcast against the logits).  Decode against
+    forward adds :func:`unshared_roundings` (``models.decode_check``)."""
+    return rounding_tolerance(roundings(cfg), logits_rms, compared, dtype,
+                              alpha)
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` unless the port runs ``cfg``."""
-    if cfg.family not in ("dense", "moe") or \
-            tuple(cfg.layer_pattern) != ("global",) or cfg.mrope:
+    if cfg.family not in FAMILIES or \
+            not set(cfg.layer_pattern) <= set(LAYER_KINDS):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} with layer pattern "
             f"{cfg.layer_pattern} is not ported; it comes with "
             f"{NOT_PORTED}")
+
+
+def layer_kinds(cfg: ModelConfig) -> List[str]:
+    """The kind of each decoder layer: ``layer_pattern[i % period]``."""
+    pattern = cfg.layer_pattern
+    return [pattern[i % len(pattern)] for i in range(cfg.num_layers)]
+
+
+def cache_slot(kind: str, pos: int, s_c: int) -> int:
+    """The cache slot a decode step at ``pos`` writes: ``pos % S_c`` in a
+    local layer's ring, ``min(pos, S_c - 1)`` in a global layer's cache."""
+    return pos % s_c if kind == "local" else min(pos, s_c - 1)
+
+
+def cache_mask(kind: str, pos: int, s_c: int,
+               device: torch.device) -> torch.Tensor:
+    """``[S_c]`` bool, the slots a decode step at ``pos`` attends to: every
+    slot of a ring that has filled (``pos >= S_c``), else the slots
+    ``<= pos``."""
+    slots = torch.arange(s_c, device=device)
+    if kind == "local" and pos >= s_c:
+        return torch.ones_like(slots, dtype=torch.bool)
+    return slots <= pos
+
+
+def make_norm(cfg: ModelConfig, d: int, *, device: torch.device,
+              trainable: bool = False) -> nn.Module:
+    """The family's norm: LayerNorm (eps 1e-5) for ``encdec``, RMSNorm
+    (``cfg.norm_eps``) otherwise, as the reference's ``_norm_fn``."""
+    if cfg.family == "encdec":
+        return L.LayerNorm(d, device=device, trainable=trainable)
+    return L.RMSNorm(d, cfg.norm_eps, device=device, trainable=trainable)
 
 
 def scale_embed(cfg: ModelConfig) -> bool:
@@ -107,68 +208,107 @@ def scale_embed(cfg: ModelConfig) -> bool:
 
 
 class Attention(nn.Module):
-    """``wq``, ``wk``, ``wv`` (with ``qkv_bias``) and ``wo``."""
+    """``wq``, ``wk``, ``wv`` (with ``qkv_bias``) and ``wo``, for one
+    ``kind`` of attention: ``"global"`` (causal), ``"local"`` (a sliding
+    window of ``cfg.window_size``), ``"encoder"`` (bidirectional) or
+    ``"cross"`` (the decoder's queries on the encoder's output)."""
 
-    def __init__(self, cfg: ModelConfig, **kw):
+    def __init__(self, cfg: ModelConfig, kind: str = "global", **kw):
         super().__init__()
         d, hd = cfg.d_model, cfg.head_dim
-        self.cfg = cfg
+        self.cfg, self.kind = cfg, kind
         self.wq = L.Dense(d, cfg.num_heads * hd, bias=cfg.qkv_bias, **kw)
         self.wk = L.Dense(d, cfg.num_kv_heads * hd, bias=cfg.qkv_bias, **kw)
         self.wv = L.Dense(d, cfg.num_kv_heads * hd, bias=cfg.qkv_bias, **kw)
         self.wo = L.Dense(cfg.num_heads * hd, d, **kw)
 
+    def _heads(self, y: torch.Tensor, heads: int) -> torch.Tensor:
+        return y.reshape(y.shape[0], y.shape[1], heads, self.cfg.head_dim)
+
+    def kv(self, x: torch.Tensor):
+        """K and V projections of ``x [B, S, d]``, without RoPE."""
+        return (self._heads(self.wk(x), self.cfg.num_kv_heads),
+                self._heads(self.wv(x), self.cfg.num_kv_heads))
+
     def qkv(self, x: torch.Tensor, positions: torch.Tensor):
-        """Projections of ``x [B, S, d]`` with RoPE on q and k."""
+        """Projections of ``x [B, S, d]``, with RoPE on q and k (M-RoPE
+        where the positions are ``[3, B, S]``; none for ``encdec``)."""
         cfg = self.cfg
-        b, s, _ = x.shape
-        q = self.wq(x).reshape(b, s, cfg.num_heads, cfg.head_dim)
-        k = self.wk(x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-        v = self.wv(x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-        return (L.apply_rope(q, positions, cfg.rope_theta),
-                L.apply_rope(k, positions, cfg.rope_theta), v)
+        q = self._heads(self.wq(x), cfg.num_heads)
+        k, v = self.kv(x)
+        if cfg.family == "encdec":
+            return q, k, v
+        rope = L.apply_mrope if cfg.mrope and positions.dim() == 3 \
+            else L.apply_rope
+        return (rope(q, positions, cfg.rope_theta),
+                rope(k, positions, cfg.rope_theta), v)
 
     def forward(self, x: torch.Tensor,
-                positions: torch.Tensor) -> torch.Tensor:
+                positions: Optional[torch.Tensor]) -> torch.Tensor:
         b, s, _ = x.shape
         q, k, v = self.qkv(x, positions)
-        out = A.chunked_attention(q, k, v, causal=True)
+        if self.kind == "local" and s > self.cfg.window_size:
+            out = A.local_attention(q, k, v, window=self.cfg.window_size)
+        else:
+            out = A.chunked_attention(q, k, v,
+                                      causal=self.kind != "encoder")
+        return self.wo(out.reshape(b, s, -1))
+
+    def cross(self, x: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
+        """The decoder's queries ``x [B, S, d]`` on the encoder's output
+        (bidirectional, no RoPE)."""
+        b, s, _ = x.shape
+        k, v = self.kv(enc_out)
+        out = A.chunked_attention(self._heads(self.wq(x), self.cfg.num_heads),
+                                  k, v, causal=False)
         return self.wo(out.reshape(b, s, -1))
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-               pos: int) -> torch.Tensor:
-        """x: ``[B, 1, d]``; writes slot ``min(pos, S_c - 1)`` of the
-        cache in place and attends to slots ``<= pos``."""
+               pos: int, positions: torch.Tensor) -> torch.Tensor:
+        """x: ``[B, 1, d]``; writes slot :func:`cache_slot` of the cache in
+        place and attends to the slots :func:`cache_mask` gives."""
         b = x.shape[0]
-        positions = torch.full((b, 1), pos, dtype=torch.int64,
-                               device=x.device)
         q, k_new, v_new = self.qkv(x, positions)
         s_c = cache["k"].shape[1]
-        slot = min(pos, s_c - 1)
+        slot = cache_slot(self.kind, pos, s_c)
         cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
         cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
-        mask = (torch.arange(s_c, device=x.device) <= pos)[None, :] \
+        mask = cache_mask(self.kind, pos, s_c, x.device)[None, :] \
             .expand(b, s_c)
         out = A.decode_attention(q, cache["k"], cache["v"], mask)
         return self.wo(out.reshape(b, 1, -1))
 
+    def cross_decode(self, x: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> torch.Tensor:
+        """x: ``[B, 1, d]`` on the primed cross cache, every slot valid."""
+        b = x.shape[0]
+        q = self._heads(self.wq(x), self.cfg.num_heads)
+        mask = torch.ones(b, k.shape[1], dtype=torch.bool, device=x.device)
+        out = A.decode_attention(q, k, v, mask)
+        return self.wo(out.reshape(b, 1, -1))
+
 
 class Block(nn.Module):
-    """Pre-norm attention, then the dense or MoE FFN, each residual."""
+    """Pre-norm attention of one ``kind`` (``"global"``, ``"local"`` or, in
+    whisper's encoder, ``"encoder"``), then, in an ``encdec`` decoder
+    layer, cross-attention, then the dense or MoE FFN, each residual."""
 
-    def __init__(self, cfg: ModelConfig, **kw):
+    def __init__(self, cfg: ModelConfig, kind: str = "global", **kw):
         super().__init__()
         d = cfg.d_model
         norm_kw = dict(device=kw["device"], trainable=kw["trainable"])
-        self.ln1 = L.RMSNorm(d, cfg.norm_eps, **norm_kw)
-        self.attn = Attention(cfg, **kw)
-        self.ln2 = L.RMSNorm(d, cfg.norm_eps, **norm_kw)
+        self.ln1 = make_norm(cfg, d, **norm_kw)
+        self.attn = Attention(cfg, kind, **kw)
+        self.ln2 = make_norm(cfg, d, **norm_kw)
         if cfg.num_experts:
             self.moe = MoE(d, cfg.moe_d_ff, cfg.num_experts,
                            cfg.num_experts_per_token,
                            cfg.moe_capacity_factor, **kw)
         else:
             self.mlp = L.MLP(d, cfg.d_ff, cfg.mlp_variant, **kw)
+        if cfg.family == "encdec" and kind != "encoder":
+            self.ln_cross = make_norm(cfg, d, **norm_kw)
+            self.cross = Attention(cfg, "cross", **kw)
 
     def ffn(self, x: torch.Tensor, gmm: GroupedMatmul) -> torch.Tensor:
         h = self.ln2(x)
@@ -176,24 +316,46 @@ class Block(nn.Module):
             return x + self.moe(h, gmm)
         return x + self.mlp(h)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                gmm: GroupedMatmul = grouped_matmul) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, positions: Optional[torch.Tensor],
+                gmm: GroupedMatmul = grouped_matmul,
+                enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = x + self.attn(self.ln1(x), positions)
+        if hasattr(self, "cross"):
+            x = x + self.cross.cross(self.ln_cross(x), enc_out)
         return self.ffn(x, gmm)
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-               pos: int, gmm: GroupedMatmul) -> torch.Tensor:
-        x = x + self.attn.decode(self.ln1(x), cache, pos)
+               pos: int, positions: torch.Tensor,
+               gmm: GroupedMatmul) -> torch.Tensor:
+        x = x + self.attn.decode(self.ln1(x), cache, pos, positions)
+        if hasattr(self, "cross"):
+            x = x + self.cross.cross_decode(self.ln_cross(x),
+                                            cache["cross_k"],
+                                            cache["cross_v"])
         return self.ffn(x, gmm)
 
 
+class Encoder(nn.Module):
+    """whisper's encoder: ``encoder_layers`` bidirectional :class:`Block`\\ s
+    and a final norm."""
+
+    def __init__(self, cfg: ModelConfig, **kw):
+        super().__init__()
+        self.layers = nn.ModuleList(Block(cfg, "encoder", **kw)
+                                    for _ in range(cfg.encoder_layers))
+        self.norm = make_norm(cfg, cfg.d_model, device=kw["device"],
+                              trainable=kw["trainable"])
+
+
 class LM(nn.Module):
-    """The decoder-only LM: embedding, ``num_layers`` :class:`Block`\\ s,
-    final norm and the tied table or a separate ``lm_head``.
+    """The LM: embedding (and qwen2-vl's ``mm_proj``), ``num_layers``
+    :class:`Block`\\ s of the kinds ``cfg.layer_pattern`` repeats, final
+    norm and the tied table or a separate ``lm_head``; for ``encdec``, an
+    :class:`Encoder` and cross-attention in every decoder layer.
 
     Args:
-        cfg: a ``dense`` or ``moe`` config with ``layer_pattern ==
-            ("global",)``.
+        cfg: a ``dense``, ``moe``, ``vlm`` or ``encdec`` config whose
+            layers are ``global`` or ``local``.
         device: where the weights are made (None: the card).  ``"meta"``
             makes no storage, for weights loaded afterwards
             (``repro_torch.interop.params_from_numpy``).
@@ -205,7 +367,7 @@ class LM(nn.Module):
             training) instead of a frozen copy in the dtype of its use.
 
     Raises:
-        NotImplementedError: for another family or layer kind.
+        NotImplementedError: for the ``ssm`` and ``hybrid`` families.
     """
 
     def __init__(self, cfg: ModelConfig, *, device: DeviceLike = None,
@@ -219,16 +381,30 @@ class LM(nn.Module):
         kw = dict(dtype=torch.float32 if masters else self.dtype, device=dev,
                   generator=generator, trainable=masters)
         self.embed = L.Embedding(cfg.padded_vocab, cfg.d_model, **kw)
-        self.layers = nn.ModuleList(Block(cfg, **kw)
-                                    for _ in range(cfg.num_layers))
-        self.final_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, device=dev,
+        self.layers = nn.ModuleList(Block(cfg, kind, **kw)
+                                    for kind in layer_kinds(cfg))
+        self.final_norm = make_norm(cfg, cfg.d_model, device=dev,
                                     trainable=masters)
         self.lm_head = None if cfg.tie_embeddings else \
             L.Dense(cfg.d_model, cfg.padded_vocab, **kw)
+        if cfg.family == "encdec":
+            self.encoder = Encoder(cfg, **kw)
+        if cfg.family == "vlm":
+            self.mm_proj = L.Dense(cfg.d_model, cfg.d_model, **kw)
+        self._sinusoid_table: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
         return self.embed.table.device
+
+    def _sinusoid(self, rows: int) -> torch.Tensor:
+        """The first ``rows`` rows of whisper's fp32 sinusoidal table, kept
+        on the model's device and built again only to grow it."""
+        t = self._sinusoid_table
+        if t is None or t.shape[0] < rows or t.device != self.device:
+            t = L.sinusoidal_positions(rows, self.cfg.d_model, self.device)
+            self._sinusoid_table = t
+        return t[:rows]
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         return L.embed(self.embed.table, tokens.to(self.device),
@@ -247,46 +423,137 @@ class LM(nn.Module):
             return self.embed.table
         return self.lm_head.kernel.T
 
+    def _layer(self, block: Block, remat: bool, *args) -> torch.Tensor:
+        if remat and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
+
+    def encode(self, frames: torch.Tensor,
+               remat: bool = True) -> torch.Tensor:
+        """whisper's encoder on ``frames [B, S_enc, d]`` (the stubbed
+        front end's embeddings): the frames in the compute dtype plus the
+        sinusoidal table, the bidirectional layers (checkpointed under
+        ``remat`` where gradients are recorded), the final norm."""
+        if self.cfg.family != "encdec":
+            raise ValueError(f"{self.cfg.name} has no encoder")
+        x = frames.to(self.device).to(self.dtype)
+        x = x + self._sinusoid(x.shape[1]).to(x.dtype)
+        for block in self.encoder.layers:
+            x = self._layer(block, remat, x, None)
+        return self.encoder.norm(x)
+
+    def _embed_tokens(self, tokens: torch.Tensor,
+                      mm_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+        """Token embeddings; qwen2-vl's first ``n_mm`` replaced by
+        ``mm_proj(mm_embeds)`` in the compute dtype; whisper's plus the
+        sinusoidal table's first ``S`` rows."""
+        x = self._embed(tokens)
+        if self.cfg.family == "vlm" and mm_embeds is not None:
+            mm = self.mm_proj(mm_embeds.to(self.device).to(x.dtype))
+            x = torch.cat([mm, x[:, mm.shape[1]:]], dim=1)
+        if self.cfg.family == "encdec":
+            x = x + self._sinusoid(tokens.shape[1]).to(x.dtype)
+        return x
+
     def forward(self, tokens: torch.Tensor,
-                gmm: GroupedMatmul = grouped_matmul, *, remat: bool = True,
+                gmm: GroupedMatmul = grouped_matmul, *,
+                frames: Optional[torch.Tensor] = None,
+                mm_embeds: Optional[torch.Tensor] = None,
+                positions_3d: Optional[torch.Tensor] = None,
+                remat: bool = True,
                 return_pre_logits: bool = False) -> torch.Tensor:
         """tokens ``[B, S]`` -> fp32 logits ``[B, S, V_padded]``, or the
         final-norm hidden states ``[B, S, d]`` when ``return_pre_logits``
-        (the chunked loss).  With ``remat``, where gradients are recorded,
-        each layer is checkpointed: its activations are recomputed in the
-        backward pass (the MoE layers' grouped launches too)."""
-        x = self._embed(tokens)
+        (the chunked loss).  ``frames [B, S_enc, d]`` feed whisper's
+        encoder (required for ``encdec``); ``mm_embeds [B, n_mm, d]``
+        replace qwen2-vl's first ``n_mm`` token embeddings and
+        ``positions_3d [3, B, S]`` give its M-RoPE positions (other configs
+        ignore both).  With ``remat``, where gradients are recorded, each
+        layer is checkpointed: its activations are recomputed in the
+        backward pass (the MoE layers' grouped launches too).
+
+        Raises:
+            ValueError: an ``encdec`` config without ``frames``.
+        """
+        cfg = self.cfg
+        if cfg.family == "encdec" and frames is None:
+            raise ValueError(f"{cfg.name}: forward needs the encoder's "
+                             f"frames")
+        x = self._embed_tokens(tokens, mm_embeds)
         b, s = tokens.shape
-        positions = torch.arange(s, device=self.device)[None].expand(b, s)
+        if cfg.mrope and positions_3d is not None:
+            positions = positions_3d.to(self.device)
+        else:
+            positions = torch.arange(s, device=self.device)[None] \
+                .expand(b, s)
+        enc_out = self.encode(frames, remat) if cfg.family == "encdec" \
+            else None
         for block in self.layers:
-            if remat and torch.is_grad_enabled():
-                x = checkpoint(block, x, positions, gmm, use_reentrant=False)
-            else:
-                x = block(x, positions, gmm)
+            x = self._layer(block, remat, x, positions, gmm, enc_out)
         x = self.final_norm(x)
         return x if return_pre_logits else self._head(x)
 
     def init_cache(self, batch: int,
                    cache_len: int) -> List[Dict[str, torch.Tensor]]:
-        """One ``{"k", "v"}`` pair of ``[B, cache_len, Hkv, D]`` zeros in the
-        compute dtype per layer."""
+        """Per layer, ``{"k", "v"}`` zeros ``[B, S_c, Hkv, D]`` in the
+        compute dtype: ``S_c = cache_len`` for a global layer, ``min(
+        cache_len, window_size)`` for a local layer's ring; for
+        ``encdec``, also ``{"cross_k", "cross_v"}`` zeros ``[B,
+        encoder_seq, Hkv, D]`` (:meth:`prime_cross_cache` fills them) and
+        the sinusoidal table's ``cache_len`` rows, built here once."""
         cfg = self.cfg
-        shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
-        return [{"k": torch.zeros(shape, dtype=self.dtype,
-                                  device=self.device),
-                 "v": torch.zeros(shape, dtype=self.dtype,
-                                  device=self.device)}
-                for _ in range(cfg.num_layers)]
+
+        def zeros(slots):
+            return torch.zeros((batch, slots, cfg.num_kv_heads,
+                                cfg.head_dim), dtype=self.dtype,
+                               device=self.device)
+
+        cache = []
+        for kind in layer_kinds(cfg):
+            s_c = min(cache_len, cfg.window_size) if kind == "local" \
+                else cache_len
+            layer = {"k": zeros(s_c), "v": zeros(s_c)}
+            if cfg.family == "encdec":
+                layer["cross_k"] = zeros(cfg.encoder_seq)
+                layer["cross_v"] = zeros(cfg.encoder_seq)
+            cache.append(layer)
+        if cfg.family == "encdec":
+            self._sinusoid(cache_len)
+        return cache
+
+    def prime_cross_cache(self, cache: List[Dict[str, torch.Tensor]],
+                          enc_out: torch.Tensor
+                          ) -> List[Dict[str, torch.Tensor]]:
+        """Fill every decoder layer's cross K/V from the encoder's output
+        ``[B, S_enc, d]``, in the compute dtype, in place; returns the
+        cache."""
+        for block, layer in zip(self.layers, cache):
+            k, v = block.cross.kv(enc_out)
+            layer["cross_k"] = k.to(self.dtype)
+            layer["cross_v"] = v.to(self.dtype)
+        return cache
 
     def decode_step(self, cache: List[Dict[str, torch.Tensor]],
                     tokens: torch.Tensor, pos: int,
-                    gmm: GroupedMatmul = grouped_matmul) -> torch.Tensor:
+                    gmm: GroupedMatmul = grouped_matmul, *,
+                    positions_3d: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
         """One decode step: tokens ``[B]`` at position ``pos`` (the same for
         the whole batch) -> fp32 logits ``[B, V_padded]``; the cache is
-        updated in place."""
+        updated in place.  ``positions_3d [3, B, 1]`` give qwen2-vl's M-RoPE
+        positions (otherwise every stream is ``pos``: 1-D RoPE); whisper
+        adds row ``pos`` of the sinusoidal table."""
         x = self._embed(tokens[:, None])
+        b = x.shape[0]
+        if self.cfg.family == "encdec":
+            x = x + self._sinusoid(pos + 1)[pos].to(x.dtype)
+        if self.cfg.mrope and positions_3d is not None:
+            positions = positions_3d.to(self.device)
+        else:
+            positions = torch.full((b, 1), pos, dtype=torch.int64,
+                                   device=self.device)
         for block, layer_cache in zip(self.layers, cache):
-            x = block.decode(x, layer_cache, pos, gmm)
+            x = block.decode(x, layer_cache, pos, positions, gmm)
         return self._head(self.final_norm(x))[:, 0]
 
     def grouped_launches_per_step(self, train: bool = False,

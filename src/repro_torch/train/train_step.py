@@ -25,6 +25,11 @@ from repro_torch.optim.schedule import cosine_with_warmup
 #: Logit given to the padded vocab columns.
 PAD_LOGIT = -1e30
 
+#: The batch entries besides ``tokens`` and ``labels`` that the model
+#: takes: whisper's encoder frames, qwen2-vl's patch embeddings and M-RoPE
+#: positions (``data.pipeline``'s modality stubs).
+MODALITY_KEYS = ("frames", "mm_embeds", "positions_3d")
+
 #: ``step_fn(model, opt_state, batch, step) -> metrics``.
 StepFn = Callable[..., Dict]
 
@@ -83,11 +88,12 @@ def make_grads(cfg: ModelConfig, *, remat: bool = True,
     are summed and scaled by ``1 / grad_accum``."""
 
     def loss_fn(model, batch):
+        extras = {k: batch[k] for k in MODALITY_KEYS if k in batch}
         if chunked_loss:
             hidden = model(batch["tokens"], remat=remat,
-                           return_pre_logits=True)
+                           return_pre_logits=True, **extras)
             return chunked_xent(model, hidden, batch["labels"])
-        logits = model(batch["tokens"], remat=remat)
+        logits = model(batch["tokens"], remat=remat, **extras)
         return softmax_xent(logits, batch["labels"], cfg.vocab_size)
 
     def grads_fn(model, batch):

@@ -108,6 +108,9 @@ class PortRoutes:
 
 
 def _weights(cfg) -> dict:
+    """The reference's ``init_params``, each norm scale and bias moved off
+    its init (zeros, or a LayerNorm scale's ones) by ``N(0, 0.1**2)`` /
+    ``N(0, 0.02**2)``."""
     tree = jax.tree.map(np.asarray,
                         ref_model.init_params(cfg, jax.random.PRNGKey(0)))
     rng = np.random.default_rng(1)
@@ -116,12 +119,10 @@ def _weights(cfg) -> dict:
         for key, value in node.items():
             if isinstance(value, dict):
                 redraw(value)
-            elif key == "scale":
-                node[key] = rng.normal(size=value.shape).astype(
-                    np.float32) * 0.1
-            elif key == "bias":
-                node[key] = rng.normal(size=value.shape).astype(
-                    np.float32) * 0.02
+            elif key in ("scale", "bias"):
+                std = 0.1 if key == "scale" else 0.02
+                node[key] = value + rng.normal(size=value.shape).astype(
+                    np.float32) * std
     redraw(tree)
     return tree
 
@@ -164,9 +165,10 @@ def _ref_step(arch, remat=True, grad_accum=1, chunked=False):
 
 
 def _run_steps(arch, steps, monkeypatch, remat=True, grad_accum=1,
-               chunked=False):
+               chunked=False, make_batch=_batch):
     """``steps`` train steps of both packages from the same weights and
-    batches (steps 1, 2, ... of the schedule).  Returns the reference's and
+    batches (``make_batch(cfg, seed=step)``; steps 1, 2, ... of the
+    schedule).  Returns the reference's and
     the port's metrics, final weights (the reference's tree layout), the
     port's gradient at every step, and the lr scales."""
     routes = PortRoutes(monkeypatch)
@@ -193,7 +195,7 @@ def _run_steps(arch, steps, monkeypatch, remat=True, grad_accum=1,
     monkeypatch.setattr(adamw, "apply_updates", recording)
     m_r, m_p = [], []
     for s in range(steps):
-        batch = _batch(cfg, seed=s)
+        batch = make_batch(cfg, seed=s)
         params, opt, m = step_r(params, opt, jax.tree.map(jnp.asarray, batch),
                                 jnp.int32(s + 1))
         m_r.append({k: float(v) for k, v in m.items()})

@@ -1094,3 +1094,72 @@ def test_restart_on_the_card_equals_uninterrupted_training(cuda_device,
     got = dict(leaves(second.state()))
     for name, leaf in leaves(full.state()):
         assert torch.equal(got[name], leaf), name
+
+
+# ---------------------------------------------------------------------- #
+# The local, vlm and encdec families: the card against the CPU port.
+# ---------------------------------------------------------------------- #
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["gemma3-12b", "qwen2-vl-7b",
+                                  "whisper-base"])
+def test_family_logits_on_the_card_match_the_cpu(cuda_device, arch):
+    """The reduced arch's weights, drawn once on the CPU, on both devices
+    at bf16: ``forward`` on the data pipeline's batch (gemma3 at S = 64 >
+    its window of 32; qwen2-vl's ``mm_embeds`` and ``positions_3d``;
+    whisper's ``frames``) and 48 teacher-forced ``decode_step`` calls
+    (gemma3's 32-slot rings wrap; qwen2-vl's steps take the batch's
+    ``positions_3d``; whisper's cross cache primed), logits
+    within ``models.model.logit_tolerance`` of the CPU's; no port kernel
+    launches.  Then ``models.decode_check`` on the card: decode against
+    forward within its bounds."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.models import decode_check
+    from repro_torch.models.model import LM, logit_tolerance
+    cfg = get_config(arch).reduced()
+    cpu = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to(cuda_device)
+    batch = {k: torch.from_numpy(v) for k, v in Pipeline(
+        cfg, ShapeConfig("t", 64, 2, "train"),
+        DataConfig(seed=0)).batch_for_step(0).items() if k != "labels"}
+    kw = {k: v for k, v in batch.items() if k != "tokens"}
+    before = dict(kernels.launch_counts())
+
+    def run(model, dev):
+        args = {k: v.to(dev) for k, v in kw.items()}
+        toks = batch["tokens"].to(dev)
+        with torch.inference_mode():
+            logits = model(toks, **args)
+            cache = model.init_cache(2, 48)
+            if cfg.family == "encdec":
+                model.prime_cross_cache(cache, model.encode(args["frames"]))
+            p3 = args.get("positions_3d")
+            steps = torch.stack([model.decode_step(
+                cache, toks[:, t], t,
+                positions_3d=None if p3 is None else p3[:, :, t:t + 1])
+                for t in range(48)], dim=1)
+        return logits.cpu().double(), steps.cpu().double()
+
+    for got, want in zip(run(card, cuda_device), run(cpu, "cpu")):
+        rms = want.pow(2).mean(dim=-1, keepdim=True).sqrt()
+        bound = logit_tolerance(cfg, rms, want.numel())
+        assert bool(torch.isfinite(got).all())
+        worst = float(((got - want).abs() - bound).max())
+        assert worst <= 0, f"{arch}: exceeds the bf16 bound by {worst:.3e}"
+    assert kernels.launch_counts() == before
+    toks = batch["tokens"].to(cuda_device)
+    enc, fkw = None, {}
+    if cfg.family == "encdec":
+        fkw["frames"] = kw["frames"].to(cuda_device)
+        with torch.inference_mode():
+            enc = card.encode(fkw["frames"])
+    if cfg.mrope:
+        fkw["positions_3d"] = kw["positions_3d"].to(cuda_device)
+    got = decode_check.compare(
+        card, decode_check.forward_trace(card, toks, **fkw),
+        decode_check.decode_trace(card, toks, 64, enc_out=enc,
+                                  positions_3d=fkw.get("positions_3d")))
+    assert got["ok"], got

@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_train_helpers import one_torch_thread  # noqa: F401
 from repro.configs.base import get_config as ref_config
 from repro.launch import serve as ref_serve
 from repro.models import model as ref_model
@@ -288,11 +289,10 @@ def test_generate_matches(arch, monkeypatch, trees):
     assert compared > 0
 
 
-@pytest.mark.parametrize("arch", ["gemma3-12b", "qwen2-vl-7b",
-                                  "falcon-mamba-7b", "recurrentgemma-9b",
-                                  "whisper-base"])
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-9b"])
 def test_unported_families_raise_naming_the_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 7"):
+    with pytest.raises(NotImplementedError,
+                       match="Model families, part 2"):
         port_model.LM(port_config(arch).reduced(), device="cpu")
 
 

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_train_helpers import one_torch_thread  # noqa: F401
 from repro.configs import base as ref_base
 from repro.models import attention as ref_attn
 from repro.models import layers as ref_layers
