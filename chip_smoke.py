@@ -97,7 +97,26 @@ The run reads and writes calibrations only in a fresh temporary
    and one forward of 1 x 1024 tokens with the pipeline's stubs (256
    patch tokens on a 16 x 16 grid, their embeddings through ``mm_proj``),
    whose logits must be finite.  Each model is freed before the next.
-7. **train** (the training path): ``repro_torch.train.trainer.Trainer`` on
+7. **recurrent** (the ``ssm`` and ``hybrid`` families, no port kernel on
+   the path): counters are zeroed first and must all read 0 after.
+   falcon-mamba-7b (64 mamba layers, d 4096, d_in 8192, state 16) and
+   recurrentgemma-9b (26 RG-LRU and 12 local layers, d 4096; 2 and 19
+   layers under ``--quick``) at full width and depth through ``serve
+   --arch``, as in ``families`` (parameters, their bytes,
+   ``max_memory_allocated``, tok/s, the step median and max beside the
+   byte bound, which counts each recurrent layer's conv inputs and fp32
+   state read and written once and no KV cache for them), each with a
+   ``torch.profiler`` pass over two steps.  Then the decode-vs-forward
+   check at full width on a cut depth (``models.decode_check``):
+   falcon-mamba's first 4 layers over 1 x 512 tokens (two chunks of the
+   256-step scan), recurrentgemma's (rglru, rglru, local) over 1 x 1024
+   (two RG-LRU chunks of 512); the logits and every mixer output within
+   their rounding bounds, and planted faults the check must reject: (a)
+   the forward drops the chunk carry (both), (b) mamba decode's conv cache
+   stores the activated input, (c) ``rglru_decode`` omits ``a * h``, the
+   decode faults over the first 64 steps.  Each model is freed before the
+   next.
+8. **train** (the training path): ``repro_torch.train.trainer.Trainer`` on
    olmoe-1b-7b at full width with the depth cut to 4 of 16 layers (fp32
    masters, gradients and AdamW's mu and nu take 16 B per parameter: 111
    GB at full depth; 2 layers under ``--quick``), batch 4 x sequence 512,
@@ -119,7 +138,7 @@ The run reads and writes calibrations only in a fresh temporary
    within a bound that scales with the gradients and that four planted
    faults must break (``train_grad_check``, ``grad_ratio``).  The model
    and its state are freed before the next phase.
-8. **kernels**: each SpMM kernel against its plain PyTorch version on the
+9. **kernels**: each SpMM kernel against its plain PyTorch version on the
    card, on the layout the serving phase packed for it (f32i32) and at
    every other precision its spec declares (bf16i32 at full n, bf16i16 at
    n = 32760, where the slab fits int16 indices); kernel, plain-version
@@ -143,7 +162,7 @@ The run reads and writes calibrations only in a fresh temporary
    ``torch._grouped_mm`` (bf16, where this torch has it) or a per-expert
    ``torch.matmul`` loop as the library time; the check must reject two
    planted faults (a dropped k-slice, +0.1 on one row).
-9. **engine** (the serving-engine path): ``repro_torch.launch.serve``'s
+10. **engine** (the serving-engine path): ``repro_torch.launch.serve``'s
    ``serve_spmm_engine`` with the default engine settings (8 MiB staging
    budget, queue 256, policy ``wait``, 2000 requests/s per stream), twice:
    at full width on ``moe-block`` at n = 2**20 with d = 64 and 32, 4 streams
@@ -166,7 +185,7 @@ The run reads and writes calibrations only in a fresh temporary
    the first run; the overlap and the async return are printed, not
    enforced: at that size the device work is too short to outlast the
    host's staging.)
-10. **shard** (the sharded tier): ``ShardMesh(["cuda:0"] * 4)`` over the
+11. **shard** (the sharded tier): ``ShardMesh(["cuda:0"] * 4)`` over the
    four ``serving_suite`` structures at n = 2**18 (cut from 2**20 to keep
    classification and packing of the unsharded and four sharded layouts
    per strategy inside the phase's time; 2**12 under ``--quick``), plus
@@ -176,7 +195,7 @@ The run reads and writes calibrations only in a fresh temporary
    plan's ``summary()``, and a p50 of 8 requests per strategy beside its
    predicted time.  Then one ``serve --spmm-stream --spmm-shards -1`` run
    (one shard per visible card), its C held against the unsharded plan.
-11. **harvest**: ``repro_torch.launch.harvest_dispatch`` on the vendored
+12. **harvest**: ``repro_torch.launch.harvest_dispatch`` on the vendored
    corpus with the ``cuda`` kernels, d = 32 and 128, 3 repeats, the tree
    in a temporary store root of its own; its agreement and never-worse
    results are printed, not enforced (at n <= 256 a call is the launch
@@ -206,7 +225,8 @@ row and per routed row; its tile traffic is what its tiling copies into
 shared memory (each output tile's x rows and w columns), over kernel ms.
 
 The last lines are the ``{"kernels": [...]}`` record (each kernel with
-its launches per path, ``families_launches`` 0; the grouped matmul's with
+its launches per path, ``families_launches`` and ``recurrent_launches``
+0; the grouped matmul's with
 the ``lm`` and ``train`` phases' figures), the card's name and power
 limit from ``nvidia-smi``, and ``{"ok": true, "device": ...}``.
 Without a GPU, or without the port beside it, the script exits nonzero
@@ -318,6 +338,21 @@ FAMILIES_QUICK_LAYERS = {"gemma3-12b": 6, "qwen2-vl-7b": 2}
 RING_TOKENS, RING_FAULT_STEPS = 1536, 64
 WHISPER_STEPS, VLM_CHECK_STEPS = 48, 256
 VLM_FORWARD = (1, 1024)
+
+#: The recurrent phase: falcon-mamba-7b and recurrentgemma-9b through
+#: ``serve --arch`` at full width and depth (``--quick``: 2 layers, one
+#: pattern period of 19); the decode-vs-forward check at full width on a
+#: cut depth, (layer pattern or None for the config's, layers, tokens):
+#: falcon-mamba's first 4 layers over 1 x 512 tokens (two scan chunks of
+#: 256), recurrentgemma's (rglru, rglru, local) over 1 x 1024 (two RG-LRU
+#: chunks of 512; its 2048-slot ring does not wrap); decode faults over
+#: the first 64 steps.
+RECURRENT_ARCHS = ("falcon-mamba-7b", "recurrentgemma-9b")
+RECURRENT_QUICK_LAYERS = {"falcon-mamba-7b": 2, "recurrentgemma-9b": 19}
+RECURRENT_CHECKS = {"falcon-mamba-7b": (None, 4, 512),
+                    "recurrentgemma-9b": (("rglru", "rglru", "local"), 3,
+                                          1024)}
+RECURRENT_FAULT_STEPS = 64
 
 #: The train phase: ``Trainer`` on olmoe-1b-7b at full width with the
 #: depth cut from 16 to 4 layers (fp32 masters, gradients and AdamW's mu
@@ -1257,14 +1292,18 @@ def lm_profile(model, prompts, dev, steps: int = 2) -> dict:
 
 def lm_step_bytes(model, batch: int, cache_len: int,
                   experts_read: Optional[float] = None) -> int:
-    """Bytes one ``decode_step`` must read: every weight it uses once (the
-    embedding table's ``batch`` rows where it is not tied; not whisper's
-    encoder nor qwen2-vl's ``mm_proj``, which decode does not run), and
-    the whole KV cache: ``cache_len`` slots per global layer, ``min(
-    cache_len, window)`` per local layer's ring, and whisper's cross K/V of
-    ``encoder_seq`` slots per layer; with ``experts_read``, only that many
+    """Bytes one ``decode_step`` must move: every weight it uses, read once
+    (the embedding table's ``batch`` rows where it is not tied; not
+    whisper's encoder nor qwen2-vl's ``mm_proj``, which decode does not
+    run); the KV cache of the attention layers, read once: ``cache_len``
+    slots per global layer, ``min(cache_len, window)`` per local layer's
+    ring, and whisper's cross K/V of ``encoder_seq`` slots per layer; and
+    the state of each ``ssm`` or ``rglru`` layer, which has no KV cache,
+    read once and written once: its ``K - 1`` conv inputs in the compute
+    dtype and its fp32 ``h`` (``[B, d_in, N]`` for mamba, ``[B,
+    rnn_width]`` for RG-LRU).  With ``experts_read``, only that many
     experts' weights per MoE layer instead of all of them."""
-    from repro_torch.models.model import layer_kinds
+    from repro_torch.models.model import ATTENTION_KINDS, layer_kinds
     cfg = model.cfg
     total = 0
     for name, p in model.named_parameters():
@@ -1277,12 +1316,20 @@ def lm_step_bytes(model, batch: int, cache_len: int,
                 ("moe.w_gate_up", "moe.w_down")):
             nbytes = nbytes * experts_read / cfg.num_experts
         total += nbytes
+    kinds = layer_kinds(cfg)
     slots = sum(min(cache_len, cfg.window_size) if kind == "local"
-                else cache_len for kind in layer_kinds(cfg))
+                else cache_len for kind in kinds if kind in ATTENTION_KINDS)
     if cfg.family == "encdec":
         slots += cfg.encoder_seq * cfg.num_layers
     kv = 2 * batch * slots * cfg.num_kv_heads * cfg.head_dim * 2
-    return int(total + kv)
+    elt = model.dtype.itemsize
+    d_in = cfg.ssm_expand * cfg.d_model
+    rw = cfg.rnn_width or cfg.d_model
+    conv = cfg.ssm_conv - 1
+    state = {"ssm": conv * d_in * elt + d_in * cfg.ssm_state * 4,
+             "rglru": conv * rw * elt + rw * 4}
+    recurrent = 2 * batch * sum(state[k] for k in kinds if k in state)
+    return int(total + kv + recurrent)
 
 
 def lm_phase(quick: bool, dev) -> dict:
@@ -1434,8 +1481,8 @@ def decode_check_run(model, tokens, fwd_kw: dict, enc_out=None):
     rec = {"honest": honest, "steps": steps,
            "seconds": time.perf_counter() - t0, "faults": {}}
     if not honest["ok"]:
-        raise SmokeFailure(f"families: {model.cfg.name} decode vs forward "
-                           f"over {steps} steps: {honest}")
+        raise SmokeFailure(f"{model.cfg.name}: decode vs forward over "
+                           f"{steps} steps: {honest}")
     return rec, fwd, dec
 
 
@@ -1448,23 +1495,34 @@ def reject(rec: dict, fault: str, model, fwd: dict, dec: dict) -> None:
     got = DC.compare(model, fwd, dec)
     rec["faults"][fault] = got
     if got["ok"]:
-        raise SmokeFailure(f"families: the check passed the planted fault "
-                           f"{fault!r}: {got}")
+        raise SmokeFailure(f"{model.cfg.name}: the check passed the "
+                           f"planted fault {fault!r}: {got}")
 
 
-def log_check(tag: str, rec: dict) -> None:
+def _outputs(r: dict) -> str:
+    """The worst attention and recurrent-mixer ratios of a comparison,
+    where the model has such layers."""
+    parts = [f"attention outputs {r['attn']:.3f} (layer {r['layer']})"
+             if r["layer"] else "",
+             f"mixer outputs {r['mixer']:.3f} (layer {r['mixer_layer']})"
+             if r["mixer_layer"] else ""]
+    return ", ".join(p for p in parts if p) or "outputs not compared " \
+        "(non-finite logits)"
+
+
+def log_check(tag: str, rec: dict, phase: str = "families") -> None:
     h = rec["honest"]
-    log(f"[families] {tag}: decode vs forward over {rec['steps']} "
+    log(f"[{phase}] {tag}: decode vs forward over {rec['steps']} "
         f"teacher-forced steps ({rec['seconds']:.1f}s): worst err / bound "
         f"logits {h['logits']:.3f} (max |dlogit| {h['max_dlogit']:.4e}), "
-        f"attention outputs {h['attn']:.3f} (layer {h['layer']})")
+        f"{_outputs(h)}")
     for name, f in rec["faults"].items():
-        log(f"[families] {tag}: planted fault {name!r} rejected: err / "
-            f"bound logits {f['logits']:.3f}, attention outputs "
-            f"{f['attn']:.3f} (layer {f['layer']})")
+        log(f"[{phase}] {tag}: planted fault {name!r} rejected: err / "
+            f"bound logits {f['logits']:.3f}, {_outputs(f)}")
 
 
-def families_serve(arch: str, layers: Optional[int], dev) -> dict:
+def families_serve(arch: str, layers: Optional[int], dev,
+                   phase: str = "families") -> dict:
     """``serve --arch ARCH`` (the reference's meaning: qwen2-vl decodes
     with 1-D RoPE, whisper against zero cross K/V) at full width, its depth
     cut to ``layers`` where given; prints parameters, memory, tok/s and the
@@ -1487,7 +1545,7 @@ def families_serve(arch: str, layers: Optional[int], dev) -> dict:
         cfg = dataclasses.replace(get_config(arch), num_layers=layers)
         model = init_params(cfg, device=dev,
                             generator=torch.Generator(dev).manual_seed(0))
-    log(f"[families] === serve {' '.join(argv)}"
+    log(f"[{phase}] === serve {' '.join(argv)}"
         f"{f' ({layers} layers)' if layers else ''} ===")
     rec = serve.serve_lm(serve.parser().parse_args(argv), model=model)
     model, out = rec["model"], rec["generation"]
@@ -1495,7 +1553,7 @@ def families_serve(arch: str, layers: Optional[int], dev) -> dict:
     tokens = out.tokens
     if tokens.shape != (LM_BATCH, LM_GEN) or tokens.min() < 0 or \
             tokens.max() >= cfg.vocab_size:
-        raise SmokeFailure(f"families: {arch} tokens {tokens.shape} in "
+        raise SmokeFailure(f"{phase}: {arch} tokens {tokens.shape} in "
                            f"[{tokens.min()}, {tokens.max()}]")
     n_params = sum(p.numel() for p in model.parameters())
     n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
@@ -1503,7 +1561,7 @@ def families_serve(arch: str, layers: Optional[int], dev) -> dict:
     ms = np.asarray(out.step_ms)
     step_bytes = lm_step_bytes(model, LM_BATCH, LM_PROMPT + LM_GEN)
     bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
-    log(f"[families] {cfg.name}: {cfg.num_layers} layers "
+    log(f"[{phase}] {cfg.name}: {cfg.num_layers} layers "
         f"({'/'.join(cfg.layer_pattern)}), d {cfg.d_model}, "
         f"{cfg.num_heads} x {cfg.head_dim} heads, kv {cfg.num_kv_heads}, "
         f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (padded "
@@ -1511,7 +1569,7 @@ def families_serve(arch: str, layers: Optional[int], dev) -> dict:
         f"GB on the card; max_memory_allocated {peak / 1e9:.2f} GB above "
         f"the {base / 1e9:.2f} GB held before; built in "
         f"{rec['build_s']:.1f}s")
-    log(f"[families] {cfg.name}: {LM_BATCH} x {LM_PROMPT} prompt + {LM_GEN} "
+    log(f"[{phase}] {cfg.name}: {LM_BATCH} x {LM_PROMPT} prompt + {LM_GEN} "
         f"generated: {len(ms)} decode steps, {rec['tok_s']:.2f} tok/s; per "
         f"step median {np.median(ms):.3f} ms, max {ms.max():.3f} ms, min "
         f"{ms.min():.3f} ms; byte bound {bound_ms:.4f} ms "
@@ -1521,7 +1579,34 @@ def families_serve(arch: str, layers: Optional[int], dev) -> dict:
     return {"model": model, "prompts": rec["prompts"], "params": n_params,
             "bytes": n_bytes, "peak_bytes": peak, "tok_s": rec["tok_s"],
             "step_median_ms": float(np.median(ms)),
-            "step_max_ms": float(ms.max()), "bound_ms": bound_ms}
+            "step_max_ms": float(ms.max()), "bound_ms": bound_ms,
+            "step_bytes": step_bytes}
+
+
+def log_profile(phase: str, name: str, prof: dict) -> None:
+    """One line for :func:`lm_profile`'s record."""
+    if prof["device_ms"] is None:
+        log(f"[{phase}] {name} profiled step: {prof['wall_ms']:.3f} ms on "
+            f"the host clock; device time not measured")
+        return
+    log(f"[{phase}] {name} profiled step (torch.profiler, 2 steps): "
+        f"{prof['wall_ms']:.3f} ms on the host clock, kernels "
+        f"{prof['device_ms']:.3f} ms of device time ({prof['kernels']:.0f} "
+        f"kernels), device idle {1 - prof['device_ms'] / prof['wall_ms']:.1%}"
+        f" of the profiled step; largest: " + "; ".join(
+            f"{k} {t:.3f} ms x{n:.0f}" for k, t, n in prof["top"]))
+
+
+def pipeline_batch(cfg, seq: int, batch: int, dev) -> dict:
+    """The data pipeline's batch for ``cfg`` (seed 0) on ``dev``: tokens,
+    labels and the family's modality stubs."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    return {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in
+            Pipeline(cfg, ShapeConfig("check", seq, batch, "train"),
+                     DataConfig(seed=0)).batch_for_step(0).items()}
 
 
 def free(dev) -> None:
@@ -1544,12 +1629,9 @@ def families_phase(quick: bool, dev) -> dict:
     stubs.  Each check must reject its planted faults.  Each model is freed before the
     next."""
     import dataclasses
-    import numpy as np
     import torch
     from repro_torch import kernels
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.data.pipeline import DataConfig, Pipeline
     from repro_torch.models import attention as A
     from repro_torch.models import decode_check as DC
     from repro_torch.models import layers as L
@@ -1558,26 +1640,11 @@ def families_phase(quick: bool, dev) -> dict:
     kernels.reset_launch_counts()
     result = {}
 
-    def stubs(cfg, seq, batch):
-        return {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in
-                Pipeline(cfg, ShapeConfig("families", seq, batch, "train"),
-                         DataConfig(seed=0)).batch_for_step(0).items()}
-
     # gemma3-12b: serve at full depth, and profile two steps.
     g = families_serve("gemma3-12b", FAMILIES_QUICK_LAYERS["gemma3-12b"]
                        if quick else None, dev)
     prof = lm_profile(g["model"], g["prompts"], dev)
-    if prof["device_ms"] is None:
-        log(f"[families] gemma3-12b profiled step: {prof['wall_ms']:.3f} ms "
-            f"on the host clock; device time not measured")
-    else:
-        log(f"[families] gemma3-12b profiled step (torch.profiler, 2 "
-            f"steps): {prof['wall_ms']:.3f} ms on the host clock, kernels "
-            f"{prof['device_ms']:.3f} ms of device time "
-            f"({prof['kernels']:.0f} kernels), device idle "
-            f"{1 - prof['device_ms'] / prof['wall_ms']:.1%} of the profiled "
-            f"step; largest: " + "; ".join(
-                f"{k} {t:.3f} ms x{n:.0f}" for k, t, n in prof["top"]))
+    log_profile("families", "gemma3-12b", prof)
     g["profile"] = {k: prof[k] for k in ("wall_ms", "device_ms", "kernels")}
     del g["model"]
     result["gemma3-12b"] = g
@@ -1589,7 +1656,7 @@ def families_phase(quick: bool, dev) -> dict:
                                              .layer_pattern))
     model = M.init_params(cfg, device=dev,
                           generator=torch.Generator(dev).manual_seed(0))
-    toks = stubs(cfg, RING_TOKENS, 1)["tokens"]
+    toks = pipeline_batch(cfg, RING_TOKENS, 1, dev)["tokens"]
 
     def slot_one_off(kind, pos, s_c, _orig=M.cache_slot):
         return (pos + 1) % s_c if kind == "local" else _orig(kind, pos, s_c)
@@ -1627,7 +1694,7 @@ def families_phase(quick: bool, dev) -> dict:
     # whisper-base: serve, then encode, prime and decode against forward.
     w = families_serve("whisper-base", None, dev)
     model = w.pop("model")
-    batch = stubs(model.cfg, WHISPER_STEPS, LM_BATCH)
+    batch = pipeline_batch(model.cfg, WHISPER_STEPS, LM_BATCH, dev)
     with torch.inference_mode():
         enc = model.encode(batch["frames"])
         x = batch["frames"].to(model.dtype)
@@ -1652,7 +1719,7 @@ def families_phase(quick: bool, dev) -> dict:
     q = families_serve("qwen2-vl-7b", FAMILIES_QUICK_LAYERS["qwen2-vl-7b"]
                        if quick else None, dev)
     model = q.pop("model")
-    batch = stubs(model.cfg, VLM_CHECK_STEPS, LM_BATCH)
+    batch = pipeline_batch(model.cfg, VLM_CHECK_STEPS, LM_BATCH, dev)
     toks, pos3 = batch["tokens"], batch["positions_3d"]
     n_mm = batch["mm_embeds"].shape[1]
     q["check"], fwd, _ = decode_check_run(model, toks,
@@ -1670,7 +1737,7 @@ def families_phase(quick: bool, dev) -> dict:
               f"{int(pos3[2, 0, :n_mm].max()) + 1})", q["check"])
     del fwd
     b, s = VLM_FORWARD
-    batch = stubs(model.cfg, s, b)
+    batch = pipeline_batch(model.cfg, s, b, dev)
     t0 = time.perf_counter()
     with torch.inference_mode():
         logits = model(batch["tokens"], mm_embeds=batch["mm_embeds"],
@@ -1696,6 +1763,94 @@ def families_phase(quick: bool, dev) -> dict:
         raise SmokeFailure(f"families: port kernels launched in the phase: "
                            f"{counts}")
     log(f"[families] port kernel launches in the phase: {dict(counts)}")
+    result["launches"] = dict(counts)
+    return result
+
+
+def recurrent_phase(quick: bool, dev) -> dict:
+    """The ``ssm`` and ``hybrid`` families on the card, through the port's
+    LM path, with no port kernel launched (the counters are zeroed first
+    and must read 0 after).  For falcon-mamba-7b and recurrentgemma-9b:
+    ``serve --arch`` at full width and depth and a profile of two steps;
+    then the decode-vs-forward check at full width on a cut depth
+    (``RECURRENT_CHECKS``), which must reject (a) a forward that drops the
+    chunk carry, and (b) a mamba conv cache of activated inputs or (c) an
+    RG-LRU decode without its decay.  Each model is freed before the
+    next."""
+    import dataclasses
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_check as DC
+    from repro_torch.models import model as M
+    from repro_torch.models import rglru as R
+    from repro_torch.models import ssm as S
+
+    def stores_activated_input(p, cache, x, _orig=S.mamba_decode):
+        """(b): the conv cache keeps ``silu(conv(u))``, not ``u``."""
+        out, new = _orig(p, cache, x)
+        u = torch.chunk(p.in_proj(x), 2, dim=-1)[0]
+        act = torch.nn.functional.silu(
+            S.causal_conv(u, p.conv_w, p.conv_b, state=cache["conv"]))
+        new["conv"] = torch.cat([new["conv"][:, :-1],
+                                 act.to(new["conv"].dtype)], dim=1)
+        return out, new
+
+    def no_decay(p, xb, _orig=R.gates):
+        """(c): the decay is 0, so ``h = a * h + gated`` omits ``a * h``."""
+        a, gated = _orig(p, xb)
+        return torch.zeros_like(a), gated
+
+    kernels.reset_launch_counts()
+    result = {}
+    for arch in RECURRENT_ARCHS:
+        r = families_serve(arch, RECURRENT_QUICK_LAYERS[arch] if quick
+                           else None, dev, phase="recurrent")
+        prof = lm_profile(r["model"], r["prompts"], dev)
+        log_profile("recurrent", arch, prof)
+        r["profile"] = {k: prof[k] for k in ("wall_ms", "device_ms",
+                                             "kernels")}
+        del r["model"]
+        free(dev)
+
+        pattern, layers, seq = RECURRENT_CHECKS[arch]
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                                  **({"layer_pattern": pattern} if pattern
+                                     else {}))
+        model = M.init_params(cfg, device=dev,
+                              generator=torch.Generator(dev).manual_seed(0))
+        toks = pipeline_batch(cfg, seq, 1, dev)["tokens"]
+        n = RECURRENT_FAULT_STEPS
+        check, fwd, dec = decode_check_run(model, toks, {})
+        with patched(S, "fold_carry", lambda a, b, h: b):
+            reject(check, "(a) the forward drops the chunk carry", model,
+                   DC.forward_trace(model, toks), dec)
+        # A decode fault is held outside its patch: ``compare`` runs each
+        # recurrent layer's forward, which must stay the honest one.
+        if arch == "falcon-mamba-7b":
+            fault = "(b) the conv cache stores the activated input"
+            with patched(S, "mamba_decode", stores_activated_input):
+                faulty = DC.decode_trace(model, toks[:, :n], n, cache_len=seq)
+        else:
+            fault = "(c) rglru_decode omits a * h"
+            with patched(R, "gates", no_decay):
+                faulty = DC.decode_trace(model, toks[:, :n], n, cache_len=seq)
+        reject(check, fault, model, fwd, faulty)
+        chunk = 256 if arch == "falcon-mamba-7b" else 512
+        log_check(f"{arch} at full width, {layers} layers "
+                  f"({'/'.join(cfg.layer_pattern)}), 1 x {seq} tokens "
+                  f"(scan chunks of {chunk}; decode faults over {n} steps)",
+                  check, "recurrent")
+        r["check"] = check
+        result[arch] = r
+        del model, toks, fwd, dec, faulty
+        free(dev)
+
+    counts = kernels.launch_counts()
+    if any(counts.values()):
+        raise SmokeFailure(f"recurrent: port kernels launched in the phase: "
+                           f"{counts}")
+    log(f"[recurrent] port kernel launches in the phase: {dict(counts)}")
     result["launches"] = dict(counts)
     return result
 
@@ -2439,6 +2594,10 @@ def run(quick: bool, n: int) -> int:
     seconds["families"] = time.perf_counter() - t0
     log(f"[families] phase took {seconds['families']:.1f}s")
     t0 = time.perf_counter()
+    recurrent = recurrent_phase(quick, dev)
+    seconds["recurrent"] = time.perf_counter() - t0
+    log(f"[recurrent] phase took {seconds['recurrent']:.1f}s")
+    t0 = time.perf_counter()
     train = train_phase(quick, dev)
     seconds["train"] = time.perf_counter() - t0
     log(f"[train] phase took {seconds['train']:.1f}s")
@@ -2450,6 +2609,7 @@ def run(quick: bool, n: int) -> int:
         rec["calibrate_launches"] = calibrated["counts"][rec["name"]]
         rec["lm_launches"] = lm["launches"] if grouped else 0
         rec["families_launches"] = families["launches"][rec["name"]]
+        rec["recurrent_launches"] = recurrent["launches"][rec["name"]]
         rec["train_launches"] = train["launches"] if grouped else 0
     records[-1]["lm"] = lm
     records[-1]["train"] = train

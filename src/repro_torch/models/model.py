@@ -1,15 +1,19 @@
-"""Model assembly: the LM of the ``dense``, ``moe``, ``vlm`` and ``encdec``
-families, with global and sliding-window (``local``) attention layers.
+"""Model assembly: the LM of all ten archs, the ``dense``, ``moe``,
+``vlm``, ``encdec``, ``ssm`` and ``hybrid`` families, with global and
+sliding-window (``local``) attention layers, mamba (``ssm``) layers and
+RG-LRU (``rglru``) layers.
 
 The counterpart of the reference's ``repro.models.model`` for llama3.2-1b,
 gemma-2b, qwen2-72b, olmoe-1b-7b, qwen3-moe-235b-a22b, gemma3-12b (five
 ``local`` layers to one ``global``), qwen2-vl-7b (M-RoPE and projected
-patch embeddings) and whisper-base (an encoder, and cross-attention in
-every decoder layer).  The reference stacks each kind of layer of
-``cfg.layer_pattern`` on a leading axis and scans the groups; here
-:class:`LM` holds one :class:`Block` per layer in a ``ModuleList``, layer
-``i`` of kind ``layer_pattern[i % period]``.  The public entry points keep
-the reference's semantics:
+patch embeddings), whisper-base (an encoder, and cross-attention in
+every decoder layer), falcon-mamba-7b (mamba layers only) and
+recurrentgemma-9b (two RG-LRU layers to one local).  The reference stacks
+each kind of layer of ``cfg.layer_pattern`` on a leading axis and scans
+the groups; here :class:`LM` holds one block per layer in a
+``ModuleList``, layer ``i`` of kind ``layer_pattern[i % period]``
+(:class:`Block` for attention, :class:`MambaBlock`, :class:`RGLRUBlock`).
+The public entry points keep the reference's semantics:
 
 * :func:`init_params` builds an :class:`LM` on a device from a
   ``torch.Generator`` (random weights, as the reference draws them);
@@ -25,14 +29,16 @@ the reference's semantics:
   sequence against a KV cache: a global layer writes slot ``min(pos, S_c
   - 1)`` of ``cache_len`` slots and attends to slots ``<= pos``; a local
   layer's cache is a ring of ``min(cache_len, window)`` slots written at
-  ``pos % S_c``.
+  ``pos % S_c``; an ``ssm`` or ``rglru`` layer's cache is its last ``K -
+  1`` raw conv inputs and its fp32 state (``models.ssm``,
+  ``models.rglru``).
 
 For serving, weights are held in the dtype each use casts them to in the
 reference: matrices, expert weights, biases and the embedding table in
 :data:`COMPUTE_DTYPE`, norm scales and the router in fp32.  For training
 (``masters=True``) every weight is a trainable fp32 master, cast to the
-compute dtype at each use, as the reference's parameters are.  Other
-families (``ssm``, ``hybrid``) raise ``NotImplementedError``.
+compute dtype at each use, as the reference's parameters are.  A family
+or layer kind the port does not know raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -48,18 +54,16 @@ from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.kernels.grouped_matmul import grouped_matmul
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as R
+from repro_torch.models import ssm as S
 from repro_torch.models.moe import LAUNCHES_PER_LAYER, GroupedMatmul, MoE
 
 COMPUTE_DTYPE = torch.bfloat16
 
-#: What brings the families the port does not run yet (``ROADMAP.md``
-#: Queue A).
-NOT_PORTED = ('the ssm and hybrid families (ROADMAP.md Queue A, "Model '
-              'families, part 2")')
-
 #: The families and layer kinds the port runs.
-FAMILIES = ("dense", "moe", "vlm", "encdec")
-LAYER_KINDS = ("global", "local")
+FAMILIES = ("dense", "moe", "vlm", "encdec", "ssm", "hybrid")
+LAYER_KINDS = ("global", "local", "ssm", "rglru")
+ATTENTION_KINDS = ("global", "local")
 
 
 #: Roundings to the compute dtype per layer on the path from the embedding
@@ -69,6 +73,28 @@ LAYER_KINDS = ("global", "local")
 #: combine's product and sum, the residual add).  A dense FFN has two
 #: roundings fewer, so this counts a dense layer high.
 ROUNDINGS_PER_LAYER = 15
+
+#: Roundings of an ``ssm`` layer (conv kernel K = 4, both archs' value):
+#: ln, in_proj, the unrolled conv (K products and K sums, the bias's
+#: included), silu, x_proj, dt_proj, the scan's output cast (dt, the
+#: discretisation and the scan are fp32), its sum with u * D and that
+#: product, silu(z) and the product with it, out_proj, the residual add:
+#: 12 + 2 * 4 = 20.
+SSM_ROUNDINGS_PER_LAYER = 20
+
+#: Roundings of an ``rglru`` layer (K = 4): ln1, wx, the unrolled conv (8,
+#: as in an ``ssm`` layer), the gate blocks (r and i side by side; the
+#: gates and the scan are fp32), the scan's output cast, wy, its gelu,
+#: the product with that branch, out, the residual add; then the dense
+#: FFN: ln2, gate/up, the activation, its product with up, down, the
+#: residual add: 17 + 6 = 23.
+RGLRU_ROUNDINGS_PER_LAYER = 23
+
+#: Roundings per decoder layer by kind.
+ROUNDINGS_BY_KIND = {"global": ROUNDINGS_PER_LAYER,
+                     "local": ROUNDINGS_PER_LAYER,
+                     "ssm": SSM_ROUNDINGS_PER_LAYER,
+                     "rglru": RGLRU_ROUNDINGS_PER_LAYER}
 
 #: Roundings of a decoder layer's cross-attention (``encdec``): ln_cross,
 #: q, the attention output, wo, the residual add.
@@ -115,7 +141,10 @@ def roundings(cfg: ModelConfig, layers: Optional[int] = None) -> int:
     ``cfg``'s logits, per family:
 
     * every decoder layer, global or local: :data:`ROUNDINGS_PER_LAYER`
-      (M-RoPE rounds where RoPE does); the final norm and the logits: 2;
+      (M-RoPE rounds where RoPE does); ``ssm``:
+      :data:`SSM_ROUNDINGS_PER_LAYER`; ``rglru``:
+      :data:`RGLRU_ROUNDINGS_PER_LAYER`; the final norm and the logits:
+      2;
     * ``encdec``: :data:`CROSS_ROUNDINGS` per decoder layer,
       :data:`ENCODER_ROUNDINGS_PER_LAYER` per encoder layer and
       :data:`ENCODER_EXTRA_ROUNDINGS` (whisper-base: 6 * 15 + 2 + 6 * 5 + 6
@@ -123,12 +152,13 @@ def roundings(cfg: ModelConfig, layers: Optional[int] = None) -> int:
     * ``vlm``: :data:`MM_PROJ_ROUNDINGS` (qwen2-vl-7b: 28 * 15 + 2 + 1 =
       423).
 
-    gemma3-12b has 48 * 15 + 2 = 722.  With ``layers``, the count through
-    the first ``layers`` decoder layers only (at least those before any
-    value that layer ``layers - 1`` computes).
+    gemma3-12b has 48 * 15 + 2 = 722, falcon-mamba-7b 64 * 20 + 2 = 1282,
+    recurrentgemma-9b 26 * 23 + 12 * 15 + 2 = 780.  With ``layers``, the
+    count through the first ``layers`` decoder layers only (at least those
+    before any value that layer ``layers - 1`` computes).
     """
     layers = cfg.num_layers if layers is None else layers
-    n = ROUNDINGS_PER_LAYER * layers + 2
+    n = sum(ROUNDINGS_BY_KIND[k] for k in layer_kinds(cfg)[:layers]) + 2
     if cfg.family == "encdec":
         n += CROSS_ROUNDINGS * layers + ENCODER_EXTRA_ROUNDINGS + \
             ENCODER_ROUNDINGS_PER_LAYER * cfg.encoder_layers
@@ -143,9 +173,12 @@ def unshared_roundings(cfg: ModelConfig,
     decoder layers or the first ``layers``: each of its attention tiles
     rounds the probabilities that multiply V to the compute dtype, where
     decode keeps them fp32 (one per self-attention layer, and one per
-    cross-attention layer).  The encoder runs the same code in both."""
+    cross-attention layer).  The encoder runs the same code in both, and
+    so do the ``ssm`` and ``rglru`` layers up to the fp32 scan's order of
+    association."""
     layers = cfg.num_layers if layers is None else layers
-    return layers * (2 if cfg.family == "encdec" else 1)
+    attn = sum(k in ATTENTION_KINDS for k in layer_kinds(cfg)[:layers])
+    return attn * (2 if cfg.family == "encdec" else 1)
 
 
 def logit_tolerance(cfg: ModelConfig, logits_rms: torch.Tensor,
@@ -160,13 +193,15 @@ def logit_tolerance(cfg: ModelConfig, logits_rms: torch.Tensor,
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless the port runs ``cfg``."""
+    """Raise ``NotImplementedError`` unless the port runs ``cfg``: its
+    family is one of :data:`FAMILIES` and its layers of
+    :data:`LAYER_KINDS`."""
     if cfg.family not in FAMILIES or \
             not set(cfg.layer_pattern) <= set(LAYER_KINDS):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} with layer pattern "
-            f"{cfg.layer_pattern} is not ported; it comes with "
-            f"{NOT_PORTED}")
+            f"{cfg.layer_pattern} is not one the port knows (families "
+            f"{FAMILIES}, layer kinds {LAYER_KINDS})")
 
 
 def layer_kinds(cfg: ModelConfig) -> List[str]:
@@ -335,6 +370,74 @@ class Block(nn.Module):
         return self.ffn(x, gmm)
 
 
+class MambaBlock(nn.Module):
+    """An ``ssm`` layer: ``x + mamba(ln(x))`` (:class:`models.ssm.Mamba`).
+    Its methods take :class:`Block`'s arguments and ignore the positions,
+    the grouped matmul and the encoder's output."""
+
+    def __init__(self, cfg: ModelConfig, **kw):
+        super().__init__()
+        self.ln = make_norm(cfg, cfg.d_model, device=kw["device"],
+                            trainable=kw["trainable"])
+        self.mamba = S.Mamba(cfg.d_model, cfg.ssm_state, cfg.ssm_conv,
+                             cfg.ssm_expand, **kw)
+
+    def forward(self, x: torch.Tensor, positions=None, gmm=None,
+                enc_out=None) -> torch.Tensor:
+        return x + S.mamba_forward(self.mamba, self.ln(x))
+
+    def init_cache(self, batch: int, dtype: torch.dtype):
+        return S.init_mamba_cache(self.mamba, batch, dtype)
+
+    def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+               pos: int, positions, gmm) -> torch.Tensor:
+        """One token; the cache's ``conv`` and ``h`` are replaced."""
+        out, new = S.mamba_decode(self.mamba, cache, self.ln(x))
+        cache.update(new)
+        return x + out
+
+
+class RGLRUBlock(nn.Module):
+    """An ``rglru`` layer: ``x + rglru(ln1(x))``, then ``+ mlp(ln2(x))``
+    (:class:`models.rglru.RGLRU`, the dense FFN).  Its methods take
+    :class:`Block`'s arguments and ignore the positions, the grouped
+    matmul and the encoder's output."""
+
+    def __init__(self, cfg: ModelConfig, **kw):
+        super().__init__()
+        norm_kw = dict(device=kw["device"], trainable=kw["trainable"])
+        self.ln1 = make_norm(cfg, cfg.d_model, **norm_kw)
+        self.rglru = R.RGLRU(cfg.d_model, cfg.rnn_width or cfg.d_model,
+                             cfg.ssm_conv, **kw)
+        self.ln2 = make_norm(cfg, cfg.d_model, **norm_kw)
+        self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.mlp_variant, **kw)
+
+    def forward(self, x: torch.Tensor, positions=None, gmm=None,
+                enc_out=None) -> torch.Tensor:
+        x = x + R.rglru_forward(self.rglru, self.ln1(x))
+        return x + self.mlp(self.ln2(x))
+
+    def init_cache(self, batch: int, dtype: torch.dtype):
+        return R.init_rglru_cache(self.rglru, batch, dtype)
+
+    def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+               pos: int, positions, gmm) -> torch.Tensor:
+        """One token; the cache's ``conv`` and ``h`` are replaced."""
+        out, new = R.rglru_decode(self.rglru, cache, self.ln1(x))
+        cache.update(new)
+        x = x + out
+        return x + self.mlp(self.ln2(x))
+
+
+def make_block(cfg: ModelConfig, kind: str, **kw) -> nn.Module:
+    """The block of one decoder layer of ``kind``."""
+    if kind == "ssm":
+        return MambaBlock(cfg, **kw)
+    if kind == "rglru":
+        return RGLRUBlock(cfg, **kw)
+    return Block(cfg, kind, **kw)
+
+
 class Encoder(nn.Module):
     """whisper's encoder: ``encoder_layers`` bidirectional :class:`Block`\\ s
     and a final norm."""
@@ -349,13 +452,14 @@ class Encoder(nn.Module):
 
 class LM(nn.Module):
     """The LM: embedding (and qwen2-vl's ``mm_proj``), ``num_layers``
-    :class:`Block`\\ s of the kinds ``cfg.layer_pattern`` repeats, final
+    blocks of the kinds ``cfg.layer_pattern`` repeats (:func:`make_block`),
+    final
     norm and the tied table or a separate ``lm_head``; for ``encdec``, an
     :class:`Encoder` and cross-attention in every decoder layer.
 
     Args:
-        cfg: a ``dense``, ``moe``, ``vlm`` or ``encdec`` config whose
-            layers are ``global`` or ``local``.
+        cfg: a config of one of :data:`FAMILIES` whose layers are of
+            :data:`LAYER_KINDS`.
         device: where the weights are made (None: the card).  ``"meta"``
             makes no storage, for weights loaded afterwards
             (``repro_torch.interop.params_from_numpy``).
@@ -367,7 +471,8 @@ class LM(nn.Module):
             training) instead of a frozen copy in the dtype of its use.
 
     Raises:
-        NotImplementedError: for the ``ssm`` and ``hybrid`` families.
+        NotImplementedError: for a family or layer kind the port does not
+            know.
     """
 
     def __init__(self, cfg: ModelConfig, *, device: DeviceLike = None,
@@ -381,7 +486,7 @@ class LM(nn.Module):
         kw = dict(dtype=torch.float32 if masters else self.dtype, device=dev,
                   generator=generator, trainable=masters)
         self.embed = L.Embedding(cfg.padded_vocab, cfg.d_model, **kw)
-        self.layers = nn.ModuleList(Block(cfg, kind, **kw)
+        self.layers = nn.ModuleList(make_block(cfg, kind, **kw)
                                     for kind in layer_kinds(cfg))
         self.final_norm = make_norm(cfg, cfg.d_model, device=dev,
                                     trainable=masters)
@@ -423,7 +528,8 @@ class LM(nn.Module):
             return self.embed.table
         return self.lm_head.kernel.T
 
-    def _layer(self, block: Block, remat: bool, *args) -> torch.Tensor:
+    def _layer(self, block: nn.Module, remat: bool,
+               *args) -> torch.Tensor:
         if remat and torch.is_grad_enabled():
             return checkpoint(block, *args, use_reentrant=False)
         return block(*args)
@@ -495,10 +601,13 @@ class LM(nn.Module):
 
     def init_cache(self, batch: int,
                    cache_len: int) -> List[Dict[str, torch.Tensor]]:
-        """Per layer, ``{"k", "v"}`` zeros ``[B, S_c, Hkv, D]`` in the
-        compute dtype: ``S_c = cache_len`` for a global layer, ``min(
-        cache_len, window_size)`` for a local layer's ring; for
-        ``encdec``, also ``{"cross_k", "cross_v"}`` zeros ``[B,
+        """Per layer, zeros: for an attention layer ``{"k", "v"}`` ``[B,
+        S_c, Hkv, D]`` in the compute dtype, ``S_c = cache_len`` for a
+        global layer, ``min(cache_len, window_size)`` for a local layer's
+        ring; for an ``ssm`` or ``rglru`` layer ``{"conv", "h"}``, the last
+        ``K - 1`` raw conv inputs in the compute dtype and the fp32 state
+        (``[B, d_in, N]`` and ``[B, rnn_width]``), whatever ``cache_len``;
+        for ``encdec``, also ``{"cross_k", "cross_v"}`` zeros ``[B,
         encoder_seq, Hkv, D]`` (:meth:`prime_cross_cache` fills them) and
         the sinusoidal table's ``cache_len`` rows, built here once."""
         cfg = self.cfg
@@ -509,7 +618,10 @@ class LM(nn.Module):
                                device=self.device)
 
         cache = []
-        for kind in layer_kinds(cfg):
+        for block, kind in zip(self.layers, layer_kinds(cfg)):
+            if kind not in ATTENTION_KINDS:
+                cache.append(block.init_cache(batch, self.dtype))
+                continue
             s_c = min(cache_len, cfg.window_size) if kind == "local" \
                 else cache_len
             layer = {"k": zeros(s_c), "v": zeros(s_c)}

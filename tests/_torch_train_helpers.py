@@ -138,12 +138,13 @@ def _paths(tree) -> dict:
             jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-def _check_grads(got: dict, want: dict, what: str) -> None:
+def _check_grads(got: dict, want: dict, what: str,
+                 rtol: float = GRAD_RTOL) -> None:
     assert set(got) == set(want), what
     for k in want:
         g, r = got[k], want[k]
         assert g.shape == r.shape and np.isfinite(g).all(), f"{what} {k}"
-        bound = GRAD_RTOL * max(float(np.abs(r).max()), 1e-30)
+        bound = rtol * max(float(np.abs(r).max()), 1e-30)
         worst = float(np.abs(g - r).max())
         assert worst <= bound, f"{what} {k}: {worst:.3e} > {bound:.3e}"
 

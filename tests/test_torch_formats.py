@@ -312,6 +312,7 @@ def test_importing_port_leaves_jax_and_reference_unloaded():
         "import repro_torch.launch.mesh\n"
         "import repro_torch.configs, repro_torch.models.model\n"
         "import repro_torch.models.decode_check\n"
+        "import repro_torch.models.ssm, repro_torch.models.rglru\n"
         "import repro_torch.optim.adamw, repro_torch.optim.schedule\n"
         "import repro_torch.optim.compression, repro_torch.data.pipeline\n"
         "import repro_torch.checkpoint.checkpointer\n"

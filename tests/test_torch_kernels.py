@@ -33,6 +33,7 @@ from repro.kernels.binned_spmm import rowsplit_spmm_pallas
 from repro.kernels.grouped_matmul import grouped_matmul_pallas
 from repro.sparse import formats as ref_fmt
 
+from _torch_train_helpers import one_torch_thread  # noqa: F401
 from repro_torch import interop, kernels
 from repro_torch.kernels import build
 from repro_torch.kernels import registry as port_registry

@@ -29,6 +29,8 @@ sequence is compared no further.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -289,11 +291,13 @@ def test_generate_matches(arch, monkeypatch, trees):
     assert compared > 0
 
 
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-9b"])
-def test_unported_families_raise_naming_the_roadmap_item(arch):
-    with pytest.raises(NotImplementedError,
-                       match="Model families, part 2"):
-        port_model.LM(port_config(arch).reduced(), device="cpu")
+@pytest.mark.parametrize("change", [
+    {"layer_pattern": ("global", "mlstm")}, {"family": "diffusion"}],
+    ids=["unknown layer kind", "unknown family"])
+def test_unknown_families_and_layer_kinds_raise(change):
+    cfg = dataclasses.replace(port_config("llama3.2-1b").reduced(), **change)
+    with pytest.raises(NotImplementedError, match="not one the port knows"):
+        port_model.LM(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
