@@ -138,7 +138,34 @@ The run reads and writes calibrations only in a fresh temporary
    within a bound that scales with the gradients and that four planted
    faults must break (``train_grad_check``, ``grad_ratio``).  The model
    and its state are freed before the next phase.
-9. **kernels**: each SpMM kernel against its plain PyTorch version on the
+9. **dryrun** (the dry run's counter, ``repro_torch.core.step_cost``, held
+   against the card): (a) olmoe-1b-7b at ``[train]``'s shape (full width,
+   4 of 16 layers, batch 4 x 512; 2 layers under ``--quick``): one train
+   step counted on the card with the grouped kernel launched must count
+   exactly the FLOPs and bytes of the same step counted on ``meta``
+   tensors; two planted faults in the meta count (the grouped product's
+   ``w`` bytes left out; its FLOPs counted for every row against every
+   expert) must differ; ``useful_compute_ratio`` (``model_flops`` over the
+   counted FLOPs) is printed; the step's measured median (host clock,
+   synchronised, 3 steps after a warm one) must be at least the one-card
+   ``DistributedRoofline`` lower bound on ``tensor_core(h100_from_device())``,
+   and the bound of the full 16-layer model's count held against the same
+   4-layer step (a planted fault) must exceed it.  (b) olmoe-1b-7b's
+   decode step at ``[lm]``'s batch 4 and cache 48, full width and depth:
+   counted on the card equal to the meta count, and its bytes at least
+   ``lm_step_bytes`` (every weight read once); the count without the
+   grouped ``w`` bytes (a planted fault) must fall below.  (c) llama3.2-1b
+   at full width, one prefill of 4096 tokens (1024 under ``--quick``),
+   batch 1, with masked and with triangle causal attention: logits within
+   ``logit_tolerance`` of each other, the counted attention FLOPs of the
+   triangle smaller by exactly the block ratio ``(nq + 1) / (2 nq)``, both
+   wall-clocks printed; a triangle that drops the diagonal block must
+   break the values and one that walks every pair the ratio.  (d) the
+   analysed roofline table (``core.analyzer`` on the card's spec) of the
+   five full-size meta cells of the CPU tests on the 32 x 8 mesh, counted
+   in a subprocess while (a)-(c) run, with each cell's ``count_seconds``.
+   Counters are zeroed before the phase and read after it.
+10. **kernels**: each SpMM kernel against its plain PyTorch version on the
    card, on the layout the serving phase packed for it (f32i32) and at
    every other precision its spec declares (bf16i32 at full n, bf16i16 at
    n = 32760, where the slab fits int16 indices); kernel, plain-version
@@ -162,7 +189,7 @@ The run reads and writes calibrations only in a fresh temporary
    ``torch._grouped_mm`` (bf16, where this torch has it) or a per-expert
    ``torch.matmul`` loop as the library time; the check must reject two
    planted faults (a dropped k-slice, +0.1 on one row).
-10. **engine** (the serving-engine path): ``repro_torch.launch.serve``'s
+11. **engine** (the serving-engine path): ``repro_torch.launch.serve``'s
    ``serve_spmm_engine`` with the default engine settings (8 MiB staging
    budget, queue 256, policy ``wait``, 2000 requests/s per stream), twice:
    at full width on ``moe-block`` at n = 2**20 with d = 64 and 32, 4 streams
@@ -185,7 +212,7 @@ The run reads and writes calibrations only in a fresh temporary
    the first run; the overlap and the async return are printed, not
    enforced: at that size the device work is too short to outlast the
    host's staging.)
-11. **shard** (the sharded tier): ``ShardMesh(["cuda:0"] * 4)`` over the
+12. **shard** (the sharded tier): ``ShardMesh(["cuda:0"] * 4)`` over the
    four ``serving_suite`` structures at n = 2**18 (cut from 2**20 to keep
    classification and packing of the unsharded and four sharded layouts
    per strategy inside the phase's time; 2**12 under ``--quick``), plus
@@ -195,7 +222,7 @@ The run reads and writes calibrations only in a fresh temporary
    plan's ``summary()``, and a p50 of 8 requests per strategy beside its
    predicted time.  Then one ``serve --spmm-stream --spmm-shards -1`` run
    (one shard per visible card), its C held against the unsharded plan.
-12. **harvest**: ``repro_torch.launch.harvest_dispatch`` on the vendored
+13. **harvest**: ``repro_torch.launch.harvest_dispatch`` on the vendored
    corpus with the ``cuda`` kernels, d = 32 and 128, 3 repeats, the tree
    in a temporary store root of its own; its agreement and never-worse
    results are printed, not enforced (at n <= 256 a call is the launch
@@ -226,8 +253,9 @@ shared memory (each output tile's x rows and w columns), over kernel ms.
 
 The last lines are the ``{"kernels": [...]}`` record (each kernel with
 its launches per path, ``families_launches`` and ``recurrent_launches``
-0; the grouped matmul's with
-the ``lm`` and ``train`` phases' figures), the card's name and power
+0, ``dryrun_launches`` the grouped matmul's in ``[dryrun]``; the grouped
+matmul's with the ``lm``, ``train`` and ``dryrun`` phases' figures), the
+card's name and power
 limit from ``nvidia-smi``, and ``{"ok": true, "device": ...}``.
 Without a GPU, or without the port beside it, the script exits nonzero
 and prints no result.
@@ -372,6 +400,15 @@ TRAIN_SCHEDULE = {"warmup_steps": 2, "total_steps": TRAIN_STEPS}
 #: read once more by the recompute (``TRAIN_RECOMPUTE_BYTES``).
 TRAIN_BYTES_PER_PARAM = 28 + 4 + 8
 TRAIN_RECOMPUTE_BYTES = 4
+
+#: The dry-run phase: llama3.2-1b's prefill length for masked against
+#: triangle attention (and under ``--quick``), and the full-size meta
+#: cells whose roofline table it prints (the CPU tests' cells).
+DRYRUN_PREFILL, DRYRUN_PREFILL_QUICK = 4096, 1024
+DRYRUN_CELLS = (("olmoe-1b-7b", "train_4k"), ("gemma3-12b", "prefill_32k"),
+                ("falcon-mamba-7b", "long_500k"),
+                ("whisper-base", "decode_32k"),
+                ("qwen3-moe-235b-a22b", "train_4k"))
 
 #: The engine phase: (tag, n or None for the run's n, requests per stream).
 ENGINE_RUNS = (("full width", None, 4), ("CLI default shape", 4096, 64))
@@ -2520,6 +2557,332 @@ def harvest_phase(dev) -> dict:
     return rec
 
 
+DRYRUN_TABLE_CODE = r'''
+import json, sys
+from repro_torch.launch import dryrun as DR
+for arch, shape in json.loads(sys.argv[1]):
+    rec = DR.run_cell(arch, shape, False, verbose=False)
+    print("RECORD " + json.dumps(rec), flush=True)
+'''
+
+
+def dryrun_table_start(cells) -> subprocess.Popen:
+    """Count the full-size meta cells on the 32 x 8 mesh in a subprocess
+    (CPU only: it sees no card)."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_TABLE_CODE, json.dumps(cells)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+
+
+def counts_equal(a, b) -> bool:
+    return a.flops == b.flops and a.bytes == b.bytes
+
+
+def count_diff(a, b, k: int = 8) -> str:
+    """The op rows where two counts differ, for a failure message."""
+    keys = sorted(set(a.rows) | set(b.rows), key=str)
+    diff = [(str(key), a.rows.get(key), b.rows.get(key)) for key in keys
+            if a.rows.get(key) != b.rows.get(key)]
+    return "; ".join(f"{key}: {x} vs {y}" for key, x, y in diff[:k])
+
+
+@contextlib.contextmanager
+def grouped_fault(name: str):
+    """A planted fault in the counter's grouped product."""
+    from repro_torch.core import step_cost as SC
+    orig = SC.StepCounter.grouped
+
+    def faulty(self, x, w, out):
+        if name == "w bytes left out":
+            w = w[:0]
+        else:                                  # every row x every expert
+            x = x.expand(w.shape[0], *x.shape).reshape(-1, x.shape[1])
+        orig(self, x, w, out)
+    SC.StepCounter.grouped = faulty
+    try:
+        yield
+    finally:
+        SC.StepCounter.grouped = orig
+
+
+def warm_count(cfg, shape, model, state):
+    """Count a step of ``model`` after one warm step (which fills its
+    per-layer caches: the grouped ids, the sinusoid table)."""
+    from repro_torch.launch import dryrun as DR
+    DR.count_step(cfg, shape, model=model, state=state)
+    return DR.count_step(cfg, shape, model=model, state=state)
+
+
+def dryrun_train_check(quick: bool, dev, hw) -> dict:
+    """(a): olmoe-1b-7b's train step counted on the card and on meta."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.roofline import DistributedRoofline
+    from repro_torch.kernels import grouped_matmul as G
+    from repro_torch.models.model import LM
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as TS
+    full = get_config("olmoe-1b-7b")
+    cfg = dataclasses.replace(
+        full, num_layers=TRAIN_QUICK_LAYERS if quick else TRAIN_LAYERS)
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    opt_cfg = adamw.AdamWConfig()
+
+    def made(device, c=cfg):
+        gen = torch.Generator(device).manual_seed(0) \
+            if device != "meta" else None
+        m = LM(c, device=device, generator=gen, masters=True)
+        return m, adamw.init_state(dict(m.named_parameters()), opt_cfg)
+
+    model, state = made(dev)
+    before = G.LAUNCHES
+    card = warm_count(cfg, shape, model, state)
+    launches = G.LAUNCHES - before
+    want = 2 * model.grouped_launches_per_step(train=True)
+    if launches != want:
+        raise SmokeFailure(f"dryrun: the two counted train steps launched "
+                           f"the grouped kernel {launches} times, not "
+                           f"{want}")
+    meta = warm_count(cfg, shape, *made("meta"))
+    if not counts_equal(card, meta):
+        raise SmokeFailure(f"dryrun: card and meta counts of the train step "
+                           f"differ: {count_diff(card, meta)}")
+    faults = {}
+    for fault in ("w bytes left out", "every row x every expert"):
+        with grouped_fault(fault):
+            bad = warm_count(cfg, shape, *made("meta"))
+        if counts_equal(card, bad):
+            raise SmokeFailure(f"dryrun: planted fault {fault!r} counted "
+                               f"equal to the card")
+        faults[fault] = (bad.flops / card.flops, bad.bytes / card.bytes)
+    batch = pipeline_batch(cfg, TRAIN_SEQ, TRAIN_BATCH, dev)
+    step = TS.make_train_step(cfg, shape, opt_cfg=opt_cfg)
+    step(model, state, batch, 0)
+    torch.cuda.synchronize(dev)
+    ms = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        step(model, state, batch, i + 1)
+        torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    median = float(np.median(ms))
+    model_flops = cfg.model_flops(shape)
+
+    def bound(count, name):
+        return DistributedRoofline(
+            name=name, chips=1, hlo_flops=count.flops, hlo_bytes=count.bytes,
+            collective_bytes=0.0, hardware=hw, model_flops=model_flops)
+
+    roof = bound(card, f"{cfg.name}/train/{cfg.num_layers}L")
+    if median < roof.step_time_lower_bound_s * 1e3:
+        raise SmokeFailure(f"dryrun: the train step ran in {median:.3f} ms, "
+                           f"below its lower bound "
+                           f"{roof.step_time_lower_bound_s * 1e3:.3f} ms")
+    del model, state, batch
+    free(dev)
+    full_roof = bound(warm_count(full, shape, *made("meta", full)),
+                      f"{full.name}/train/16L")
+    if full_roof.step_time_lower_bound_s * 1e3 <= median:
+        raise SmokeFailure(f"dryrun: the 16-layer count's bound "
+                           f"{full_roof.step_time_lower_bound_s * 1e3:.3f} "
+                           f"ms was not above the {cfg.num_layers}-layer "
+                           f"step's {median:.3f} ms")
+    log(f"[dryrun] (a) {cfg.name} train step, {cfg.num_layers} layers, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}: counted on the card = on meta: "
+        f"{card.flops:.6e} FLOPs, {card.bytes:.6e} bytes "
+        f"({launches} grouped launches in the two counted steps); "
+        f"faults rejected (FLOP, byte ratio to the card): "
+        f"{ {k: (round(a, 4), round(b, 4)) for k, (a, b) in faults.items()} }"
+        f"; model_flops {model_flops:.6e}, useful_compute_ratio "
+        f"{roof.useful_compute_ratio:.4f}")
+    log(f"[dryrun] (a) step median {median:.3f} ms (runs "
+        f"{', '.join(f'{m:.3f}' for m in ms)}) >= lower bound "
+        f"{roof.step_time_lower_bound_s * 1e3:.3f} ms (compute "
+        f"{roof.compute_s * 1e3:.3f}, memory {roof.memory_s * 1e3:.3f} ms, "
+        f"{roof.dominant}) on {hw.name} at {hw.peak_flops / 1e12:.0f} "
+        f"TFLOP/s, {hw.hbm_bandwidth / 1e12:.2f} TB/s; fault: the 16-layer "
+        f"count's bound {full_roof.step_time_lower_bound_s * 1e3:.3f} ms "
+        f"rejected")
+    return {"flops": card.flops, "bytes": card.bytes, "median_ms": median,
+            "bound_ms": roof.step_time_lower_bound_s * 1e3,
+            "compute_ms": roof.compute_s * 1e3,
+            "memory_ms": roof.memory_s * 1e3,
+            "useful_compute_ratio": roof.useful_compute_ratio,
+            "faults": faults, "launches": launches,
+            "full_bound_ms": full_roof.step_time_lower_bound_s * 1e3}
+
+
+def dryrun_decode_check(quick: bool, dev) -> dict:
+    """(b): olmoe-1b-7b's decode step counted against ``lm_step_bytes``."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.model import LM
+    cfg = get_config("olmoe-1b-7b")
+    if quick:
+        cfg = dataclasses.replace(cfg, num_layers=2)
+    cache_len = LM_PROMPT + LM_GEN
+    shape = ShapeConfig("decode", cache_len, LM_BATCH, "decode")
+    counts = {}
+    for device in (dev, "meta"):
+        gen = torch.Generator(device).manual_seed(0) \
+            if device != "meta" else None
+        model = LM(cfg, device=device, generator=gen)
+        cache = model.init_cache(LM_BATCH, cache_len)
+        counts[str(device)] = warm_count(cfg, shape, model, cache)
+        need = lm_step_bytes(model, LM_BATCH, cache_len)
+        del model, cache
+        free(dev)
+    card, meta = counts[str(dev)], counts["meta"]
+    if not counts_equal(card, meta):
+        raise SmokeFailure(f"dryrun: card and meta counts of the decode "
+                           f"step differ: {count_diff(card, meta)}")
+    if card.bytes < need:
+        raise SmokeFailure(f"dryrun: the decode step counted "
+                           f"{card.bytes:.6e} bytes, below lm_step_bytes "
+                           f"{need:.6e}")
+    model = LM(cfg, device="meta")
+    with grouped_fault("w bytes left out"):
+        bad = warm_count(cfg, shape, model,
+                         model.init_cache(LM_BATCH, cache_len))
+    if bad.bytes >= need:
+        raise SmokeFailure(f"dryrun: the count without the grouped w bytes "
+                           f"({bad.bytes:.6e}) was not below lm_step_bytes")
+    log(f"[dryrun] (b) {cfg.name} decode step, batch {LM_BATCH}, cache "
+        f"{cache_len}, {cfg.num_layers} layers: counted on the card = on "
+        f"meta: {card.flops:.6e} FLOPs, {card.bytes:.6e} bytes >= "
+        f"lm_step_bytes {need:.6e} ({card.bytes / need:.4f}x); fault "
+        f"(grouped w bytes left out): {bad.bytes:.6e} rejected")
+    return {"flops": card.flops, "bytes": card.bytes, "lm_step_bytes": need,
+            "fault_bytes": bad.bytes}
+
+
+def dryrun_prefill_check(quick: bool, dev) -> dict:
+    """(c): llama3.2-1b's prefill, masked against triangle attention."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.step_cost import StepCounter
+    from repro_torch.models import attention as ATT
+    from repro_torch.models import model as M
+    cfg = get_config("llama3.2-1b")
+    seq = DRYRUN_PREFILL_QUICK if quick else DRYRUN_PREFILL
+    model = M.LM(cfg, device=dev,
+                 generator=torch.Generator(dev).manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        2, cfg.vocab_size - 1, size=(1, seq))).to(dev)
+    nq = seq // 512
+    attn = cfg.num_layers * 4 * cfg.num_heads * seq * seq * cfg.head_dim
+    want = attn * (1 - (nq + 1) / (2 * nq))
+
+    def run(impl, fault=None):
+        orig = ATT.kv_blocks
+        if fault == "drops the diagonal":
+            ATT.kv_blocks = lambda i, nk, tri: range(i) if tri \
+                else range(nk)
+        elif fault == "walks every pair":
+            ATT.kv_blocks = lambda i, nk, tri: range(nk)
+        ATT.set_causal_impl(impl)
+        try:
+            with torch.no_grad():
+                with StepCounter() as c:
+                    logits = model(tokens, remat=False)
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                model(tokens, remat=False)
+                torch.cuda.synchronize(dev)
+                ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            ATT.set_causal_impl("masked")
+            ATT.kv_blocks = orig
+        return logits, c.count.flops, ms
+
+    def excess(got, ref):
+        rms = ref.double().pow(2).mean(dim=-1, keepdim=True).sqrt()
+        tol = M.logit_tolerance(cfg, rms, ref.numel())
+        return float(((got.double() - ref.double()).abs() - tol).max())
+
+    masked, f_masked, ms_masked = run("masked")
+    tri, f_tri, ms_tri = run("triangle")
+    worst = excess(tri, masked)
+    if not np.isfinite(worst) or worst > 0 or f_masked - f_tri != want:
+        raise SmokeFailure(f"dryrun: triangle vs masked: worst excess over "
+                           f"the bound {worst:.3e}, FLOPs {f_masked:.6e} - "
+                           f"{f_tri:.6e} != {want:.6e}")
+    ratio = (attn - (f_masked - f_tri)) / attn
+    faults = {}
+    for fault in ("drops the diagonal", "walks every pair"):
+        bad, f_bad, _ = run("triangle", fault)
+        e = excess(bad, masked)
+        faults[fault] = (e, f_masked - f_bad)
+        if np.isfinite(e) and e <= 0 and f_masked - f_bad == want:
+            raise SmokeFailure(f"dryrun: planted triangle fault {fault!r} "
+                               f"passed")
+        del bad
+    del model, masked, tri
+    free(dev)
+    log(f"[dryrun] (c) {cfg.name} prefill, 1 x {seq}: triangle logits "
+        f"within the bound of masked (worst excess {worst:.3e} <= 0); "
+        f"counted attention FLOPs ratio {ratio:.6f} = (nq + 1) / (2 nq) = "
+        f"{(nq + 1) / (2 * nq):.6f} at nq = {nq}; wall-clock masked "
+        f"{ms_masked:.3f} ms, triangle {ms_tri:.3f} ms; faults rejected: "
+        f"{ {k: (f'{e:.3e}', f'{d:.6e}') for k, (e, d) in faults.items()} }")
+    return {"seq": seq, "ratio": ratio, "masked_ms": ms_masked,
+            "triangle_ms": ms_tri, "worst_excess": worst}
+
+
+def dryrun_phase(quick: bool, dev) -> dict:
+    """The dry run's counter held against the card (module docstring)."""
+    from repro_torch import kernels
+    from repro_torch.core import analyzer
+    from repro_torch.core.hardware import h100_from_device, tensor_core
+    hw = tensor_core(h100_from_device(dev))
+    table = dryrun_table_start(DRYRUN_CELLS)
+    try:
+        kernels.reset_launch_counts()
+        train = dryrun_train_check(quick, dev, hw)
+        decode = dryrun_decode_check(quick, dev)
+        prefill = dryrun_prefill_check(quick, dev)
+        counts = kernels.launch_counts()
+        out, err = table.communicate(timeout=600)
+    finally:
+        if table.poll() is None:
+            table.kill()
+            table.wait()
+    if table.returncode != 0:
+        raise SmokeFailure(f"dryrun: the table's counts failed: "
+                           f"{err[-2000:]}")
+    records = [json.loads(line[len("RECORD "):])
+               for line in out.splitlines() if line.startswith("RECORD ")]
+    if len(records) != len(DRYRUN_CELLS):
+        raise SmokeFailure(f"dryrun: {len(records)} table records")
+    analysed = [analyzer.analyze_record(r, hw) for r in records]
+    log(f"[dryrun] (d) the full-size meta cells on the 32 x 8 mesh, "
+        f"analysed on {hw.name} (bf16 {hw.peak_flops / 1e12:.0f} TFLOP/s, "
+        f"{hw.hbm_bandwidth / 1e12:.2f} TB/s, NVLink "
+        f"{hw.link_bandwidth / 1e9:.0f} GB/s; a model, not a measurement):")
+    for line in analyzer.format_roofline_table(analysed).splitlines():
+        log(f"[dryrun]   {line}")
+    for r in records:
+        log(f"[dryrun]   {r['arch']}/{r['shape']}: count_seconds "
+            f"{r['count_seconds']:.2f}, fits {r['fits']} "
+            f"({r['memory']['total_hbm_bytes'] / 1e9:.2f} GB per card)")
+    others = {k: v for k, v in counts.items() if k != "grouped_matmul" and v}
+    if others:
+        raise SmokeFailure(f"dryrun: other kernels launched: {others}")
+    return {"launches": counts["grouped_matmul"], "train": train,
+            "decode": decode, "prefill": prefill,
+            "table": [{k: r[k] for k in ("arch", "shape", "count_seconds",
+                                         "fits")} | {"dominant":
+                                                     a["roofline"]["dominant"]}
+                      for r, a in zip(records, analysed)]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -2602,6 +2965,10 @@ def run(quick: bool, n: int) -> int:
     seconds["train"] = time.perf_counter() - t0
     log(f"[train] phase took {seconds['train']:.1f}s")
     t0 = time.perf_counter()
+    dryrun = dryrun_phase(quick, dev)
+    seconds["dryrun"] = time.perf_counter() - t0
+    log(f"[dryrun] phase took {seconds['dryrun']:.1f}s")
+    t0 = time.perf_counter()
     records = kernel_phase(served, quick, dev)
     records.append(grouped_record(moe, quick))
     for rec in records:
@@ -2611,8 +2978,10 @@ def run(quick: bool, n: int) -> int:
         rec["families_launches"] = families["launches"][rec["name"]]
         rec["recurrent_launches"] = recurrent["launches"][rec["name"]]
         rec["train_launches"] = train["launches"] if grouped else 0
+        rec["dryrun_launches"] = dryrun["launches"] if grouped else 0
     records[-1]["lm"] = lm
     records[-1]["train"] = train
+    records[-1]["dryrun"] = dryrun
     seconds["kernel"] = time.perf_counter() - t0
     log(f"[kernel] phase took {seconds['kernel']:.1f}s")
     t0 = time.perf_counter()

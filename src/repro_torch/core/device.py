@@ -10,7 +10,7 @@ DeviceLike = Union[None, str, torch.device]
 #: What brings work that spans several cards (a mesh, a cross-device
 #: reduction, pipeline stages); the port raises ``NotImplementedError``
 #: naming it.
-MULTI_CARD = "the multi-card item (ROADMAP.md Queue A item 8)"
+MULTI_CARD = "the multi-card item (ROADMAP.md Queue A, \"Multi-card item\")"
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

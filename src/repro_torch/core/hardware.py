@@ -1,8 +1,9 @@
 """Hardware descriptions used by the roofline models.
 
 The port's deployment target is one NVIDIA H100; the CPU spec describes
-the host the plain PyTorch path runs on.  Both are expressed with the same
-dataclass so every roofline routine is hardware-agnostic.
+the host the plain PyTorch path runs on, and :data:`PERLMUTTER_MILAN` the
+paper's own evaluation node.  All are expressed with the same dataclass so
+every roofline routine is hardware-agnostic.
 
 ``vmem_bytes`` on the H100 is the 50 MB L2 cache, not the 227 KB of shared
 memory a thread block may use.  The field sizes the B row slab of the
@@ -69,6 +70,18 @@ class HardwareSpec:
         return hashlib.sha256(payload.encode()).hexdigest()[:12]
 
 
+# --- The paper's evaluation platform (Table IV + measured STREAM beta),
+# field for field as the reference package has it. ---
+PERLMUTTER_MILAN = HardwareSpec(
+    name="amd-epyc-7763-1socket",
+    peak_flops=64 * 2.45e9 * 16,      # 64 cores x 2.45 GHz x (AVX2 FMA: 16 dp flop/cyc)
+    hbm_bandwidth=122.6e9,            # STREAM-measured in the paper
+    link_bandwidth=0.0,
+    vmem_bytes=256 * 2**20,           # 256 MiB L3 per socket
+    hbm_bytes=512 * 2**30,
+    mxu_tile=(1, 4),                  # AVX2 dp vector as the "tile"
+)
+
 # Host CPU (used for CPU runs of the plain PyTorch backend; the same
 # fields as the reference's HOST_CPU so plans compare like with like).
 HOST_CPU = HardwareSpec(
@@ -85,7 +98,7 @@ HOST_CPU = HardwareSpec(
 #: L2 cache of the H100 (both parts), the slab budget (module docstring).
 H100_L2_BYTES = 50 * 2**20
 
-# --- NVIDIA H100 (vendor datasheet, dense rates). ---
+# --- NVIDIA H100 (vendor datasheet figures, dense rates). ---
 # ``peak_flops`` is the fp32 rate of the CUDA cores, because this port's
 # kernels run on CUDA cores; a tensor-core kernel would revisit it.
 H100_SXM = HardwareSpec(
@@ -112,6 +125,26 @@ H100_PCIE = HardwareSpec(
 #: The default H100 description (the SXM part).
 H100 = H100_SXM
 
+#: Dense bf16 tensor-core rates of the two parts (vendor datasheet
+#: figures, at the full power limit).
+BF16_TENSOR_FLOPS = {H100_SXM.name: 989e12, H100_PCIE.name: 756e12}
+
+
+def tensor_core(hw: HardwareSpec) -> HardwareSpec:
+    """``hw`` with ``peak_flops`` at its bf16 tensor-core rate: the
+    ceiling of a model step, whose products run in bf16 on the tensor
+    cores, where ``hw.peak_flops`` is the fp32 CUDA-core rate the SpMM
+    kernels run at.  A spec without a tensor-core rate is returned as it
+    is."""
+    rate = BF16_TENSOR_FLOPS.get(hw.name)
+    if rate is None:
+        return hw
+    return dataclasses.replace(hw, peak_flops=rate)
+
+
+#: The H100 SXM at its bf16 tensor-core rate: the dry run's default.
+H100_BF16 = tensor_core(H100_SXM)
+
 
 def h100_from_device(device=None) -> HardwareSpec:
     """The H100 spec of a CUDA device, from its reported properties.
@@ -136,7 +169,8 @@ def h100_from_device(device=None) -> HardwareSpec:
 
 def by_name(name: str) -> HardwareSpec:
     """Resolve a spec by its ``name`` or a short alias."""
-    table = {h.name: h for h in (HOST_CPU, H100_SXM, H100_PCIE)}
-    table.update({"host": HOST_CPU, "h100": H100_SXM, "h100-sxm": H100_SXM,
+    table = {h.name: h for h in (PERLMUTTER_MILAN, HOST_CPU, H100_SXM,
+                                 H100_PCIE)}
+    table.update({"milan": PERLMUTTER_MILAN, "host": HOST_CPU, "h100": H100_SXM, "h100-sxm": H100_SXM,
                   "h100-pcie": H100_PCIE})
     return table[name]

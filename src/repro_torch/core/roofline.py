@@ -1,18 +1,32 @@
-"""Roofline model plumbing (paper Section II-C).
+"""Roofline model plumbing (paper Section II-C), plus the three-term
+distributed extension the dry run (``repro_torch.launch.dryrun``) feeds.
 
 The classic single-device roofline is ``P = min(beta * AI, pi)``
-(``HardwareSpec.attainable``).  The dispatcher caps it with a per-format
+(``HardwareSpec.attainable``); :class:`RooflinePoint` / :func:`place` put
+one kernel or workload on it.  The dispatcher caps it with a per-format
 :class:`ComputeCeiling`.  The sharded tier (``repro_torch.sparse.shard``)
 adds a collective term: :func:`collective_time` prices a collective over
 ``HardwareSpec.collective_bandwidth`` and :class:`ShardRoofline` puts the
-critical shard's local time beside it.
+critical shard's local time beside it.  For a cluster step
+:class:`DistributedRoofline` reports three time terms:
+
+  compute    = FLOPs / (chips * peak_flops)
+  memory     = bytes / (chips * hbm_bandwidth)
+  collective = collective_bytes / (chips * link_bandwidth)
+
+The step can never run faster than the largest term under perfect
+overlap.  ``link_bandwidth`` is one link's rate (NVLink's 450 GB/s on the
+H100 SXM), which is optimistic for a mesh axis that leaves an 8-card
+NVLink node: such traffic crosses the slower network between nodes.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 from repro_torch.core.hardware import HardwareSpec
+from repro_torch.core.sparsity_models import TrafficBreakdown
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +55,39 @@ class ComputeCeiling:
         """The ceiling in useful FLOP/s for dense width ``d``."""
         return (peak_flops * self.peak_fraction * useful_fraction
                 * d / (d + self.d_half))
+
+
+@dataclasses.dataclass(frozen=True)
+class RooflinePoint:
+    """One kernel/workload placed on a device roofline."""
+
+    name: str
+    ai: float                       # FLOPs / byte
+    flops: float                    # total useful FLOPs
+    hardware: HardwareSpec
+    attained_flops_per_s: Optional[float] = None   # measured, if available
+
+    @property
+    def bound(self) -> str:
+        return "compute" if self.ai >= self.hardware.ridge_point else "memory"
+
+    @property
+    def attainable_flops_per_s(self) -> float:
+        return self.hardware.attainable(self.ai)
+
+    @property
+    def roofline_fraction(self) -> Optional[float]:
+        """Measured / attainable; None when nothing was measured."""
+        if self.attained_flops_per_s is None:
+            return None
+        return self.attained_flops_per_s / self.attainable_flops_per_s
+
+
+def place(name: str, traffic: TrafficBreakdown, hw: HardwareSpec,
+          attained: Optional[float] = None) -> RooflinePoint:
+    """Place a sparsity-model traffic estimate on a hardware roofline."""
+    return RooflinePoint(name=name, ai=traffic.ai, flops=traffic.flops,
+                         hardware=hw, attained_flops_per_s=attained)
 
 
 def collective_time(bytes_on_wire: float, hw: HardwareSpec,
@@ -112,3 +159,79 @@ class ShardRoofline:
         """Which term binds: ``"compute"`` or ``"collective"``."""
         return ("collective" if self.collective_s > self.compute_s
                 else "compute")
+
+
+@dataclasses.dataclass(frozen=True)
+class DistributedRoofline:
+    """Three-term roofline for one (arch x shape x mesh) dry-run cell.
+
+    ``hlo_flops`` / ``hlo_bytes`` keep the reference's field names: in the
+    port they are the counted step's FLOPs and bytes over all chips
+    (``core.step_cost``), not an HLO module's."""
+
+    name: str
+    chips: int
+    hlo_flops: float
+    hlo_bytes: float
+    collective_bytes: float
+    hardware: HardwareSpec
+    model_flops: float = 0.0        # 6*N*D (+attention) useful FLOPs
+
+    @property
+    def compute_s(self) -> float:
+        return self.hlo_flops / (self.chips * self.hardware.peak_flops)
+
+    @property
+    def memory_s(self) -> float:
+        return self.hlo_bytes / (self.chips * self.hardware.hbm_bandwidth)
+
+    @property
+    def collective_s(self) -> float:
+        if self.hardware.link_bandwidth <= 0:
+            return 0.0
+        return self.collective_bytes / (self.chips
+                                        * self.hardware.link_bandwidth)
+
+    @property
+    def dominant(self) -> str:
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return max(terms, key=terms.get)
+
+    @property
+    def step_time_lower_bound_s(self) -> float:
+        """Perfect-overlap bound: the slowest of the three pipes."""
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+    @property
+    def useful_compute_ratio(self) -> float:
+        """MODEL_FLOPS / counted FLOPs: catches recompute and padding."""
+        if self.hlo_flops <= 0:
+            return 0.0
+        return self.model_flops / self.hlo_flops
+
+    @property
+    def mfu_upper_bound(self) -> float:
+        """Model-FLOPs utilization ceiling implied by the dominant term."""
+        denom = self.step_time_lower_bound_s * self.chips * \
+            self.hardware.peak_flops
+        if denom <= 0:
+            return 0.0
+        return self.model_flops / denom
+
+    def as_dict(self) -> dict:
+        return {
+            "name": self.name,
+            "chips": self.chips,
+            "hlo_flops": self.hlo_flops,
+            "hlo_bytes": self.hlo_bytes,
+            "collective_bytes": self.collective_bytes,
+            "model_flops": self.model_flops,
+            "compute_s": self.compute_s,
+            "memory_s": self.memory_s,
+            "collective_s": self.collective_s,
+            "dominant": self.dominant,
+            "useful_compute_ratio": self.useful_compute_ratio,
+            "mfu_upper_bound": self.mfu_upper_bound,
+            "step_time_lower_bound_s": self.step_time_lower_bound_s,
+        }

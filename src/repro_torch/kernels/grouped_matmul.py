@@ -16,7 +16,9 @@ bfloat16, ``wgmma`` fed by a ring of TMA loads; 128-row tiles where
 way) and takes the plain PyTorch version
 :func:`grouped_matmul_plain` for CPU operands.  Products are exact in fp32,
 sums run in fp32 and the output is cast once to x's dtype, as the
-reference's ``preferred_element_type=float32``.
+reference's ``preferred_element_type=float32``.  Operands on the
+``meta`` device (the dry run, ``launch.dryrun``) take a shape-only path
+that gives ``[T, N]`` and launches nothing; any other device raises.
 
 Where an operand requires a gradient, :func:`grouped_matmul` goes through
 :class:`GroupedMatmulFn`.  Its input gradient is a grouped product of the
@@ -42,6 +44,13 @@ from repro_torch.kernels.csr_spmm import value_code
 
 #: Kernel launches made by :func:`grouped_matmul` (a plain counter).
 LAUNCHES = 0
+
+#: The step counter (``core.step_cost``) while one is counting, else None:
+#: each grouped product reports itself to it as one op,
+#: ``OBSERVER.grouped(x, w, out)``, whatever device it ran on, and the
+#: counter ignores the ops the product issues inside
+#: ``OBSERVER.opaque()``.
+OBSERVER = None
 
 #: What the CUDA kernels tile by: bm, N and K must divide by these (the
 #: bf16 kernel's smallest row tile, its output columns per block and its
@@ -129,9 +138,11 @@ def check_group_ids(group_ids: torch.Tensor, num_experts: int) -> None:
 
     It reads the ids back to the host, so it runs once per bound operand
     (the ``("grouped", "cuda")`` spec's ``prepare``), not per launch: the
-    kernel indexes ``w`` by the ids unchecked.
+    kernel indexes ``w`` by the ids unchecked.  ``meta`` ids hold no values
+    and are skipped: the dry run makes them by construction
+    (``MoE.group_ids``).
     """
-    if group_ids.numel():
+    if group_ids.numel() and group_ids.device.type != "meta":
         lo, hi = torch.aminmax(group_ids)
         if int(lo) < 0 or int(hi) >= num_experts:
             raise ValueError(f"grouped_matmul: group ids outside "
@@ -156,16 +167,42 @@ def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
-def _grouped(x: torch.Tensor, w: torch.Tensor, group_ids: torch.Tensor,
-             bm: int, bk: int, bn: int) -> torch.Tensor:
-    """The product without autograd: the kernel or the plain version."""
-    _check_tiles(x, w, bm, bk, bn)
+def grouped_matmul_meta(x: torch.Tensor, w: torch.Tensor,
+                        group_ids: torch.Tensor, *,
+                        bm: int) -> torch.Tensor:
+    """The shape-only path for ``meta`` operands: ``[T, N]`` in x's dtype,
+    after the shape checks the kernel's wrapper makes."""
+    T = x.shape[0]
+    if w.device.type != "meta" or group_ids.shape != (T // bm,):
+        raise ValueError(f"grouped_matmul on meta: w on {w.device}, "
+                         f"{tuple(group_ids.shape)} ids for {T // bm} "
+                         f"blocks")
+    return torch.empty(T, w.shape[2], dtype=x.dtype, device="meta")
+
+
+def _device_product(x, w, group_ids, bm: int) -> torch.Tensor:
     if x.device.type == "cuda":
         return grouped_matmul_cuda(x, w, group_ids, bm=bm)
     if x.device.type == "cpu":
         return grouped_matmul_plain(x, w, group_ids, bm=bm)
-    raise ValueError(f"grouped_matmul runs on CUDA or the CPU, not "
+    if x.device.type == "meta":
+        return grouped_matmul_meta(x, w, group_ids, bm=bm)
+    raise ValueError(f"grouped_matmul runs on CUDA, the CPU or meta, not "
                      f"{x.device}")
+
+
+def _grouped(x: torch.Tensor, w: torch.Tensor, group_ids: torch.Tensor,
+             bm: int, bk: int, bn: int) -> torch.Tensor:
+    """The product without autograd: the kernel, the plain version or the
+    shape-only path; reported to :data:`OBSERVER` as one op."""
+    _check_tiles(x, w, bm, bk, bn)
+    obs = OBSERVER
+    if obs is None:
+        return _device_product(x, w, group_ids, bm)
+    with obs.opaque():
+        out = _device_product(x, w, group_ids, bm)
+    obs.grouped(x, w, out)
+    return out
 
 
 def _check_expert_rows(x: torch.Tensor, w: torch.Tensor,

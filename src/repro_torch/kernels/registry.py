@@ -207,6 +207,20 @@ def get(format: str, backend: str) -> KernelSpec:
             f"backend={backend!r}; available: {sorted(_REGISTRY)}") from None
 
 
+def spmm(m, b: torch.Tensor, *, format: str, backend: str = "cuda",
+         ctx: Optional[KernelContext] = None) -> torch.Tensor:
+    """One-call registry entry point: prepare + run in one shot.
+
+    The ``cuda`` backend launches the kernel for a CUDA ``b`` and takes
+    the plain version for a CPU one.  For repeated execution against one
+    matrix, use ``repro_torch.sparse.dispatch`` (cached layouts) or
+    ``spec.bind``.
+    """
+    if ctx is None:
+        ctx = KernelContext(device=b.device)
+    return get(format, backend).bind(m, ctx)(b)
+
+
 def specs() -> Tuple[KernelSpec, ...]:
     """All registered specs, sorted by (format, backend)."""
     return tuple(_REGISTRY[k] for k in sorted(_REGISTRY))

@@ -1,4 +1,7 @@
-"""Device meshes for the sharded SpMM tier (``repro_torch.sparse.shard``).
+"""Device meshes for the sharded SpMM tier (``repro_torch.sparse.shard``),
+and the abstract meshes of the dry run (:class:`AbstractMesh`,
+:func:`make_production_mesh`, :func:`make_host_mesh`: named axes and
+sizes, no devices; ``launch.sharding`` and ``launch.dryrun`` read them).
 
 A :class:`ShardMesh` is a 1-D tuple of ``torch.device`` s along the axis
 ``"shard"``; a :class:`~repro_torch.sparse.shard.ShardedPlan` puts shard
@@ -92,3 +95,64 @@ def make_shard_mesh(num_shards: Optional[int] = None,
     if num_shards < 1:
         raise ValueError(f"num_shards must be >= 1, got {num_shards}")
     return ShardMesh(visible[:num_shards])
+
+
+# ---------------------------------------------------------------------------
+# Abstract meshes for the dry run.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A named device mesh that touches no device: ``axis_names`` in
+    order and ``shape`` (axis name -> size), as a ``jax.sharding.Mesh``
+    reports them.  The sharding policy (``launch.sharding``) and the dry
+    run read it; nothing executes on it."""
+
+    axis_names: Tuple[str, ...]
+    shape: dict
+
+    @property
+    def size(self) -> int:
+        """Devices in the mesh."""
+        n = 1
+        for a in self.axis_names:
+            n *= self.shape[a]
+        return n
+
+
+def abstract_mesh(shape: Tuple[int, ...],
+                  axis_names: Tuple[str, ...]) -> AbstractMesh:
+    """An :class:`AbstractMesh` of ``shape`` over ``axis_names``."""
+    if len(shape) != len(axis_names):
+        raise ValueError(f"mesh shape {shape} does not match axes "
+                         f"{axis_names}")
+    return AbstractMesh(tuple(axis_names), dict(zip(axis_names, shape)))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The H100 production mesh: ``(data=32, model=8)``, 256 cards, or
+    ``(pod=2, data=32, model=8)``, 512 cards.
+
+    The model (tensor-parallel) axis is 8 so that it stays inside one
+    8-card NVLink node, where every card reaches every other at 450 GB/s
+    each way; data parallelism (FSDP) and the pods span nodes.  The
+    reference's 16 x 16 mesh was a TPU torus, where both axes ride the
+    same interconnect.
+    """
+    if multi_pod:
+        return abstract_mesh((2, 32, 8), ("pod", "data", "model"))
+    return abstract_mesh((32, 8), ("data", "model"))
+
+
+def make_host_mesh(data: int = 1, model: int = 1) -> AbstractMesh:
+    """A ``(data, model)`` mesh clamped to the cards that are visible (1
+    on a one-card machine).
+
+    Raises:
+        RuntimeError: when no card is visible.
+    """
+    resolve_device("cuda")
+    n = torch.cuda.device_count()
+    data = min(data, n)
+    model = max(1, min(model, n // data))
+    return abstract_mesh((data, model), ("data", "model"))

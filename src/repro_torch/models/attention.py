@@ -2,22 +2,62 @@
 sliding-window (``local``) attention for ``forward``, and one-token
 attention against a KV cache (linear or ring) for ``decode_step``.
 
-The counterpart of the reference's ``repro.models.attention`` with its
-default causal implementation, ``"masked"``: every (q block, kv block)
-pair is computed and the upper triangle masked.  Local attention is the
+The counterpart of the reference's ``repro.models.attention``, with both
+of its causal implementations (:data:`CAUSAL_IMPL`): ``"masked"`` (the
+default) computes every (q block, kv block) pair and masks the upper
+triangle; ``"triangle"`` computes only the pairs on and below the
+diagonal, on square blocks, so its products fall to ``(nq + 1) / (2 nq)``
+of the masked ones at ``nq`` q blocks.  Local attention is the
 paper's banded regime applied to attention: each q block reads one band of
 ``window`` keys before it, so its traffic and FLOPs scale with the window,
 not the sequence.  Logits, softmax statistics and accumulators are fp32;
 the probabilities that multiply V are rounded to V's dtype, as in the
-reference.  The ``"triangle"`` causal implementation is not ported.
+reference.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30
+
+#: The causal implementation of :func:`chunked_attention`: ``"masked"`` or
+#: ``"triangle"``.  Module-level, as the reference's, so a launch script
+#: flips it per experiment (``launch.dryrun --causal-impl``).
+CAUSAL_IMPL = "masked"
+
+
+def set_causal_impl(impl: str) -> None:
+    """Set :data:`CAUSAL_IMPL`.
+
+    Raises:
+        ValueError: for another name than ``"masked"`` or ``"triangle"``.
+    """
+    global CAUSAL_IMPL
+    if impl not in ("masked", "triangle"):
+        raise ValueError(f"causal impl must be 'masked' or 'triangle', "
+                         f"not {impl!r}")
+    CAUSAL_IMPL = impl
+
+
+def _remat(fn, *args):
+    """``fn(*args)``, checkpointed where gradients are recorded: its
+    activations are recomputed in the backward pass, as the reference's
+    ``jax.checkpoint`` of each q block's step (flash-attention memory:
+    no tile's probabilities are saved)."""
+    if torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def kv_blocks(i: int, nk: int, triangle: bool) -> range:
+    """The kv blocks q block ``i`` of :func:`chunked_attention` computes:
+    the ``i + 1`` on and below the diagonal for the triangle, else all
+    ``nk``."""
+    return range(i + 1) if triangle else range(nk)
 
 
 def _pick_block(s: int, pref: int) -> int:
@@ -73,28 +113,45 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
-    bq, bk = _pick_block(sq, q_block), _pick_block(skv, kv_block)
+    bq = _pick_block(sq, q_block)
+    triangle = causal and CAUSAL_IMPL == "triangle" and sq == skv
+    # The triangle walks square block pairs (i, j <= i) row by row.
+    bk = bq if triangle else _pick_block(skv, kv_block)
     # The 1/sqrt(D) scale is applied in q's dtype, as the reference does.
     qe = _gqa_expand(q, hkv) * (1.0 / math.sqrt(d))
     q_pos = torch.arange(bq, device=q.device)
     k_pos = torch.arange(bk, device=q.device)
+
+    def tile(i, j, qi, kj, vj, acc, m_acc, l_acc):
+        mask = None
+        if causal:
+            mask = (i * bq + q_pos[:, None]) >= (j * bk + k_pos[None, :])
+        return _merge(acc, m_acc, l_acc, *_attn_block(qi, kj, vj, mask))
+
+    def q_step(i, qi, k, v, pairs):
+        # Made from qi, so a step counter splits them as it splits q.
+        acc = qi.new_zeros((b, hkv, g, bq, d), dtype=torch.float32)
+        m_acc = qi.new_full((b, hkv, g, bq), NEG_INF, dtype=torch.float32)
+        l_acc = qi.new_zeros((b, hkv, g, bq), dtype=torch.float32)
+        for j in pairs:
+            kv = (k[:, j * bk:(j + 1) * bk], v[:, j * bk:(j + 1) * bk])
+            # The triangle rematerialises each pair, as the reference's
+            # checkpointed scan over pairs does.
+            acc, m_acc, l_acc = _remat(tile, i, j, qi, *kv, acc, m_acc,
+                                       l_acc) if triangle else \
+                tile(i, j, qi, *kv, acc, m_acc, l_acc)
+        out = acc / torch.clamp(l_acc[..., None], min=1e-30)
+        # [B,Hkv,G,bq,D] -> [B,bq,Hq,D]
+        return out.permute(0, 3, 1, 2, 4).reshape(b, bq, hq, d).to(q.dtype)
+
     blocks = []
     for i in range(sq // bq):
         qi = qe[:, i * bq:(i + 1) * bq]
-        acc = torch.zeros(b, hkv, g, bq, d, device=q.device)
-        m_acc = torch.full((b, hkv, g, bq), NEG_INF, device=q.device)
-        l_acc = torch.zeros(b, hkv, g, bq, device=q.device)
-        for j in range(skv // bk):
-            mask = None
-            if causal:
-                mask = (i * bq + q_pos[:, None]) >= (j * bk + k_pos[None, :])
-            out, m, l = _attn_block(qi, k[:, j * bk:(j + 1) * bk],
-                                    v[:, j * bk:(j + 1) * bk], mask)
-            acc, m_acc, l_acc = _merge(acc, m_acc, l_acc, out, m, l)
-        out = acc / torch.clamp(l_acc[..., None], min=1e-30)
-        # [B,Hkv,G,bq,D] -> [B,bq,Hq,D]
-        blocks.append(out.permute(0, 3, 1, 2, 4).reshape(b, bq, hq, d)
-                      .to(q.dtype))
+        pairs = kv_blocks(i, skv // bk, triangle)
+        if triangle:
+            blocks.append(q_step(i, qi, k, v, pairs))
+        else:
+            blocks.append(_remat(q_step, i, qi, k, v, pairs))
     return torch.cat(blocks, dim=1)
 
 
@@ -121,16 +178,19 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q_pos = torch.arange(bq, device=q.device)[:, None] + window
     k_pos = torch.arange(band, device=q.device)
     in_window = (q_pos >= k_pos) & (q_pos - k_pos < window)
+
+    def q_step(start, qi, kj, vj):
+        mask = in_window & (start + k_pos - window >= 0)[None, :]
+        out, _, l = _attn_block(qi, kj, vj, mask)
+        out = out / torch.clamp(l[..., None], min=1e-30)
+        return out.permute(0, 3, 1, 2, 4).reshape(b, bq, hq, d).to(q.dtype)
+
     blocks = []
     for i in range(s // bq):
         start = i * bq
-        mask = in_window & (start + k_pos - window >= 0)[None, :]
-        out, _, l = _attn_block(qe[:, start:start + bq],
-                                kp[:, start:start + band],
-                                vp[:, start:start + band], mask)
-        out = out / torch.clamp(l[..., None], min=1e-30)
-        blocks.append(out.permute(0, 3, 1, 2, 4).reshape(b, bq, hq, d)
-                      .to(q.dtype))
+        blocks.append(_remat(q_step, start, qe[:, start:start + bq],
+                             kp[:, start:start + band],
+                             vp[:, start:start + band]))
     return torch.cat(blocks, dim=1)
 
 

@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models.sharding_ctx import NO_SHARDING, ShardingCtx
+
 
 def he_init(shape, fan_in: Optional[int] = None, *,
             generator: Optional[torch.Generator],
@@ -136,41 +138,60 @@ class Dense(nn.Module):
 
 
 def mlp(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
-        variant: str, w_up: Optional[torch.Tensor] = None) -> torch.Tensor:
+        variant: str, w_up: Optional[torch.Tensor] = None,
+        ctx: ShardingCtx = NO_SHARDING) -> torch.Tensor:
     """``swiglu`` / ``geglu``: ``act(x @ w_in) * (x @ w_up) @ w_out`` with
     SiLU / tanh-GELU; ``gelu``: ``gelu(x @ w_in) @ w_out`` (``w_up``
-    unused)."""
+    unused).  A gated variant given ``w_up=None`` takes ``w_in`` as the
+    fused ``[d, 2 * d_ff]`` kernel, the gate's columns first.  The hidden
+    activation is constrained as ``"ffn_bsf"``."""
     h = dense(x, w_in)
-    h = F.silu(h) if variant == "swiglu" else F.gelu(h, approximate="tanh")
     if variant in ("swiglu", "geglu"):
-        h = h * dense(x, w_up)
-    return dense(h, w_out)
+        if w_up is None:
+            h, up = torch.chunk(h, 2, dim=-1)
+        else:
+            up = dense(x, w_up)
+        act = F.silu(h) if variant == "swiglu" else \
+            F.gelu(h, approximate="tanh")
+        h = act * up
+    else:
+        h = F.gelu(h, approximate="tanh")
+    return dense(ctx.constrain(h, "ffn_bsf"), w_out)
 
 
 class MLP(nn.Module):
-    """The dense FFN: ``wi_gate``, ``wi_up``, ``wo`` (gated variants) or
-    ``wi``, ``wo`` (``gelu``)."""
+    """The dense FFN: ``wi_gate``, ``wi_up``, ``wo`` (gated variants),
+    ``wi_fused`` (``[d, 2 * d_ff]``, the gate's and up's columns side by
+    side) and ``wo`` (gated and ``fused``), or ``wi``, ``wo``
+    (``gelu``)."""
 
     def __init__(self, d: int, d_ff: int, variant: str, *,
                  dtype: torch.dtype, device: torch.device,
                  generator: Optional[torch.Generator],
-                 trainable: bool = False):
+                 trainable: bool = False, fused: bool = False):
         super().__init__()
         self.variant = variant
         kw = dict(dtype=dtype, device=device, generator=generator,
                   trainable=trainable)
         if variant in ("swiglu", "geglu"):
-            self.wi_gate = Dense(d, d_ff, **kw)
-            self.wi_up = Dense(d, d_ff, **kw)
+            if fused:
+                self.wi_fused = Dense(d, 2 * d_ff, **kw)
+            else:
+                self.wi_gate = Dense(d, d_ff, **kw)
+                self.wi_up = Dense(d, d_ff, **kw)
         else:
             self.wi = Dense(d, d_ff, **kw)
         self.wo = Dense(d_ff, d, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                ctx: ShardingCtx = NO_SHARDING) -> torch.Tensor:
+        if hasattr(self, "wi_fused"):
+            return mlp(x, self.wi_fused.kernel, self.wo.kernel,
+                       self.variant, ctx=ctx)
         if self.variant in ("swiglu", "geglu"):
             return mlp(x, self.wi_gate.kernel, self.wo.kernel, self.variant,
-                       self.wi_up.kernel)
-        return mlp(x, self.wi.kernel, self.wo.kernel, self.variant)
+                       self.wi_up.kernel, ctx=ctx)
+        return mlp(x, self.wi.kernel, self.wo.kernel, self.variant, ctx=ctx)
 
 
 # ---------------------------------------------------------------------------

@@ -57,8 +57,22 @@ from repro_torch.models import layers as L
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
 from repro_torch.models.moe import LAUNCHES_PER_LAYER, GroupedMatmul, MoE
+from repro_torch.models.sharding_ctx import NO_SHARDING, ShardingCtx
 
 COMPUTE_DTYPE = torch.bfloat16
+
+#: Fuse each decoder layer's q/k/v projections into one ``wqkv`` and a
+#: gated MLP's gate/up into one ``wi_fused``: the same products, fewer
+#: launches (and, on a mesh, one backward all-reduce where there were
+#: three or two).  Read when an ``LM`` is made; off by default, as in the
+#: reference.  whisper's encoder and cross-attention stay unfused.
+FUSE_PROJECTIONS = False
+
+
+def set_fused_projections(flag: bool) -> None:
+    """Set :data:`FUSE_PROJECTIONS` for the models made after the call."""
+    global FUSE_PROJECTIONS
+    FUSE_PROJECTIONS = flag
 
 #: The families and layer kinds the port runs.
 FAMILIES = ("dense", "moe", "vlm", "encdec", "ssm", "hybrid")
@@ -246,15 +260,25 @@ class Attention(nn.Module):
     """``wq``, ``wk``, ``wv`` (with ``qkv_bias``) and ``wo``, for one
     ``kind`` of attention: ``"global"`` (causal), ``"local"`` (a sliding
     window of ``cfg.window_size``), ``"encoder"`` (bidirectional) or
-    ``"cross"`` (the decoder's queries on the encoder's output)."""
+    ``"cross"`` (the decoder's queries on the encoder's output).  With
+    ``fused`` (global and local only), one ``wqkv`` ``[d, (H + 2 Hkv) D]``
+    holds q's, k's and v's columns side by side."""
 
-    def __init__(self, cfg: ModelConfig, kind: str = "global", **kw):
+    def __init__(self, cfg: ModelConfig, kind: str = "global",
+                 fused: bool = False, **kw):
         super().__init__()
         d, hd = cfg.d_model, cfg.head_dim
         self.cfg, self.kind = cfg, kind
-        self.wq = L.Dense(d, cfg.num_heads * hd, bias=cfg.qkv_bias, **kw)
-        self.wk = L.Dense(d, cfg.num_kv_heads * hd, bias=cfg.qkv_bias, **kw)
-        self.wv = L.Dense(d, cfg.num_kv_heads * hd, bias=cfg.qkv_bias, **kw)
+        if fused:
+            self.wqkv = L.Dense(d, (cfg.num_heads + 2 * cfg.num_kv_heads)
+                                * hd, bias=cfg.qkv_bias, **kw)
+        else:
+            self.wq = L.Dense(d, cfg.num_heads * hd, bias=cfg.qkv_bias,
+                              **kw)
+            self.wk = L.Dense(d, cfg.num_kv_heads * hd, bias=cfg.qkv_bias,
+                              **kw)
+            self.wv = L.Dense(d, cfg.num_kv_heads * hd, bias=cfg.qkv_bias,
+                              **kw)
         self.wo = L.Dense(cfg.num_heads * hd, d, **kw)
 
     def _heads(self, y: torch.Tensor, heads: int) -> torch.Tensor:
@@ -265,28 +289,40 @@ class Attention(nn.Module):
         return (self._heads(self.wk(x), self.cfg.num_kv_heads),
                 self._heads(self.wv(x), self.cfg.num_kv_heads))
 
-    def qkv(self, x: torch.Tensor, positions: torch.Tensor):
+    def qkv(self, x: torch.Tensor, positions: torch.Tensor,
+            ctx: ShardingCtx = NO_SHARDING):
         """Projections of ``x [B, S, d]``, with RoPE on q and k (M-RoPE
-        where the positions are ``[3, B, S]``; none for ``encdec``)."""
+        where the positions are ``[3, B, S]``; none for ``encdec``),
+        constrained as ``"heads_bshd"`` / ``"kv_bskd"``."""
         cfg = self.cfg
-        q = self._heads(self.wq(x), cfg.num_heads)
-        k, v = self.kv(x)
-        if cfg.family == "encdec":
-            return q, k, v
-        rope = L.apply_mrope if cfg.mrope and positions.dim() == 3 \
-            else L.apply_rope
-        return (rope(q, positions, cfg.rope_theta),
-                rope(k, positions, cfg.rope_theta), v)
+        if hasattr(self, "wqkv"):
+            nq = cfg.num_heads * cfg.head_dim
+            nkv = cfg.num_kv_heads * cfg.head_dim
+            fused = self.wqkv(x)
+            q = self._heads(fused[..., :nq], cfg.num_heads)
+            k = self._heads(fused[..., nq:nq + nkv], cfg.num_kv_heads)
+            v = self._heads(fused[..., nq + nkv:], cfg.num_kv_heads)
+        else:
+            q = self._heads(self.wq(x), cfg.num_heads)
+            k, v = self.kv(x)
+        if cfg.family != "encdec":
+            rope = L.apply_mrope if cfg.mrope and positions.dim() == 3 \
+                else L.apply_rope
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
+        return (ctx.constrain(q, "heads_bshd"), ctx.constrain(k, "kv_bskd"),
+                ctx.constrain(v, "kv_bskd"))
 
-    def forward(self, x: torch.Tensor,
-                positions: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, positions: Optional[torch.Tensor],
+                ctx: ShardingCtx = NO_SHARDING) -> torch.Tensor:
         b, s, _ = x.shape
-        q, k, v = self.qkv(x, positions)
+        q, k, v = self.qkv(x, positions, ctx)
         if self.kind == "local" and s > self.cfg.window_size:
             out = A.local_attention(q, k, v, window=self.cfg.window_size)
         else:
             out = A.chunked_attention(q, k, v,
                                       causal=self.kind != "encoder")
+        out = ctx.constrain(out, "heads_bshd")
         return self.wo(out.reshape(b, s, -1))
 
     def cross(self, x: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
@@ -299,18 +335,21 @@ class Attention(nn.Module):
         return self.wo(out.reshape(b, s, -1))
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-               pos: int, positions: torch.Tensor) -> torch.Tensor:
+               pos: int, positions: torch.Tensor,
+               ctx: ShardingCtx = NO_SHARDING) -> torch.Tensor:
         """x: ``[B, 1, d]``; writes slot :func:`cache_slot` of the cache in
         place and attends to the slots :func:`cache_mask` gives."""
         b = x.shape[0]
-        q, k_new, v_new = self.qkv(x, positions)
+        q, k_new, v_new = self.qkv(x, positions, ctx)
         s_c = cache["k"].shape[1]
         slot = cache_slot(self.kind, pos, s_c)
         cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
         cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
         mask = cache_mask(self.kind, pos, s_c, x.device)[None, :] \
             .expand(b, s_c)
-        out = A.decode_attention(q, cache["k"], cache["v"], mask)
+        out = A.decode_attention(q, ctx.constrain(cache["k"], "kv_cache"),
+                                 ctx.constrain(cache["v"], "kv_cache"),
+                                 mask)
         return self.wo(out.reshape(b, 1, -1))
 
     def cross_decode(self, x: torch.Tensor, k: torch.Tensor,
@@ -331,43 +370,50 @@ class Block(nn.Module):
     def __init__(self, cfg: ModelConfig, kind: str = "global", **kw):
         super().__init__()
         d = cfg.d_model
+        fused = FUSE_PROJECTIONS and kind != "encoder"
         norm_kw = dict(device=kw["device"], trainable=kw["trainable"])
         self.ln1 = make_norm(cfg, d, **norm_kw)
-        self.attn = Attention(cfg, kind, **kw)
+        self.attn = Attention(cfg, kind, fused=fused, **kw)
         self.ln2 = make_norm(cfg, d, **norm_kw)
         if cfg.num_experts:
             self.moe = MoE(d, cfg.moe_d_ff, cfg.num_experts,
                            cfg.num_experts_per_token,
                            cfg.moe_capacity_factor, **kw)
         else:
-            self.mlp = L.MLP(d, cfg.d_ff, cfg.mlp_variant, **kw)
+            self.mlp = L.MLP(d, cfg.d_ff, cfg.mlp_variant, fused=fused,
+                             **kw)
         if cfg.family == "encdec" and kind != "encoder":
             self.ln_cross = make_norm(cfg, d, **norm_kw)
             self.cross = Attention(cfg, "cross", **kw)
 
-    def ffn(self, x: torch.Tensor, gmm: GroupedMatmul) -> torch.Tensor:
+    def ffn(self, x: torch.Tensor, gmm: GroupedMatmul,
+            ctx: ShardingCtx = NO_SHARDING) -> torch.Tensor:
         h = self.ln2(x)
         if hasattr(self, "moe"):
-            return x + self.moe(h, gmm)
-        return x + self.mlp(h)
+            return x + self.moe(h, gmm, ctx)
+        return x + self.mlp(h, ctx)
 
     def forward(self, x: torch.Tensor, positions: Optional[torch.Tensor],
                 gmm: GroupedMatmul = grouped_matmul,
-                enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x), positions)
+                enc_out: Optional[torch.Tensor] = None,
+                ctx: ShardingCtx = NO_SHARDING) -> torch.Tensor:
+        # whisper's encoder constrains only its MLP, as the reference's.
+        x = x + self.attn(self.ln1(x), positions,
+                          NO_SHARDING if self.attn.kind == "encoder" else ctx)
         if hasattr(self, "cross"):
             x = x + self.cross.cross(self.ln_cross(x), enc_out)
-        return self.ffn(x, gmm)
+        return self.ffn(x, gmm, ctx)
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                pos: int, positions: torch.Tensor,
-               gmm: GroupedMatmul) -> torch.Tensor:
-        x = x + self.attn.decode(self.ln1(x), cache, pos, positions)
+               gmm: GroupedMatmul,
+               ctx: ShardingCtx = NO_SHARDING) -> torch.Tensor:
+        x = x + self.attn.decode(self.ln1(x), cache, pos, positions, ctx)
         if hasattr(self, "cross"):
             x = x + self.cross.cross_decode(self.ln_cross(x),
                                             cache["cross_k"],
                                             cache["cross_v"])
-        return self.ffn(x, gmm)
+        return self.ffn(x, gmm, ctx)
 
 
 class MambaBlock(nn.Module):
@@ -383,14 +429,15 @@ class MambaBlock(nn.Module):
                              cfg.ssm_expand, **kw)
 
     def forward(self, x: torch.Tensor, positions=None, gmm=None,
-                enc_out=None) -> torch.Tensor:
-        return x + S.mamba_forward(self.mamba, self.ln(x))
+                enc_out=None, ctx: ShardingCtx = NO_SHARDING
+                ) -> torch.Tensor:
+        return x + S.mamba_forward(self.mamba, self.ln(x), ctx=ctx)
 
     def init_cache(self, batch: int, dtype: torch.dtype):
         return S.init_mamba_cache(self.mamba, batch, dtype)
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-               pos: int, positions, gmm) -> torch.Tensor:
+               pos: int, positions, gmm, ctx=NO_SHARDING) -> torch.Tensor:
         """One token; the cache's ``conv`` and ``h`` are replaced."""
         out, new = S.mamba_decode(self.mamba, cache, self.ln(x))
         cache.update(new)
@@ -410,19 +457,22 @@ class RGLRUBlock(nn.Module):
         self.rglru = R.RGLRU(cfg.d_model, cfg.rnn_width or cfg.d_model,
                              cfg.ssm_conv, **kw)
         self.ln2 = make_norm(cfg, cfg.d_model, **norm_kw)
-        self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.mlp_variant, **kw)
+        self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.mlp_variant,
+                         fused=FUSE_PROJECTIONS, **kw)
 
     def forward(self, x: torch.Tensor, positions=None, gmm=None,
-                enc_out=None) -> torch.Tensor:
-        x = x + R.rglru_forward(self.rglru, self.ln1(x))
-        return x + self.mlp(self.ln2(x))
+                enc_out=None, ctx: ShardingCtx = NO_SHARDING
+                ) -> torch.Tensor:
+        x = x + R.rglru_forward(self.rglru, self.ln1(x), ctx=ctx)
+        return x + self.mlp(self.ln2(x), ctx)
 
     def init_cache(self, batch: int, dtype: torch.dtype):
         return R.init_rglru_cache(self.rglru, batch, dtype)
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-               pos: int, positions, gmm) -> torch.Tensor:
-        """One token; the cache's ``conv`` and ``h`` are replaced."""
+               pos: int, positions, gmm, ctx=NO_SHARDING) -> torch.Tensor:
+        """One token; the cache's ``conv`` and ``h`` are replaced (as in
+        the reference, its MLP sees no constraint)."""
         out, new = R.rglru_decode(self.rglru, cache, self.ln1(x))
         cache.update(new)
         x = x + out
@@ -534,8 +584,8 @@ class LM(nn.Module):
             return checkpoint(block, *args, use_reentrant=False)
         return block(*args)
 
-    def encode(self, frames: torch.Tensor,
-               remat: bool = True) -> torch.Tensor:
+    def encode(self, frames: torch.Tensor, remat: bool = True,
+               ctx: ShardingCtx = NO_SHARDING) -> torch.Tensor:
         """whisper's encoder on ``frames [B, S_enc, d]`` (the stubbed
         front end's embeddings): the frames in the compute dtype plus the
         sinusoidal table, the bidirectional layers (checkpointed under
@@ -545,29 +595,31 @@ class LM(nn.Module):
         x = frames.to(self.device).to(self.dtype)
         x = x + self._sinusoid(x.shape[1]).to(x.dtype)
         for block in self.encoder.layers:
-            x = self._layer(block, remat, x, None)
+            x = self._layer(block, remat, x, None, None, None, ctx)
         return self.encoder.norm(x)
 
     def _embed_tokens(self, tokens: torch.Tensor,
-                      mm_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+                      mm_embeds: Optional[torch.Tensor],
+                      ctx: ShardingCtx) -> torch.Tensor:
         """Token embeddings; qwen2-vl's first ``n_mm`` replaced by
         ``mm_proj(mm_embeds)`` in the compute dtype; whisper's plus the
-        sinusoidal table's first ``S`` rows."""
+        sinusoidal table's first ``S`` rows; constrained as
+        ``"tokens_bse"``."""
         x = self._embed(tokens)
         if self.cfg.family == "vlm" and mm_embeds is not None:
             mm = self.mm_proj(mm_embeds.to(self.device).to(x.dtype))
             x = torch.cat([mm, x[:, mm.shape[1]:]], dim=1)
         if self.cfg.family == "encdec":
             x = x + self._sinusoid(tokens.shape[1]).to(x.dtype)
-        return x
+        return ctx.constrain(x, "tokens_bse")
 
     def forward(self, tokens: torch.Tensor,
                 gmm: GroupedMatmul = grouped_matmul, *,
                 frames: Optional[torch.Tensor] = None,
                 mm_embeds: Optional[torch.Tensor] = None,
                 positions_3d: Optional[torch.Tensor] = None,
-                remat: bool = True,
-                return_pre_logits: bool = False) -> torch.Tensor:
+                remat: bool = True, return_pre_logits: bool = False,
+                ctx: ShardingCtx = NO_SHARDING) -> torch.Tensor:
         """tokens ``[B, S]`` -> fp32 logits ``[B, S, V_padded]``, or the
         final-norm hidden states ``[B, S, d]`` when ``return_pre_logits``
         (the chunked loss).  ``frames [B, S_enc, d]`` feed whisper's
@@ -576,7 +628,10 @@ class LM(nn.Module):
         ``positions_3d [3, B, S]`` give its M-RoPE positions (other configs
         ignore both).  With ``remat``, where gradients are recorded, each
         layer is checkpointed: its activations are recomputed in the
-        backward pass (the MoE layers' grouped launches too).
+        backward pass (the MoE layers' grouped launches too).  ``ctx``
+        hears the reference's constraints (``models.sharding_ctx``): the
+        embedding and every layer's output as ``"tokens_bse"``, the
+        logits as ``"logits_bsv"``, and the layers' own.
 
         Raises:
             ValueError: an ``encdec`` config without ``frames``.
@@ -585,19 +640,22 @@ class LM(nn.Module):
         if cfg.family == "encdec" and frames is None:
             raise ValueError(f"{cfg.name}: forward needs the encoder's "
                              f"frames")
-        x = self._embed_tokens(tokens, mm_embeds)
+        x = self._embed_tokens(tokens, mm_embeds, ctx)
         b, s = tokens.shape
         if cfg.mrope and positions_3d is not None:
             positions = positions_3d.to(self.device)
         else:
             positions = torch.arange(s, device=self.device)[None] \
                 .expand(b, s)
-        enc_out = self.encode(frames, remat) if cfg.family == "encdec" \
-            else None
+        enc_out = self.encode(frames, remat, ctx) \
+            if cfg.family == "encdec" else None
         for block in self.layers:
-            x = self._layer(block, remat, x, positions, gmm, enc_out)
+            x = ctx.constrain(self._layer(block, remat, x, positions, gmm,
+                                          enc_out, ctx), "tokens_bse")
         x = self.final_norm(x)
-        return x if return_pre_logits else self._head(x)
+        if return_pre_logits:
+            return x
+        return ctx.constrain(self._head(x), "logits_bsv")
 
     def init_cache(self, batch: int,
                    cache_len: int) -> List[Dict[str, torch.Tensor]]:
@@ -648,14 +706,14 @@ class LM(nn.Module):
     def decode_step(self, cache: List[Dict[str, torch.Tensor]],
                     tokens: torch.Tensor, pos: int,
                     gmm: GroupedMatmul = grouped_matmul, *,
-                    positions_3d: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
+                    positions_3d: Optional[torch.Tensor] = None,
+                    ctx: ShardingCtx = NO_SHARDING) -> torch.Tensor:
         """One decode step: tokens ``[B]`` at position ``pos`` (the same for
         the whole batch) -> fp32 logits ``[B, V_padded]``; the cache is
         updated in place.  ``positions_3d [3, B, 1]`` give qwen2-vl's M-RoPE
         positions (otherwise every stream is ``pos``: 1-D RoPE); whisper
         adds row ``pos`` of the sinusoidal table."""
-        x = self._embed(tokens[:, None])
+        x = ctx.constrain(self._embed(tokens[:, None]), "tokens_bse")
         b = x.shape[0]
         if self.cfg.family == "encdec":
             x = x + self._sinusoid(pos + 1)[pos].to(x.dtype)
@@ -665,7 +723,8 @@ class LM(nn.Module):
             positions = torch.full((b, 1), pos, dtype=torch.int64,
                                    device=self.device)
         for block, layer_cache in zip(self.layers, cache):
-            x = block.decode(x, layer_cache, pos, positions, gmm)
+            x = ctx.constrain(block.decode(x, layer_cache, pos, positions,
+                                           gmm, ctx), "tokens_bse")
         return self._head(self.final_norm(x))[:, 0]
 
     def grouped_launches_per_step(self, train: bool = False,

@@ -30,6 +30,7 @@ from torch import nn
 from repro_torch.kernels.grouped_matmul import (TILE_M, check_group_ids,
                                                 grouped_matmul)
 from repro_torch.models.layers import he_init, weight
+from repro_torch.models.sharding_ctx import NO_SHARDING, ShardingCtx
 
 #: ``(x, w, group_ids, *, bm, bk, bn, expert_rows) -> out``: the grouped
 #: product the expert FFN calls (the kernel by default; tests and
@@ -73,8 +74,8 @@ def slot_ranks(ids: torch.Tensor, e0: int, e_loc: int):
     local = (ids >= e0) & (ids < e0 + e_loc)
     e_local = torch.clamp(ids - e0, 0, e_loc - 1)
     experts = torch.arange(e_loc, device=ids.device)
-    pos = torch.zeros(T, k, dtype=torch.int64, device=ids.device)
-    counts = torch.zeros(e_loc, dtype=torch.int64, device=ids.device)
+    pos = ids.new_zeros((T, k), dtype=torch.int64)
+    counts = ids.new_zeros(e_loc, dtype=torch.int64)
     for r in range(k):
         onehot = (experts[None, :] == e_local[:, r][:, None]) & \
             local[:, r][:, None]                               # [T, E_loc]
@@ -99,7 +100,7 @@ def bucket_local(x: torch.Tensor, weights: torch.Tensor, ids: torch.Tensor,
     k = ids.shape[1]
     e_local, local, pos = slot_ranks(ids, e0, e_loc)
     keep = local & (pos < cap)
-    buf = torch.zeros(e_loc, rows or cap, d, dtype=x.dtype, device=x.device)
+    buf = x.new_zeros((e_loc, rows or cap, d))
     flat_e = torch.where(keep, e_local, 0).reshape(-1)
     flat_c = torch.where(keep, pos, 0).reshape(-1)
     updates = x[:, None, :].expand(T, k, d).reshape(-1, d) * \
@@ -178,17 +179,21 @@ class MoE(nn.Module):
                   bn=tile(d), expert_rows=rows)
         return out.reshape(e, rows, d)
 
-    def forward(self, x: torch.Tensor,
-                gmm: GroupedMatmul = grouped_matmul) -> torch.Tensor:
-        """x: ``[B, S, d]`` in the compute dtype."""
+    def forward(self, x: torch.Tensor, gmm: GroupedMatmul = grouped_matmul,
+                ctx: ShardingCtx = NO_SHARDING) -> torch.Tensor:
+        """x: ``[B, S, d]`` in the compute dtype.  The ``[E, C_pad, d]``
+        buffer is constrained as ``"moe_gecd"``: it is the reference's
+        ``[groups, E, C, d]`` buffer with the groups folded into the rows
+        (``core.step_cost`` splits its rows as the groups and its experts
+        over ``"model"``)."""
         B, S, d = x.shape
         flat = x.reshape(B * S, d)
         weights, ids = router(flat, self.router, self.k)
         cap = capacity(B * S, self.k, self.num_experts, self.capacity_factor)
         buf, combine = bucket_local(flat, weights, ids, 0, self.num_experts,
                                     cap, rows=padded_capacity(cap))
-        return combine_local(self.expert_ffn(buf, gmm), combine) \
-            .reshape(B, S, d)
+        out = self.expert_ffn(ctx.constrain(buf, "moe_gecd"), gmm)
+        return combine_local(out, combine).reshape(B, S, d)
 
 
 def moe_ffn_dense(moe: MoE, x: torch.Tensor) -> torch.Tensor:
@@ -208,3 +213,22 @@ def moe_ffn_dense(moe: MoE, x: torch.Tensor) -> torch.Tensor:
     gate.scatter_add_(1, ids, weights)
     out = torch.einsum("ted,te->td", all_out.float(), gate)
     return out.reshape(B, S, d).to(x.dtype)
+
+
+def sparse_component_spec(cfg, shape, t_tokens: int) -> Dict:
+    """Paper-model metadata for the analyzer: MoE as blocked sparsity.
+
+    A = token x token-slot block-diagonal matrix: one t x t dense block per
+    capacity bucket; d = d_model (the dense operand width).
+    """
+    return {
+        "name": f"moe_dispatch/{cfg.name}",
+        "regime": "blocked_tpu",
+        "n": t_tokens * cfg.num_experts_per_token,
+        "nnz": t_tokens * cfg.num_experts_per_token * 128,
+        "t": 128,
+        "num_blocks": max(
+            1, t_tokens * cfg.num_experts_per_token // 128),
+        "d": cfg.d_model,
+        "sizeof_val": 2,
+    }

@@ -19,6 +19,7 @@ from torch import nn
 
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
+from repro_torch.models.sharding_ctx import NO_SHARDING, ShardingCtx
 
 NUM_GATE_BLOCKS = 16
 _C = 8.0
@@ -76,17 +77,19 @@ def gates(p: RGLRU, xb: torch.Tensor):
     return a, gated
 
 
-def rglru_forward(p: RGLRU, x: torch.Tensor, *,
-                  chunk: int = 512) -> torch.Tensor:
+def rglru_forward(p: RGLRU, x: torch.Tensor, *, chunk: int = 512,
+                  ctx: ShardingCtx = NO_SHARDING) -> torch.Tensor:
     """x: ``[B, S, d]`` -> ``[B, S, d]``; chunks of ``min(chunk, S)``
-    timesteps, or one chunk where ``S`` is not a multiple of that."""
+    timesteps, or one chunk where ``S`` is not a multiple of that.  The
+    conv's output is constrained as ``"ssm_bsdn"``."""
     b, s, _ = x.shape
     branch = F.gelu(p.wy(x), approximate="tanh")
-    xb = S.causal_conv(p.wx(x), p.conv_w, p.conv_b)
+    xb = ctx.constrain(S.causal_conv(p.wx(x), p.conv_w, p.conv_b),
+                       "ssm_bsdn")
     ch = min(chunk, s)
     if s % ch:
         ch = s
-    h = torch.zeros(b, xb.shape[-1], dtype=torch.float32, device=x.device)
+    h = xb.new_zeros((b, xb.shape[-1]), dtype=torch.float32)
     outs = []
     for c in range(s // ch):
         a, gated = gates(p, xb[:, c * ch:(c + 1) * ch])

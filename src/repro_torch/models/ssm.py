@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import layers as L
+from repro_torch.models.sharding_ctx import NO_SHARDING, ShardingCtx
 
 
 def causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -134,17 +135,18 @@ def discretize(p: Mamba, u: torch.Tensor):
     return da, dbu, cc
 
 
-def mamba_forward(p: Mamba, x: torch.Tensor, *,
-                  chunk: int = 256) -> torch.Tensor:
+def mamba_forward(p: Mamba, x: torch.Tensor, *, chunk: int = 256,
+                  ctx: ShardingCtx = NO_SHARDING) -> torch.Tensor:
     """x: ``[B, S, d]`` -> ``[B, S, d]``.  ``S`` must be a multiple of
-    ``min(chunk, S)``."""
+    ``min(chunk, S)``.  The conv's output is constrained as
+    ``"ssm_bsdn"``."""
     B, S, _ = x.shape
     ch = min(chunk, S)
     assert S % ch == 0
     u, z = torch.chunk(p.in_proj(x), 2, dim=-1)
-    u = F.silu(causal_conv(u, p.conv_w, p.conv_b))
-    h = torch.zeros(B, u.shape[-1], p.A_log.shape[1], dtype=torch.float32,
-                    device=x.device)
+    u = ctx.constrain(F.silu(causal_conv(u, p.conv_w, p.conv_b)),
+                      "ssm_bsdn")
+    h = u.new_zeros((B, u.shape[-1], p.A_log.shape[1]), dtype=torch.float32)
     ys = []
     for c in range(S // ch):
         da, dbu, cc = discretize(p, u[:, c * ch:(c + 1) * ch])

@@ -1,6 +1,7 @@
 """The train step: forward (per-layer checkpointed), softmax cross-entropy
 over the padded vocab, backward, AdamW (the reference's
-``repro.train.train_step.make_train_step`` without a mesh).
+``repro.train.train_step.make_train_step`` without a mesh), and the
+prefill and serve steps (``make_prefill_step``, ``make_serve_step``).
 
 Microbatch gradient accumulation (``grad_accum``) sums the fp32
 micro-gradients and scales them, as the reference does.  The step updates
@@ -19,6 +20,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.device import MULTI_CARD
+from repro_torch.launch import sharding as SH
+from repro_torch.models.sharding_ctx import NO_SHARDING, ShardingCtx
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import cosine_with_warmup
 
@@ -53,12 +56,24 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     return _token_losses(logits, labels, vocab).mean()
 
 
+def make_ctx(cfg: ModelConfig, mesh, shape: ShapeConfig) -> ShardingCtx:
+    """The sharding context of a step: :data:`NO_SHARDING` without a
+    mesh, else the policy's activation rules on ``mesh``
+    (``launch.sharding.activation_rules``), which the port only reports
+    (``models.sharding_ctx``)."""
+    if mesh is None:
+        return NO_SHARDING
+    return ShardingCtx(SH.activation_rules(cfg, mesh, shape), mesh)
+
+
 def chunked_xent(model, hidden: torch.Tensor, labels: torch.Tensor,
-                 chunk: int = 512) -> torch.Tensor:
+                 chunk: int = 512,
+                 ctx: ShardingCtx = NO_SHARDING) -> torch.Tensor:
     """Cross-entropy without materialising ``[B, S, V]`` fp32 logits: the
     sequence goes in chunks (the largest divisor of S up to ``chunk``),
     each chunk's unembed product and logsumexp checkpointed, so the peak
-    logits memory is ``B * chunk * V``."""
+    logits memory is ``B * chunk * V``.  Each chunk's logits are
+    constrained as ``"logits_bsv"``."""
     B, S, _ = hidden.shape
     ch = min(chunk, S)
     while S % ch:
@@ -67,7 +82,8 @@ def chunked_xent(model, hidden: torch.Tensor, labels: torch.Tensor,
     vocab = model.cfg.vocab_size
 
     def chunk_loss(h_c, lab_c, table):
-        logits = (h_c @ table.to(h_c.dtype).T).float()
+        logits = ctx.constrain((h_c @ table.to(h_c.dtype).T).float(),
+                               "logits_bsv")
         return _token_losses(logits, lab_c, vocab).sum()
 
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -80,20 +96,22 @@ def chunked_xent(model, hidden: torch.Tensor, labels: torch.Tensor,
 
 
 def make_grads(cfg: ModelConfig, *, remat: bool = True,
-               grad_accum: int = 1, chunked_loss: bool = False):
+               grad_accum: int = 1, chunked_loss: bool = False,
+               ctx: ShardingCtx = NO_SHARDING):
     """``grads_fn(model, batch) -> (loss, {name: grad})``: the mean loss
     (0-d fp32, detached) and the gradient of every parameter of ``model``
     by name.  With ``grad_accum`` > 1 the batch splits into that many
     micro-batches along its first axis; their fp32 gradients and losses
-    are summed and scaled by ``1 / grad_accum``."""
+    are summed and scaled by ``1 / grad_accum``.  ``ctx`` goes to the
+    model and the chunked loss."""
 
     def loss_fn(model, batch):
         extras = {k: batch[k] for k in MODALITY_KEYS if k in batch}
         if chunked_loss:
             hidden = model(batch["tokens"], remat=remat,
-                           return_pre_logits=True, **extras)
-            return chunked_xent(model, hidden, batch["labels"])
-        logits = model(batch["tokens"], remat=remat, **extras)
+                           return_pre_logits=True, ctx=ctx, **extras)
+            return chunked_xent(model, hidden, batch["labels"], ctx=ctx)
+        logits = model(batch["tokens"], remat=remat, ctx=ctx, **extras)
         return softmax_xent(logits, batch["labels"], cfg.vocab_size)
 
     def grads_fn(model, batch):
@@ -152,3 +170,52 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
         return {"loss": loss, "lr_scale": lr_scale, **om}
 
     return step_fn
+
+
+def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
+    """Inference prefill: ``(fn, None)`` with ``fn(model, batch, ctx=
+    NO_SHARDING) -> logits``, a forward with no recompute and no gradients
+    on the model's device (``batch`` holds ``tokens`` and the modality
+    keys; ``ctx`` hears the constraints, as the dry run's counter does).
+
+    Raises:
+        NotImplementedError: for a ``mesh``.
+    """
+    if mesh is not None:
+        raise NotImplementedError(f"make_prefill_step over a mesh comes "
+                                  f"with {MULTI_CARD}")
+    del cfg, shape
+
+    def prefill(model, batch, ctx: ShardingCtx = NO_SHARDING):
+        extras = {k: batch[k] for k in MODALITY_KEYS if k in batch}
+        with torch.no_grad():
+            return model(batch["tokens"], remat=False, ctx=ctx, **extras)
+
+    return prefill, None
+
+
+def make_serve_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
+    """One decode step against a ``shape.seq_len`` cache: ``(fn, None)``
+    with ``fn(model, cache, tokens, pos, ctx=NO_SHARDING) -> logits [B,
+    V_padded]``, the cache updated in place; M-RoPE configs get
+    ``positions_3d`` = ``pos`` on all three streams, as the reference
+    broadcasts it.
+
+    Raises:
+        NotImplementedError: for a ``mesh``.
+    """
+    if mesh is not None:
+        raise NotImplementedError(f"make_serve_step over a mesh comes with "
+                                  f"{MULTI_CARD}")
+    del shape
+
+    def serve(model, cache, tokens, pos, ctx: ShardingCtx = NO_SHARDING):
+        kw = {}
+        if cfg.mrope:
+            kw["positions_3d"] = torch.full((3, tokens.shape[0], 1), int(pos),
+                                            dtype=torch.int64,
+                                            device=model.device)
+        with torch.no_grad():
+            return model.decode_step(cache, tokens, int(pos), ctx=ctx, **kw)
+
+    return serve, None

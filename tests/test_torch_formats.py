@@ -318,6 +318,9 @@ def test_importing_port_leaves_jax_and_reference_unloaded():
         "import repro_torch.checkpoint.checkpointer\n"
         "import repro_torch.train.train_step, repro_torch.train.trainer\n"
         "import repro_torch.launch.train\n"
+        "import repro_torch.models.sharding_ctx, repro_torch.launch.sharding\n"
+        "import repro_torch.core.step_cost, repro_torch.core.collectives\n"
+        "import repro_torch.core.analyzer, repro_torch.launch.dryrun\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
         "print(bad)\n"

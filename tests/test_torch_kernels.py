@@ -180,10 +180,17 @@ def test_banded_plain_version_at_every_block_edge(n):
 @pytest.mark.parametrize("fmt", sorted(KERNEL_OF) + ["grouped"])
 def test_wrappers_refuse_other_devices(fmt):
     if fmt == "grouped":
+        # meta operands take the dry run's shape-only path; any other
+        # device than CUDA, the CPU or meta raises.
+        from types import SimpleNamespace
+        from repro_torch.kernels import grouped_matmul as G
         gids = torch.zeros(2, dtype=torch.int32, device="meta")
-        with pytest.raises(ValueError, match="CUDA or the CPU"):
-            grouped_matmul(torch.zeros(256, 128, device="meta"),
-                           torch.zeros(2, 128, 128, device="meta"), gids)
+        w = torch.zeros(2, 128, 128, device="meta")
+        out = grouped_matmul(torch.zeros(256, 128, device="meta"), w, gids)
+        assert out.device.type == "meta" and out.shape == (256, 128)
+        with pytest.raises(ValueError, match="CUDA, the CPU or meta"):
+            G._device_product(SimpleNamespace(device=torch.device("xpu")),
+                              w, gids, 128)
         return
     m = _bridge(MATRICES[fmt][0][1]())
     layout = port_registry.get(fmt, "cuda").prepare(
