@@ -90,13 +90,15 @@ The run reads and writes calibrations only in a fresh temporary
    rejecting a zeroed cross cache and an encoder without its sinusoidal
    positions.  qwen2-vl-7b at full width and depth (2 layers under
    ``--quick``) through ``serve --arch`` (1-D RoPE, the reference's
-   meaning); its decode against ``forward`` over 4 x 256 tokens with the
-   data pipeline's ``positions_3d`` (64 patch tokens on an 8 x 8 grid:
-   three distinct streams, which decode takes column by column),
-   rejecting a decode whose M-RoPE swaps the height and width streams;
-   and one forward of 1 x 1024 tokens with the pipeline's stubs (256
-   patch tokens on a 16 x 16 grid, their embeddings through ``mm_proj``),
-   whose logits must be finite.  Each model is freed before the next.
+   meaning), and one forward of 1 x 1024 tokens with the pipeline's
+   stubs (256 patch tokens on a 16 x 16 grid, their embeddings through
+   ``mm_proj``), whose logits must be finite; then, on its first 4 of 28
+   layers at full width (``VLM_CHECK_LAYERS``), its decode against
+   ``forward`` over 4 x 256 tokens with the data pipeline's
+   ``positions_3d`` (64 patch tokens on an 8 x 8 grid: three distinct
+   streams, which decode takes column by column), rejecting a decode
+   whose M-RoPE swaps the height and width streams.  Each model is freed
+   before the next.
 7. **recurrent** (the ``ssm`` and ``hybrid`` families, no port kernel on
    the path): counters are zeroed first and must all read 0 after.
    falcon-mamba-7b (64 mamba layers, d 4096, d_in 8192, state 16) and
@@ -117,14 +119,14 @@ The run reads and writes calibrations only in a fresh temporary
    decode faults over the first 64 steps.  Each model is freed before the
    next.
 8. **train** (the training path): ``repro_torch.train.trainer.Trainer`` on
-   olmoe-1b-7b at full width with the depth cut to 4 of 16 layers (fp32
+   olmoe-1b-7b at full width with the depth cut to 2 of 16 layers (fp32
    masters, gradients and AdamW's mu and nu take 16 B per parameter: 111
-   GB at full depth; 2 layers under ``--quick``), batch 4 x sequence 512,
+   GB at full depth; 1 layer under ``--quick``), batch 4 x sequence 512,
    8 steps at lr 3e-4 (warmup 2): the first trainer is preempted after 4
-   steps and saves its checkpoint (about 22.6 GB of ``.npy`` in a
+   steps and saves its checkpoint (about 12.5 GB of ``.npy`` in a
    temporary directory), a second trainer restores it and runs steps 4 to
    7.  Counters are zeroed before the first trainer and read after the
-   second: ``grouped_matmul`` must have launched 6 x 4 x 8 = 192 times
+   second: ``grouped_matmul`` must have launched 6 x 2 x 8 = 96 times
    (forward, recompute and input gradient of each MoE layer) and no other
    kernel at all.  Printed: parameters, bytes and ``max_memory_allocated``;
    the loss of every step (finite, or the phase fails); the step median
@@ -140,7 +142,7 @@ The run reads and writes calibrations only in a fresh temporary
    and its state are freed before the next phase.
 9. **dryrun** (the dry run's counter, ``repro_torch.core.step_cost``, held
    against the card): (a) olmoe-1b-7b at ``[train]``'s shape (full width,
-   4 of 16 layers, batch 4 x 512; 2 layers under ``--quick``): one train
+   2 of 16 layers, batch 4 x 512; 1 layer under ``--quick``): one train
    step counted on the card with the grouped kernel launched must count
    exactly the FLOPs and bytes of the same step counted on ``meta``
    tensors; two planted faults in the meta count (the grouped product's
@@ -227,6 +229,43 @@ The run reads and writes calibrations only in a fresh temporary
    in a temporary store root of its own; its agreement and never-worse
    results are printed, not enforced (at n <= 256 a call is the launch
    path).  CSVs go to ``chiprun_out/harvest``.
+14. **multicard** (the process mesh, ``launch/mesh.py``, ``core/comm.py``,
+   and the per-shard programs on it): one world of 2 ranks spawned by
+   ``launch.spawn.run_world``: NCCL with a card per rank where two or
+   more cards are visible, else both ranks on ``cuda:0`` under gloo, whose
+   collectives stage the payloads through the host (the phase's first
+   line says which; such wire times say nothing of NVLink).  In it: (a)
+   olmoe-1b-7b's MoE layer at full width (64 experts, top 8, d 2048, d_ff
+   1024; fp32 masters), x ``[4, 512, 2048]`` bf16, capacity factor 1.25,
+   expert-parallel on ``(data=1, model=2)`` and ``(data=2, model=1)``
+   (FSDP): output and the gradients of x, the router, ``w_gate_up`` and
+   ``w_down`` under a sum-of-squares loss against the one-process layer
+   on each data shard's tokens (capacity is local; every rank computes
+   every shard's), within
+   ``models.model.rounding_tolerance`` of the roundings where the two
+   differ at each row's scale (``mc_ratio``); 4 grouped launches per
+   rank; the buffer shape and the counted bytes per kind; planted faults
+   (the ``psum_scatter`` left out, a wrong ``e0``) must break the output
+   bound.  (c) ``compressed_psum`` over ``data`` of the one-process
+   layer's gradients on each rank's shard: the mean equal to ``sum_i q_i
+   * s_max / n`` bit for bit, within ``sum_i (|q_i| |s_max - s_i| + s_i
+   / 2) / n`` of the exact mean (half a quantum when the scales agree),
+   and ``q * scale + residual == g + residual``.  (b) olmoe-1b-7b's first 4
+   layers (fp32 masters, bf16 compute) as a GPipe pipeline of 2 stages x
+   2 layers over 4 microbatches of 1 x 512 (``train.pipeline``): outputs
+   and every stage's gradients under a sum-of-squares loss against the
+   sequential stack on one process, 16 grouped launches per stage, and a
+   reversed ``perm`` that must break the output bound.  (d) the sharded
+   tier on a ``(shard=2)`` mesh, ``moe-block`` and ``banded`` at n =
+   2**18 and ``uniform`` (the CSR kernel) at 2**16, d = 64, f32i32, every
+   eligible B strategy: C gathered
+   against the unsharded plan and the in-process ``ShardedPlan``, one
+   launch of the chosen kernel per rank.  Then a world of one rank on
+   NCCL in this process runs every ``core.comm`` op once, and, on one
+   card, a world of two ranks on ``cuda:0`` under NCCL must be refused
+   (its message is printed).  Every kernel of the path must have launched
+   on every rank (``multicard_launches``, per rank, in the record).
+   ``--quick``: 2 x 128 tokens, 2 layers, n = 2**12.
 
 Each phase prints its seconds.
 
@@ -358,13 +397,17 @@ LM_CHECK_STEPS = 4
 #: period of gemma3 at full width over 1536 tokens (3 q blocks of 512; the
 #: 1024-slot rings wrap at step 1024), its planted decode faults over the
 #: first 64 steps; whisper's decode-vs-forward check over 48 steps of
-#: batch 4; qwen2-vl's over 256 steps of batch 4 (the pipeline's stubs put
-#: 64 patch tokens on an 8 x 8 grid, whose first 64 steps the M-RoPE
-#: fault runs); qwen2-vl's forward of the pipeline's stubs at 1 x 1024
-#: (256 patch tokens on a 16 x 16 grid).
+#: batch 4; qwen2-vl's over 256 steps of batch 4 on ``VLM_CHECK_LAYERS``
+#: layers (the pipeline's stubs put 64 patch tokens on an 8 x 8 grid,
+#: whose first 64 steps the M-RoPE fault runs); qwen2-vl's forward of the
+#: pipeline's stubs at 1 x 1024 (256 patch tokens on a 16 x 16 grid).
 FAMILIES_QUICK_LAYERS = {"gemma3-12b": 6, "qwen2-vl-7b": 2}
 RING_TOKENS, RING_FAULT_STEPS = 1536, 64
 WHISPER_STEPS, VLM_CHECK_STEPS = 48, 256
+#: qwen2-vl-7b's decode-vs-forward check runs on its first 4 layers of
+#: 28 (2 under ``--quick``), the depth cut to keep the whole run near 900
+#: s: the M-RoPE fault shows at layer 0.
+VLM_CHECK_LAYERS, VLM_CHECK_LAYERS_QUICK = 4, 2
 VLM_FORWARD = (1, 1024)
 
 #: The recurrent phase: falcon-mamba-7b and recurrentgemma-9b through
@@ -383,12 +426,13 @@ RECURRENT_CHECKS = {"falcon-mamba-7b": (None, 4, 512),
 RECURRENT_FAULT_STEPS = 64
 
 #: The train phase: ``Trainer`` on olmoe-1b-7b at full width with the
-#: depth cut from 16 to 4 layers (fp32 masters, gradients and AdamW's mu
-#: and nu hold 16 B per parameter: 111 GB at full depth, 30.2 GB at 4),
-#: batch 4 x sequence 512, 8 steps at lr 3e-4 (warmup 2, cosine to step
-#: 8), preempted after 4 steps and resumed from its checkpoint; ``--quick``
-#: cuts it to 2 layers.
-TRAIN_LAYERS, TRAIN_QUICK_LAYERS = 4, 2
+#: depth cut from 16 to 2 layers (fp32 masters, gradients and AdamW's mu
+#: and nu hold 16 B per parameter: 111 GB at full depth, 16.7 GB at 2; cut
+#: from 4 so that the whole run stays near 900 s, the checkpoint's save
+#: and restore being most of the phase), batch 4 x sequence 512, 8 steps
+#: at lr 3e-4 (warmup 2, cosine to step 8), preempted after 4 steps and
+#: resumed from its checkpoint; ``--quick`` cuts it to 1 layer.
+TRAIN_LAYERS, TRAIN_QUICK_LAYERS = 2, 1
 TRAIN_BATCH, TRAIN_SEQ = 4, 512
 TRAIN_STEPS, TRAIN_STOP = 8, 4
 TRAIN_LR = 3e-4
@@ -1751,28 +1795,12 @@ def families_phase(quick: bool, dev) -> dict:
     del model, enc, no_pos, x, batch, toks, fwd
     free(dev)
 
-    # qwen2-vl-7b: serve, decode against forward with M-RoPE positions,
-    # and one forward of the pipeline's patch stubs.
+    # qwen2-vl-7b: serve at full depth and one forward of the pipeline's
+    # patch stubs; then decode against forward with M-RoPE positions on
+    # its first VLM_CHECK_LAYERS layers.
     q = families_serve("qwen2-vl-7b", FAMILIES_QUICK_LAYERS["qwen2-vl-7b"]
                        if quick else None, dev)
     model = q.pop("model")
-    batch = pipeline_batch(model.cfg, VLM_CHECK_STEPS, LM_BATCH, dev)
-    toks, pos3 = batch["tokens"], batch["positions_3d"]
-    n_mm = batch["mm_embeds"].shape[1]
-    q["check"], fwd, _ = decode_check_run(model, toks,
-                                          {"positions_3d": pos3})
-    mrope = L.apply_mrope
-    with patched(L, "apply_mrope",
-                 lambda x, p, theta: mrope(x, p[[0, 2, 1]], theta)):
-        reject(q["check"], "M-RoPE swaps the height and width streams",
-               model, fwd, DC.decode_trace(model, toks[:, :n_mm], n_mm,
-                                           cache_len=VLM_CHECK_STEPS,
-                                           positions_3d=pos3))
-    log_check(f"qwen2-vl-7b, {LM_BATCH} x {VLM_CHECK_STEPS} tokens, the "
-              f"pipeline's positions_3d ({n_mm} patch tokens on a grid of "
-              f"{int(pos3[1, 0, :n_mm].max()) + 1} x "
-              f"{int(pos3[2, 0, :n_mm].max()) + 1})", q["check"])
-    del fwd
     b, s = VLM_FORWARD
     batch = pipeline_batch(model.cfg, s, b, dev)
     t0 = time.perf_counter()
@@ -1791,8 +1819,32 @@ def families_phase(quick: bool, dev) -> dict:
     if not finite or logits.shape != (b, s, model.cfg.padded_vocab):
         raise SmokeFailure(f"families: qwen2-vl-7b stub forward gave "
                            f"{tuple(logits.shape)}, finite {finite}")
+    del model, logits, batch
+    free(dev)
+    cfg = dataclasses.replace(
+        get_config("qwen2-vl-7b"),
+        num_layers=VLM_CHECK_LAYERS_QUICK if quick else VLM_CHECK_LAYERS)
+    model = M.init_params(cfg, device=dev,
+                          generator=torch.Generator(dev).manual_seed(0))
+    batch = pipeline_batch(cfg, VLM_CHECK_STEPS, LM_BATCH, dev)
+    toks, pos3 = batch["tokens"], batch["positions_3d"]
+    n_mm = batch["mm_embeds"].shape[1]
+    q["check"], fwd, _ = decode_check_run(model, toks,
+                                          {"positions_3d": pos3})
+    mrope = L.apply_mrope
+    with patched(L, "apply_mrope",
+                 lambda x, p, theta: mrope(x, p[[0, 2, 1]], theta)):
+        reject(q["check"], "M-RoPE swaps the height and width streams",
+               model, fwd, DC.decode_trace(model, toks[:, :n_mm], n_mm,
+                                           cache_len=VLM_CHECK_STEPS,
+                                           positions_3d=pos3))
+    log_check(f"qwen2-vl-7b at full width, {cfg.num_layers} layers, "
+              f"{LM_BATCH} x {VLM_CHECK_STEPS} tokens, the pipeline's "
+              f"positions_3d ({n_mm} patch tokens on a grid of "
+              f"{int(pos3[1, 0, :n_mm].max()) + 1} x "
+              f"{int(pos3[2, 0, :n_mm].max()) + 1})", q["check"])
     result["qwen2-vl-7b"] = q
-    del model, logits, batch, toks, pos3
+    del model, fwd, batch, toks, pos3
     free(dev)
 
     counts = kernels.launch_counts()
@@ -2883,6 +2935,611 @@ def dryrun_phase(quick: bool, dev) -> dict:
                       for r, a in zip(records, analysed)]}
 
 
+# ---------------------------------------------------------------------------
+# [multicard]: the process mesh and the per-shard programs on it.
+# ---------------------------------------------------------------------------
+
+#: The multicard phase: olmoe-1b-7b's MoE layer at full width on x [4,
+#: 512, 2048] bf16 at capacity factor 1.25 over (data, model) meshes; the
+#: pipeline of its first 4 layers, 2 stages x 2, 4 microbatches of 1 x
+#: 512; the sharded tier on two ranks, d = 64 (``--quick``: 2 x 128
+#: tokens, 2 layers, n = 2**12).
+MC_ARCH = "olmoe-1b-7b"
+MC_WORLD = 2
+MC_MOE_MESHES = ((1, 2), (2, 1))
+MC_CF = 1.25
+MC_TOKENS, MC_TOKENS_QUICK = (4, 512), (2, 128)
+MC_PIPE_LAYERS, MC_PIPE_LAYERS_QUICK = 4, 2
+MC_PIPE_MICRO = 4
+#: (structure, log2 n) of the sharded tier's runs: ``uniform`` (on the
+#: CSR kernel) at 2**16 keeps its row-tile packing of each strategy's
+#: shard inside the phase's time.
+MC_SHARD_RUNS = (("moe-block", 18), ("banded", 18), ("uniform", 16))
+MC_SHARD_N_QUICK = 2 ** 12
+#: Roundings of the MoE FFN's forward between the buffer and the output
+#: (gate/up, silu, the product with up, down, the combine's product and
+#: its sum); its backward is counted the same again.
+MC_MOE_ROUNDINGS = 6
+
+
+def mc_ratio(got, ref, stages: int, dtype=None) -> float:
+    """Worst ``|got - ref|`` over ``models.model.rounding_tolerance`` of
+    ``stages`` roundings to ``dtype`` (bf16 by default) at the scale of
+    each row's largest ``|ref|`` (the last dimension's); an error where
+    the bound is 0 is infinite."""
+    import torch
+    from repro_torch.models.model import rounding_tolerance
+    g, r = got.detach().float(), ref.detach().float()
+    if tuple(g.shape) != tuple(r.shape):
+        raise SmokeFailure(f"multicard: shape {tuple(g.shape)} vs "
+                           f"{tuple(r.shape)}")
+    if not bool(torch.isfinite(g).all()):
+        return float("inf")
+    scale = r.abs().amax(dim=-1, keepdim=True) if r.ndim else r.abs()
+    tol = rounding_tolerance(stages, scale, r.numel(),
+                             dtype or torch.bfloat16)
+    err = (g - r).abs()
+    ratio = torch.where(tol > 0, err / tol,
+                        torch.where(err > 0, float("inf"), 0.0))
+    return float(ratio.max())
+
+
+def mc_layer(cfg, dev, seed: int = 0):
+    """olmoe-1b-7b's MoE layer with fp32 masters drawn from ``seed``."""
+    import torch
+    from repro_torch.models.moe import MoE
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return MoE(cfg.d_model, cfg.moe_d_ff, cfg.num_experts,
+               cfg.num_experts_per_token, MC_CF, dtype=torch.float32,
+               device=dev, generator=g, trainable=True)
+
+
+def mc_moe(dev, backend, shape, quick: bool, lines: list) -> dict:
+    """(a) The expert-parallel layer on a ``(data, model)`` mesh against
+    the one-process layer on each data shard's tokens, forward and
+    backward; two planted faults on the forward."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import comm
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models.moe import capacity, padded_capacity
+    from repro_torch.models.sharding_ctx import ShardingCtx
+    data, model = shape
+    mesh = make_process_mesh(shape, ("data", "model"), device=dev,
+                             backend=backend)
+    cfg = get_config(MC_ARCH)
+    B, S = MC_TOKENS_QUICK if quick else MC_TOKENS
+    d = cfg.d_model
+    g = torch.Generator(device=dev).manual_seed(1)
+    x_all = torch.randn(B, S, d, generator=g, device=dev).to(torch.bfloat16)
+    di, mi = mesh.axis_index("data"), mesh.axis_index("model")
+    x = x_all[di * (B // data):(di + 1) * (B // data)]
+    tag = f"[multicard] (a) data={data} model={model} rank {mesh.rank}"
+
+    ep = mc_layer(cfg, dev).shard(mesh)
+    ctx = ShardingCtx({}, mesh)
+    xs = x.clone().requires_grad_()
+    kernels.reset_launch_counts()
+    log_ = mesh.reset_log()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = ep(xs, ctx=ctx)
+    scattered = out.shape[1] != S
+    fwd_bytes = dict(log_.bytes)
+    ((out.float() ** 2).sum() * (1.0 if scattered else 1.0 / model)
+     ).backward()
+    torch.cuda.synchronize(dev)
+    ep_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()["grouped_matmul"]
+    all_bytes, staged = dict(log_.bytes), dict(log_.staged)
+    T = x.shape[0] * S
+    cap = capacity(T, cfg.num_experts_per_token, cfg.num_experts, MC_CF)
+    buf = (ep.e_loc, padded_capacity(cap), d)
+    if launches != 4:
+        raise SmokeFailure(f"{tag}: {launches} grouped launches, expected "
+                           f"2 forward + 2 input-gradient")
+
+    # The one-process layer on each data shard's tokens (capacity is
+    # local to a shard): this rank's output and dx, and every shard's
+    # gradients, whose sum the sharded layer's must equal.
+    ref = mc_layer(cfg, dev)
+    shard_grads = []
+    for j in range(data):
+        xr = x_all[j * (B // data):(j + 1) * (B // data)].clone() \
+            .requires_grad_()
+        ref.zero_grad(set_to_none=True)
+        out_j = ref(xr)
+        (out_j.float() ** 2).sum().backward()
+        shard_grads.append({k: p.grad for k, p in ref.named_parameters()})
+        if j == di:
+            ref_out, ref_dx = out_j.detach(), xr.grad
+    ref_grads = {k: sum(g[k] for g in shard_grads) for k in shard_grads[0]}
+    seq = S // model if scattered else S
+    want = ref_out[:, mi * seq:(mi + 1) * seq] if scattered else ref_out
+    dlo = di * (d // data)
+    sl = slice(ep.e0, ep.e0 + ep.e_loc)
+    stages_out = model + 1
+    stages_bwd = 2 * MC_MOE_ROUNDINGS + 2 * (model + 1) + data
+    ratios = {
+        "out": mc_ratio(out, want, stages_out),
+        "dx": mc_ratio(xs.grad, ref_dx, stages_bwd),
+        "router": mc_ratio(ep.router.grad, ref_grads["router"], stages_bwd),
+        "w_gate_up": mc_ratio(ep.w_gate_up.grad, ref_grads["w_gate_up"][
+            sl, dlo:dlo + d // data], stages_bwd),
+        "w_down": mc_ratio(ep.w_down.grad, ref_grads["w_down"][
+            sl, :, dlo:dlo + d // data], stages_bwd)}
+    bad = {k: v for k, v in ratios.items() if v > 1}
+    if bad:
+        raise SmokeFailure(f"{tag}: against the one-process layer, err / "
+                           f"bound {bad}")
+    exact_out = float((out.detach().float() - want.detach().float()).abs()
+                      .max())
+
+    # Planted faults, forward only: each must break the output's bound.
+    faults = {}
+    with torch.no_grad():
+        if model > 1:
+            real = comm.psum_scatter
+
+            def no_sum(t, axis, *, scatter_dimension, tiled, mesh):
+                n = t.shape[scatter_dimension] // mesh.axis_size(axis)
+                return t.narrow(scatter_dimension,
+                                mesh.axis_index(axis) * n, n)
+            comm.psum_scatter = no_sum
+            try:
+                faults["psum_scatter left out"] = mc_ratio(
+                    ep(x, ctx=ctx), want, stages_out)
+            finally:
+                comm.psum_scatter = real
+        e0 = ep.e0
+        ep.e0 = (e0 + ep.e_loc) % ep.num_experts if model > 1 else \
+            ep.e_loc // 2
+        try:
+            faults["wrong e0"] = mc_ratio(ep(x, ctx=ctx), want, stages_out)
+        finally:
+            ep.e0 = e0
+    missed = {k: v for k, v in faults.items() if v <= 1}
+    if missed:
+        raise SmokeFailure(f"{tag}: planted faults passed the check "
+                           f"{missed}")
+    lines.append(
+        f"{tag}: x {tuple(x.shape)} bf16, buffer {buf} (C {cap}, padded "
+        f"{buf[1]}), output {tuple(out.shape)} "
+        f"({'psum_scatter' if scattered else 'psum'}), "
+        f"{launches} grouped launches (2 forward + 2 input-gradient); "
+        f"forward bytes {fwd_bytes}, forward + backward {all_bytes}, "
+        f"staged through the host {staged}; forward + backward "
+        f"{ep_s * 1e3:.1f} ms wall; err / bound {ratios} (max |out - "
+        f"one-process| {exact_out:.3e}); faults err / bound {faults}")
+    del ep, ref, xs, xr, out, ref_out, ref_grads
+    return {"mesh": shape, "launches": launches, "buffer": buf,
+            "capacity": cap, "forward_bytes": fwd_bytes,
+            "bytes": all_bytes, "staged": staged, "ratios": ratios,
+            "faults": faults, "seconds": ep_s,
+            "shard_grads": shard_grads if data > 1 else None,
+            "mesh_obj": mesh}
+
+
+def mc_compress(mesh, shard_grads: list, lines: list) -> dict:
+    """(c) ``compressed_psum`` over ``"data"`` of one layer's gradient
+    tree, this rank's shard's (``shard_grads[i]``: data shard ``i``'s
+    gradients, all computed on every rank by (a)).  The mean must be the
+    reference's formula ``sum_i q_i * max_i s_i / n`` of every shard's
+    ``q_i`` and scale ``s_i`` bit for bit, and within ``sum_i (|q_i|
+    (s_max - s_i) + s_i / 2) / n`` of the exact mean (half a quantum when
+    the scales agree); ``q * scale + residual`` must give ``g + residual``
+    back."""
+    import torch
+    from repro_torch.optim.compression import compress_grad, compressed_psum
+    n, di = mesh.shape["data"], mesh.axis_index("data")
+    worst = {"bound": 0.0, "half_quantum": 0.0, "identity": 0.0}
+    wire: dict = {}
+    for name, g in shard_grads[di].items():
+        res = torch.zeros_like(g, dtype=torch.float32)
+        log_ = mesh.reset_log()
+        mean, new_res = compressed_psum(g, res, "data", mesh=mesh)
+        for k, v in log_.bytes.items():
+            wire[k] = wire.get(k, 0.0) + v
+        with torch.no_grad():
+            parts = [compress_grad(sg[name], res) for sg in shard_grads]
+            s_max = max(sc for _, sc, _ in parts)
+            q_sum = sum(q.to(torch.int32) for q, _, _ in parts)
+            formula = q_sum.float() * s_max / n
+            if not torch.equal(mean.float(), formula):
+                raise SmokeFailure(f"[multicard] (c) {name}: the mean is not "
+                                   f"sum_i q_i * s_max / n")
+            exact = sum(sg[name].float() for sg in shard_grads) / n
+            bound = sum(q.float().abs() * (s_max - sc) + sc / 2
+                        for q, sc, _ in parts) / n
+            err = (mean.float() - exact).abs()
+            q, scale, _ = parts[di]
+            corrected = g.float() + res
+            back = q.float() * scale + new_res
+            ident = float(((back - corrected).abs()
+                           / corrected.abs().clamp_min(1e-30)).max())
+        worst["bound"] = max(worst["bound"], float((err / bound).max()))
+        worst["half_quantum"] = max(worst["half_quantum"],
+                                    float(err.max() / (s_max / 2)))
+        worst["identity"] = max(worst["identity"], ident)
+    if worst["bound"] > 1 + 1e-5 or worst["identity"] > 2 ** -23:
+        raise SmokeFailure(f"[multicard] (c) compressed_psum: {worst}")
+    lines.append(
+        f"[multicard] (c) rank {mesh.rank}: compressed_psum over data={n} "
+        f"of {len(shard_grads[di])} gradient leaves: the mean is sum_i q_i "
+        f"* s_max / n bit for bit; |mean - exact| / derived bound (half a "
+        f"quantum when the ranks' scales agree) {worst['bound']:.4f}, / "
+        f"half of the largest quantum {worst['half_quantum']:.4f}; q * "
+        f"scale + residual == g + residual within {worst['identity']:.2e} "
+        f"relative; compressed_psum's bytes {wire} (int8 values summed in "
+        f"int32 lanes, as the reference)")
+    return {**worst, "bytes": wire}
+
+
+def mc_pipeline(dev, backend, quick: bool, lines: list) -> dict:
+    """(b) olmoe-1b-7b's first layers as a 2-stage GPipe pipeline against
+    the sequential stack on one process, outputs and gradients; a planted
+    fault (the hops' permutation reversed)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models.model import ROUNDINGS_PER_LAYER, make_block
+    from repro_torch.train import pipeline
+    mesh = make_process_mesh((MC_WORLD,), ("stage",), device=dev,
+                             backend=backend)
+    cfg = get_config(MC_ARCH)
+    layers = MC_PIPE_LAYERS_QUICK if quick else MC_PIPE_LAYERS
+    S, sid = mesh.shape["stage"], mesh.axis_index("stage")
+    per = layers // S
+    seq = (MC_TOKENS_QUICK if quick else MC_TOKENS)[1]
+    d = cfg.d_model
+    g = torch.Generator(device=dev).manual_seed(2)
+    kw = dict(dtype=torch.float32, device=dev, generator=g, trainable=True)
+    blocks = [make_block(cfg, "global", **kw) for _ in range(layers)]
+    positions = torch.arange(seq, device=dev)[None]
+
+    def run(stack, rows):
+        h = rows.reshape(1, seq, d)
+        for blk in stack:
+            h = blk(h, positions)
+        return h.reshape(seq, d)
+
+    mine = blocks[sid * per:(sid + 1) * per]
+    gx = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(MC_PIPE_MICRO, seq, d, generator=gx,
+                    device=dev).to(torch.bfloat16)
+    kernels.reset_launch_counts()
+    log_ = mesh.reset_log()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = pipeline.pipeline_apply(lambda _, r: run(mine, r), None, x,
+                                  mesh=mesh)
+    torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    ((out.float() ** 2).sum() / S).backward()
+    torch.cuda.synchronize(dev)
+    pipe_s = (t1 - t0, time.perf_counter() - t1)
+    launches = kernels.launch_counts()["grouped_matmul"]
+    bytes_ = dict(log_.bytes)
+    got = {k: p.grad.clone() for b in mine for k, p in b.named_parameters()}
+    for b in blocks:
+        b.zero_grad(set_to_none=True)
+    t0 = time.perf_counter()
+    ref = torch.stack([run(blocks, x[m]) for m in range(MC_PIPE_MICRO)])
+    (ref.float() ** 2).sum().backward()
+    torch.cuda.synchronize(dev)
+    seq_s = time.perf_counter() - t0
+    want = {k: p.grad for b in mine for k, p in b.named_parameters()}
+    stages = ROUNDINGS_PER_LAYER * layers
+    ratios = {"out": mc_ratio(out, ref, stages),
+              "grads": max(mc_ratio(got[k], want[k], 2 * stages)
+                           for k in got)}
+    if max(ratios.values()) > 1:
+        raise SmokeFailure(f"[multicard] (b) stage {sid}: against the "
+                           f"sequential stack, err / bound {ratios}")
+    expect = MC_PIPE_MICRO * per * 4     # 2 forward + 2 dx per MoE layer
+    if launches != expect:
+        raise SmokeFailure(f"[multicard] (b) stage {sid}: {launches} "
+                           f"grouped launches, expected {expect}")
+    real = pipeline.stage_perm
+    pipeline.stage_perm = lambda n: [(b, a) for a, b in real(n)]
+    try:
+        with torch.no_grad():
+            fault = mc_ratio(pipeline.pipeline_apply(
+                lambda _, r: run(mine, r), None, x, mesh=mesh), ref, stages)
+    finally:
+        pipeline.stage_perm = real
+    if fault <= 1:
+        raise SmokeFailure(f"[multicard] (b) stage {sid}: the reversed "
+                           f"perm passed (err / bound {fault:.3f})")
+    T = MC_PIPE_MICRO + S - 1
+    lines.append(
+        f"[multicard] (b) stage {sid} of {S}: layers {sid * per}-"
+        f"{(sid + 1) * per - 1}, {MC_PIPE_MICRO} microbatches of 1 x {seq}, "
+        f"T = {T} ticks, bubble {(S - 1) / T:.3f}; {launches} grouped "
+        f"launches; bytes {bytes_}; forward {pipe_s[0] * 1e3:.1f} + "
+        f"backward {pipe_s[1] * 1e3:.1f} ms wall (the first on this "
+        f"process: cold), the sequential stack after it "
+        f"{seq_s * 1e3:.1f} ms; err / bound {ratios}; reversed perm err / "
+        f"bound {fault:.3g}")
+    del blocks, mine, out, ref, got, want
+    return {"launches": launches, "ratios": ratios, "fault": fault,
+            "ticks": T, "bubble": (S - 1) / T, "bytes": bytes_,
+            "seconds": pipe_s, "sequential_seconds": seq_s}
+
+
+def mc_shard(dev, backend, quick: bool, lines: list) -> dict:
+    """(d) The sharded tier on a ``(shard=2)`` mesh: C against the
+    in-process ``ShardedPlan`` and the unsharded plan per strategy, kernel
+    launches per rank."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.precision import as_precision
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import ShardMesh, make_process_mesh
+    from repro_torch.sparse import stream
+    from repro_torch.sparse.dispatch import Dispatcher
+    from repro_torch.sparse.shard import B_STRATEGIES
+    mesh = make_process_mesh((MC_WORLD,), ("shard",), device=dev,
+                             backend=backend)
+    rows, launches = [], dict.fromkeys(kernels.KERNEL_MODULES, 0)
+    # Rank 0 holds C against the unsharded plan, the last rank against
+    # the in-process ShardedPlan (every rank gathers the same C).
+    first, last = mesh.rank == 0, mesh.rank == mesh.size - 1
+    for structure, log_n in MC_SHARD_RUNS:
+        n = MC_SHARD_N_QUICK if quick else 2 ** log_n
+        t_start = time.perf_counter()
+        m = serve.build_stream_matrix(structure, n)
+        disp = Dispatcher(device=dev, calibration=False, tree=False)
+        spec = stream.BSpec(d=D, reuse=STEPS)
+        b = torch.from_numpy(np.random.default_rng(11).normal(
+            size=(n, D)).astype("float32")).to(dev)
+        single = stream.plan(m, spec, dispatcher=disp)
+        want = single.execute(b) if first else None
+        absprod = abs_product(m, b)
+        eps = as_precision(single.precision).eps
+        in_mesh = ShardMesh([dev] * MC_WORLD)
+        for strat in B_STRATEGIES:
+            what = f"{structure}/{strat}"
+            try:
+                p = stream.plan(m, spec, mesh=mesh, b_strategy=strat,
+                                dispatcher=disp)
+            except ValueError as e:
+                if single.chosen == "dia" and strat == "all_gather":
+                    lines.append(f"[multicard] (d) {what}: ineligible ({e})")
+                    continue
+                raise
+            kernels.reset_launch_counts()
+            log_ = mesh.reset_log()
+            block = p.execute(b)
+            torch.cuda.synchronize(dev)
+            counts = {k: v for k, v in kernels.launch_counts().items() if v}
+            wire = dict(log_.bytes)
+            c = p.gather_c(block)
+            kernel = {"csr": "csr_spmm", "ell": "csr_spmm",
+                      "ell_coo": "csr_spmm", "binned": "csr_spmm",
+                      "rowsplit": "csr_spmm", "bcsr": "bcsr_spmm",
+                      "dia": "banded_spmm"}[p.chosen]
+            has_shard = p.shard_layouts[0] is not None
+            if has_shard and counts.get(kernel, 0) != 1:
+                raise SmokeFailure(f"[multicard] (d) {what} rank "
+                                   f"{mesh.rank}: launches {counts}, "
+                                   f"expected one {kernel}")
+            for k, v in counts.items():
+                launches[k] += v
+            checked, err = [], None
+            if first:
+                err, _ = check_close(f"multicard {what} vs unsharded",
+                                     c, want, absprod, eps)
+                checked.append(f"max |C - unsharded| {err:.3e}")
+            if last:
+                inproc = stream.plan(m, spec, mesh=in_mesh,
+                                     b_strategy=strat, dispatcher=disp)
+                err, _ = check_close(f"multicard {what} vs in-process",
+                                     c, inproc.execute(b), absprod, eps)
+                checked.append(f"max |C - in-process ShardedPlan| "
+                               f"{err:.3e}")
+                del inproc
+            t0 = time.perf_counter()
+            for _ in range(3):
+                p.execute(b)
+            torch.cuda.synchronize(dev)
+            ms = (time.perf_counter() - t0) * 1e3 / 3
+            lines.append(
+                f"[multicard] (d) {what} n={n} rank {mesh.rank}: {p.chosen}, "
+                f"partition {p.partition}, rows {p.c_rows}, shard nnz "
+                f"{list(map(int, p.shard_nnz))}; launches {counts}; bytes "
+                f"{wire}; {', '.join(checked)} within bound; {ms:.2f} ms per "
+                f"request (host clock, mean of 3)")
+            rows.append({"structure": structure, "format": p.chosen,
+                         "b_strategy": strat, "launches": counts,
+                         "bytes": wire, "ms": ms, "max_abs_err": err})
+            del p, block, c
+        del single, want, absprod, b, m, disp
+        torch.cuda.empty_cache()
+        lines.append(f"[multicard] (d) {structure} rank {mesh.rank}: "
+                     f"{time.perf_counter() - t_start:.1f} s (build, plans, "
+                     f"checks)")
+    return {"rows": rows, "launches": launches}
+
+
+def multicard_rank(rank: int, world: int, quick: bool,
+                   distinct: bool) -> dict:
+    """One rank of the ``[multicard]`` world: (a)-(d) in order."""
+    import importlib
+    import threading
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # The attention's non-reentrant checkpoint imports torch._dynamo on
+    # its first call (~8 s on the H100 host): import it meanwhile.
+    warm = threading.Thread(target=importlib.import_module,
+                            args=("torch._dynamo",))
+    warm.start()
+    dev = torch.device("cuda", rank if distinct else 0)
+    backend = None if distinct else "gloo"
+    lines: list = []
+    out = {"rank": rank, "lines": lines, "seconds": {}}
+    t0 = time.perf_counter()
+    moe = [mc_moe(dev, backend, shape, quick, lines)
+           for shape in MC_MOE_MESHES]
+    out["seconds"]["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fsdp = next(r for r in moe if r["mesh"][0] > 1)
+    out["compress"] = mc_compress(fsdp["mesh_obj"], fsdp["shard_grads"],
+                                  lines)
+    for r in moe:
+        del r["mesh_obj"], r["shard_grads"]
+    out["moe"] = moe
+    torch.cuda.empty_cache()
+    out["seconds"]["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    warm.join()
+    out["pipeline"] = mc_pipeline(dev, backend, quick, lines)
+    torch.cuda.empty_cache()
+    out["seconds"]["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["shard"] = mc_shard(dev, backend, quick, lines)
+    out["seconds"]["d"] = time.perf_counter() - t0
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
+
+
+def nccl_duplicate_rank(rank: int, world: int) -> None:
+    """Ask NCCL for two ranks on one card (it refuses)."""
+    import torch
+    from repro_torch.launch.mesh import make_process_mesh
+    make_process_mesh((world,), ("x",), device=torch.device("cuda", 0),
+                      backend="nccl")
+
+
+def nccl_world_one(dev) -> dict:
+    """A world of one rank on NCCL in this process: every ``core.comm`` op
+    (and ``compressed_psum``) passes once through NCCL, with gradients."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import comm
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.launch.spawn import free_port
+    from repro_torch.optim.compression import compressed_psum
+    keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+            "MASTER_PORT")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+    try:
+        mesh = make_process_mesh((1,), ("x",), device=dev)
+        if mesh.backend != "nccl":
+            raise SmokeFailure(f"[multicard] world of one on {dev}: backend "
+                               f"{mesh.backend}, expected nccl")
+        g = torch.Generator(device=dev).manual_seed(5)
+        x = torch.randn(8, 128, generator=g, device=dev).to(torch.bfloat16)
+        xs = x.clone().requires_grad_()
+        with mesh:
+            y = comm.all_gather(xs, "x", dim=0, tiled=True)
+            y = comm.psum_scatter(y, "x", scatter_dimension=0, tiled=True)
+            y = comm.ppermute(y, "x", [(0, 0)])
+            y = comm.psum(comm.pvary(y, "x"), "x")
+            y.float().sum().backward()
+            outs = {"pmax": comm.pmax(x, "x"),
+                    "broadcast": comm.broadcast(x, "x", 0),
+                    "all_gather": comm.all_gather(x, "x", dim=1)[:, 0]}
+            mean, res = compressed_psum(x.float(), torch.zeros_like(
+                x, dtype=torch.float32), "x")
+        checks = {"chain": bool(torch.equal(y.detach(), x)),
+                  "grad": bool(torch.equal(xs.grad, torch.ones_like(x))),
+                  **{k: bool(torch.equal(v, x)) for k, v in outs.items()},
+                  "compressed_psum": bool(torch.equal(
+                      mean + res, x.float()))}
+        if not all(checks.values()):
+            raise SmokeFailure(f"[multicard] NCCL world of one: {checks}")
+        return {"checks": checks, "bytes": dict(mesh.log.bytes)}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def multicard_phase(quick: bool, dev) -> dict:
+    """Spawn the ``[multicard]`` world (NCCL on distinct cards, else gloo
+    with two ranks on ``cuda:0``), run (a)-(d) in it, and a world of one
+    on NCCL here; on one card, also confirm that NCCL refuses two ranks on
+    it.  Returns the launches per rank and kernel."""
+    import threading
+    import torch
+    from repro_torch.kernels import KERNEL_MODULES
+    from repro_torch.launch.spawn import run_world
+    distinct = torch.cuda.device_count() >= MC_WORLD
+    if distinct:
+        log(f"[multicard] backend nccl: {MC_WORLD} ranks on cuda:0.."
+            f"{MC_WORLD - 1}, one card each")
+    else:
+        log(f"[multicard] backend gloo: {MC_WORLD} ranks on cuda:0 (one "
+            f"card; NCCL refuses two ranks on a device), collectives "
+            f"staged through the host: wire times say nothing of NVLink")
+    empty_cache(dev)
+    dup = {}
+    probe = None
+    if not distinct:
+        def refuse():
+            try:
+                run_world(nccl_duplicate_rank, MC_WORLD, timeout=120)
+                dup["message"] = None
+            except Exception as e:              # the rank's traceback
+                dup["message"] = str(e)
+        probe = threading.Thread(target=refuse)
+        probe.start()
+    t0 = time.perf_counter()
+    try:
+        results = run_world(multicard_rank, MC_WORLD, quick, distinct,
+                            timeout=600)
+    finally:
+        if probe is not None:
+            probe.join()
+    world_s = time.perf_counter() - t0
+    for r in results:
+        for line in r["lines"]:
+            log(line)
+        log(f"[multicard] rank {r['rank']}: seconds {r['seconds']}, peak "
+            f"{r['peak_gb']:.2f} GB allocated")
+    one = nccl_world_one(dev)
+    log(f"[multicard] world of one on NCCL ({dev}): every comm op and "
+        f"compressed_psum once, {one['checks']}")
+    if probe is not None:
+        msg = dup.get("message")
+        if msg is None:
+            log("[multicard] NCCL accepted two ranks on one card")
+        else:
+            lines = [ln for ln in msg.splitlines() if "Duplicate GPU" in ln
+                     or "NCCL error" in ln]
+            if not lines:
+                raise SmokeFailure(f"[multicard] the NCCL probe failed "
+                                   f"otherwise: {msg[-2000:]}")
+            log(f"[multicard] NCCL on two ranks of one card: "
+                f"{lines[-1].strip()}")
+    launches = {k: [0] * MC_WORLD for k in KERNEL_MODULES}
+    for r in results:
+        launches["grouped_matmul"][r["rank"]] += sum(
+            m["launches"] for m in r["moe"]) + r["pipeline"]["launches"]
+        for k, v in r["shard"]["launches"].items():
+            launches[k][r["rank"]] += v
+    for k in ("grouped_matmul", "bcsr_spmm", "banded_spmm", "csr_spmm"):
+        if 0 in launches[k]:
+            raise SmokeFailure(f"[multicard] {k} did not launch on every "
+                               f"rank: {launches[k]}")
+    log(f"[multicard] launches per rank: "
+        f"{ {k: v for k, v in launches.items() if any(v)} }; world "
+        f"{world_s:.1f} s")
+    return {"launches": launches, "results": results,
+            "backend": "nccl" if distinct else "gloo",
+            "world_seconds": world_s}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -2998,6 +3655,13 @@ def run(quick: bool, n: int) -> int:
     harvest_phase(dev)
     seconds["harvest"] = time.perf_counter() - t0
     log(f"[harvest] phase took {seconds['harvest']:.1f}s")
+    t0 = time.perf_counter()
+    multicard = multicard_phase(quick, dev)
+    for rec in records:
+        rec["multicard_launches"] = multicard["launches"][rec["name"]]
+    seconds["multicard"] = time.perf_counter() - t0
+    log(f"[multicard] phase took {seconds['multicard']:.1f}s "
+        f"({multicard['backend']})")
     log(f"[time] seconds by phase: "
         f"{', '.join(f'{k} {v:.1f}' for k, v in seconds.items())}; total "
         f"{time.perf_counter() - t_start:.1f}s")

@@ -18,6 +18,11 @@ Layout (one directory per step), the same files the reference writes:
   manifest says ``"bfloat16"``; :meth:`Checkpointer.restore` reads it back
   through the manifest's dtype.  Checkpoints therefore restore across the
   two packages.
+* Elasticity: leaves are stored whole, so a restart may use another mesh.
+  ``restore(mesh=, specs=)`` gives each rank of a ``launch.mesh.
+  ProcessMesh`` its own block of each leaf, as a spec (the policy's
+  format, ``launch.sharding``) splits it, reading only that block from
+  the file: the counterpart of the reference's ``restore(shardings=)``.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ import json
 import os
 import shutil
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -62,6 +67,36 @@ def from_host(arr: np.ndarray, dtype: str,
     t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16) \
         if dtype == "bfloat16" else torch.from_numpy(arr)
     return t if device is None else t.to(device)
+
+
+def block_slices(spec, shape: Tuple[int, ...], mesh) -> Tuple[slice, ...]:
+    """This rank's block of a leaf of ``shape`` split by ``spec`` on
+    ``mesh``: a dim whose entry names axes ``(a, b, ...)`` is cut into
+    ``size(a) * size(b) * ...`` equal blocks, ``a`` the major one, as
+    ``jax.sharding.NamedSharding`` cuts it; the rank takes the block of its
+    coordinates.  Dims past the spec are whole.
+
+    Raises:
+        ValueError: a spec longer than the leaf, or a dim its axes do not
+            evenly divide.
+    """
+    from repro_torch.launch.sharding import axes_of
+    if len(spec) > len(shape):
+        raise ValueError(f"spec {spec} has more entries than the leaf's "
+                         f"{len(shape)} dims")
+    out = []
+    for dim, size in enumerate(shape):
+        axes = axes_of(spec[dim]) if dim < len(spec) else ()
+        parts, index = 1, 0
+        for a in axes:
+            parts *= mesh.shape[a]
+            index = index * mesh.shape[a] + mesh.coords[a]
+        if size % parts:
+            raise ValueError(f"dim {dim} of {shape} does not split into "
+                             f"{parts} blocks over {axes}")
+        step = size // parts
+        out.append(slice(index * step, (index + 1) * step))
+    return tuple(out)
 
 
 class Checkpointer:
@@ -115,7 +150,8 @@ class Checkpointer:
 
     def restore(self, step: Optional[int] = None, *,
                 device: Optional[torch.device] = None,
-                like: Optional[Dict] = None) -> Dict:
+                like: Optional[Dict] = None, mesh=None,
+                specs: Optional[Dict] = None) -> Dict:
         """Load a checkpoint as a nested dict of tensors.
 
         Args:
@@ -123,6 +159,10 @@ class Checkpointer:
             device: where each leaf goes as it is read (None: the CPU),
                 so the host holds one leaf at a time.
             like: a nested dict whose leaves the checkpoint must hold.
+            mesh: a ``ProcessMesh``; with ``specs``, each leaf that has a
+                spec comes back as this rank's block (:func:`block_slices`),
+                read from the file alone; the others whole.
+            specs: a nested (or ``/``-keyed flat) dict of specs.
 
         Raises:
             FileNotFoundError: no committed checkpoint.
@@ -141,9 +181,20 @@ class Checkpointer:
             if missing:
                 raise ValueError(f"checkpoint step {step} missing leaves: "
                                  f"{sorted(missing)[:5]}...")
+        if (mesh is None) != (specs is None):
+            raise ValueError("an elastic restore needs both mesh= and "
+                             "specs=")
+        flat_specs = dict(leaves(specs)) if specs else {}
         flat = {}
         for key, meta in manifest["arrays"].items():
-            arr = np.load(os.path.join(d, "arrays", meta["file"]))
+            path = os.path.join(d, "arrays", meta["file"])
+            if key in flat_specs and flat_specs[key] is not None:
+                whole = np.load(path, mmap_mode="r")
+                arr = np.array(
+                    whole[block_slices(flat_specs[key], whole.shape, mesh)])
+                del whole
+            else:
+                arr = np.load(path)
             flat[key] = from_host(arr, meta["dtype"], device)
             del arr
         return unflatten(flat)

@@ -47,18 +47,36 @@ from repro_torch.launch import sharding as SH
 
 KINDS = ("all-gather", "reduce-scatter", "all-reduce", "all-to-all")
 
+#: Kinds a process mesh counts by the bytes a sending rank sends
+#: (``core.comm.ppermute`` and ``broadcast``); the dry run has none.
+SENT_KINDS = ("collective-permute", "broadcast")
+
 #: Sublayers (one gathered entry, one scattered exit) per decoder layer.
 SUBLAYERS = {"global": 2, "local": 2, "ssm": 1, "rglru": 2}
 
 
 class CollectiveLog:
-    """Collectives by kind: per-device bytes, launches and labelled rows."""
+    """Collectives by kind: per-device bytes, launches and labelled rows.
+
+    The dry run fills one from the policy (:func:`step_collectives`); a
+    rank of a process mesh fills its own as ``core.comm`` runs
+    collectives, with the same volumes (:meth:`add`), plus the bytes of
+    the point-to-point kinds (:data:`SENT_KINDS`, :meth:`add_sent`) and
+    those a gloo mesh of CUDA ranks copies through the host (``staged``,
+    by kind)."""
 
     def __init__(self, mesh):
         self.mesh = mesh
         self.bytes: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, float] = defaultdict(float)
         self.rows: Dict[str, float] = defaultdict(float)
+        self.staged: Dict[str, float] = defaultdict(float)
+
+    def add_sent(self, kind: str, nbytes: float, what: str) -> None:
+        """One ``kind`` (of :data:`SENT_KINDS`) that sent ``nbytes``."""
+        self.bytes[kind] += nbytes
+        self.counts[kind] += 1
+        self.rows[f"{kind}: {what}"] += nbytes
 
     def add(self, kind: str, axes, size: float, times: float,
             what: str) -> None:

@@ -7,10 +7,14 @@ import torch
 
 DeviceLike = Union[None, str, torch.device]
 
-#: What brings work that spans several cards (a mesh, a cross-device
-#: reduction, pipeline stages); the port raises ``NotImplementedError``
-#: naming it.
-MULTI_CARD = "the multi-card item (ROADMAP.md Queue A, \"Multi-card item\")"
+#: What brings the steps that XLA's partitioner spreads over a mesh (the
+#: train, prefill and serve steps, the trainer and ``launch.train`` over a
+#: mesh); the port raises ``NotImplementedError`` naming it.  The explicit
+#: per-shard programs (``core.comm``, the expert-parallel MoE, the
+#: pipeline, ``compressed_psum``, the sharded tier on a process mesh) are
+#: ported.
+MULTI_CARD = ("the multi-card item, part 2 (GSPMD-partitioned steps; "
+              "ROADMAP.md Queue A, \"Multi-card item\")")
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

@@ -1,7 +1,6 @@
 """Mixture-of-Experts FFN on the grouped-matmul kernel.
 
-The counterpart of the reference's ``repro.models.moe`` without a mesh
-(its ``shard_map`` branch waits for multi-card work).  Routing, capacity
+The counterpart of the reference's ``repro.models.moe``.  Routing, capacity
 and bucketing are the reference's exactly: top-k of an fp32 softmax,
 renormalised; GShard-style sequential ranks over the slot-major order; a
 slot whose rank reaches the capacity C is dropped, and a dropped slot
@@ -17,6 +16,20 @@ and one over the down weights, with SwiGLU between them.  Padding rows
 are zero going in and come out zero.  Under autograd each launch goes
 through ``GroupedMatmulFn``, whose input gradient is a third launch of the
 same kernel (``kernels.grouped_matmul``).
+
+Expert parallelism, the reference's ``shard_map`` path: when the context's
+mesh is a ``launch.mesh.ProcessMesh`` with a ``"model"`` axis, each rank
+holds ``E / tp`` experts (:meth:`MoE.shard`), FSDP-sharded on ``d`` over
+``"data"`` when that axis is larger than 1 and all-gathered in the compute
+dtype at each use.  The router is replicated.  The tokens of a data shard
+are replicated over ``"model"``; each rank routes them, takes the capacity
+of its **local** token count, buckets the slots of its own experts
+(``bucket_local`` from ``e0``), runs them on the grouped kernel, and the
+partial outputs are summed over ``"model"``: ``psum_scatter`` along the
+sequence when the local sequence divides ``tp`` (and is longer than 1),
+else ``psum``.  The collectives are ``core.comm``'s; the replicated
+tokens and router pass through ``comm.pvary``, so their gradients are
+summed as ``shard_map``'s are.
 """
 from __future__ import annotations
 
@@ -27,8 +40,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core import comm
 from repro_torch.kernels.grouped_matmul import (TILE_M, check_group_ids,
                                                 grouped_matmul)
+from repro_torch.launch.mesh import ProcessMesh
 from repro_torch.models.layers import he_init, weight
 from repro_torch.models.sharding_ctx import NO_SHARDING, ShardingCtx
 
@@ -128,7 +143,9 @@ class MoE(nn.Module):
     """Router ``[d, E]`` (fp32), ``w_gate_up`` ``[E, d, 2 * d_ff]`` (the
     reference's ``w_gate`` and ``w_up`` side by side) and ``w_down`` ``[E,
     d_ff, d]``, both in ``dtype`` (the compute dtype, or fp32 masters that
-    :meth:`expert_ffn` casts at each use)."""
+    :meth:`expert_ffn` casts at each use).  After :meth:`shard`, the two
+    hold this rank's block: experts ``[e0, e0 + e_loc)``, and on a data
+    axis larger than 1 this rank's slice of ``d``."""
 
     def __init__(self, d: int, d_ff: int, num_experts: int, k: int,
                  capacity_factor: float, *, dtype: torch.dtype,
@@ -138,6 +155,7 @@ class MoE(nn.Module):
         super().__init__()
         self.k, self.num_experts = k, num_experts
         self.capacity_factor = capacity_factor
+        self.e0, self.e_loc = 0, num_experts
         self.router = weight(he_init((d, num_experts), generator=generator,
                                      device=device), torch.float32,
                              trainable)
@@ -153,30 +171,70 @@ class MoE(nn.Module):
                              dtype, trainable)
         self._group_ids: Dict[int, torch.Tensor] = {}
 
+    def shard(self, mesh: ProcessMesh) -> "MoE":
+        """Keep this rank's block of the expert weights, in place.
+
+        ``mesh`` has a ``"model"`` axis of size ``tp`` dividing E: this
+        rank keeps experts ``[e0, e0 + E / tp)``, ``e0`` its model index
+        times ``E / tp``.  When ``mesh`` has a ``"data"`` axis larger than
+        1, it keeps its block of ``d`` too (``w_gate_up[:, block]``,
+        ``w_down[..., block]``), gathered at each use.
+
+        Raises:
+            ValueError: ``tp`` does not divide E, or the data axis does
+                not divide ``d``.
+        """
+        tp = mesh.shape["model"]
+        if self.num_experts % tp:
+            raise ValueError(f"{self.num_experts} experts do not split over "
+                             f"a model axis of {tp}")
+        e_loc = self.num_experts // tp
+        e0 = mesh.axis_index("model") * e_loc
+        gu = self.w_gate_up.data[e0:e0 + e_loc]
+        dn = self.w_down.data[e0:e0 + e_loc]
+        dp = mesh.shape.get("data", 1)
+        if dp > 1:
+            d = gu.shape[1]
+            if d % dp:
+                raise ValueError(f"d_model {d} does not split over a data "
+                                 f"axis of {dp}")
+            lo = mesh.axis_index("data") * (d // dp)
+            gu, dn = gu[:, lo:lo + d // dp], dn[..., lo:lo + d // dp]
+        trainable = self.w_down.requires_grad
+        self.w_gate_up = weight(gu.clone(), gu.dtype, trainable)
+        self.w_down = weight(dn.clone(), dn.dtype, trainable)
+        self.e0, self.e_loc = e0, e_loc
+        self._group_ids = {}
+        return self
+
     def group_ids(self, rows: int) -> torch.Tensor:
-        """Expert of each 64-row block of the ``[E * rows, d]`` buffer,
+        """Expert of each 64-row block of the ``[e_loc * rows, d]`` buffer,
         made and checked once per ``rows``."""
         if rows not in self._group_ids:
             ids = torch.repeat_interleave(
-                torch.arange(self.num_experts, dtype=torch.int32,
+                torch.arange(self.e_loc, dtype=torch.int32,
                              device=self.w_down.device), rows // TILE_M)
-            check_group_ids(ids, self.num_experts)
+            check_group_ids(ids, self.e_loc)
             self._group_ids[rows] = ids
         return self._group_ids[rows]
 
     def expert_ffn(self, buf: torch.Tensor,
-                   gmm: GroupedMatmul = grouped_matmul) -> torch.Tensor:
-        """``[E, rows, d] -> [E, rows, d]``: SwiGLU per expert through two
-        grouped products."""
+                   gmm: GroupedMatmul = grouped_matmul,
+                   weights=None) -> torch.Tensor:
+        """``[e_loc, rows, d] -> [e_loc, rows, d]``: SwiGLU per expert
+        through two grouped products, on ``weights`` (``(w_gate_up,
+        w_down)`` in ``buf``'s dtype; default: this layer's own, cast)."""
         e, rows, d = buf.shape
-        f = self.w_down.shape[1]
+        w_gate_up, w_down = weights or (self.w_gate_up.to(buf.dtype),
+                                        self.w_down.to(buf.dtype))
+        f = w_down.shape[1]
         gids = self.group_ids(rows)
         x = buf.reshape(e * rows, d)
-        gu = gmm(x, self.w_gate_up.to(buf.dtype), gids, bm=TILE_M,
-                 bk=tile(d), bn=tile(2 * f), expert_rows=rows)
+        gu = gmm(x, w_gate_up, gids, bm=TILE_M, bk=tile(d), bn=tile(2 * f),
+                 expert_rows=rows)
         h = F.silu(gu[:, :f]) * gu[:, f:]
-        out = gmm(h, self.w_down.to(buf.dtype), gids, bm=TILE_M, bk=tile(f),
-                  bn=tile(d), expert_rows=rows)
+        out = gmm(h, w_down, gids, bm=TILE_M, bk=tile(f), bn=tile(d),
+                  expert_rows=rows)
         return out.reshape(e, rows, d)
 
     def forward(self, x: torch.Tensor, gmm: GroupedMatmul = grouped_matmul,
@@ -185,7 +243,12 @@ class MoE(nn.Module):
         buffer is constrained as ``"moe_gecd"``: it is the reference's
         ``[groups, E, C, d]`` buffer with the groups folded into the rows
         (``core.step_cost`` splits its rows as the groups and its experts
-        over ``"model"``)."""
+        over ``"model"``).  With a ``ProcessMesh`` in ``ctx`` that has a
+        ``"model"`` axis, the expert-parallel path runs
+        (:meth:`forward_sharded`)."""
+        mesh = ctx.mesh
+        if isinstance(mesh, ProcessMesh) and "model" in mesh.shape:
+            return self.forward_sharded(x, mesh, gmm)
         B, S, d = x.shape
         flat = x.reshape(B * S, d)
         weights, ids = router(flat, self.router, self.k)
@@ -194,6 +257,45 @@ class MoE(nn.Module):
                                     cap, rows=padded_capacity(cap))
         out = self.expert_ffn(ctx.constrain(buf, "moe_gecd"), gmm)
         return combine_local(out, combine).reshape(B, S, d)
+
+    def forward_sharded(self, x: torch.Tensor, mesh: ProcessMesh,
+                        gmm: GroupedMatmul = grouped_matmul
+                        ) -> torch.Tensor:
+        """The expert-parallel FFN on this rank (the reference's
+        ``shard_fn``), after :meth:`shard` on ``mesh``.
+
+        x: this data shard's ``[B, S, d]`` tokens, the same on every rank
+        of ``"model"``.  Returns this rank's ``[B, S / tp, d]`` block of
+        the sequence when ``S % tp == 0 and S > 1``, else the whole ``[B,
+        S, d]``, summed over ``"model"``.
+        """
+        B, S, d = x.shape
+        tp = mesh.shape["model"]
+        if self.e_loc * tp != self.num_experts:
+            raise ValueError("the layer is not sharded for this mesh: call "
+                             "MoE.shard(mesh) first")
+        x = comm.pvary(x, "model", mesh=mesh)
+        kernel = comm.pvary(self.router, mesh.axis_names, mesh=mesh)
+        w_gate_up = self.w_gate_up.to(x.dtype)
+        w_down = self.w_down.to(x.dtype)
+        if mesh.shape.get("data", 1) > 1:
+            # FSDP gather in the compute dtype, as the reference's.
+            w_gate_up = comm.all_gather(w_gate_up, "data", dim=1, tiled=True,
+                                        mesh=mesh)
+            w_down = comm.all_gather(w_down, "data", dim=2, tiled=True,
+                                     mesh=mesh)
+        flat = x.reshape(B * S, d)
+        weights, ids = router(flat, kernel, self.k)
+        cap = capacity(B * S, self.k, self.num_experts, self.capacity_factor)
+        buf, combine = bucket_local(flat, weights, ids, self.e0, self.e_loc,
+                                    cap, rows=padded_capacity(cap))
+        out = self.expert_ffn(buf, gmm, (w_gate_up, w_down))
+        out = combine_local(out, combine).reshape(B, S, d)
+        if S % tp == 0 and S > 1:
+            # Row-parallel partial sums -> sequence shards (SP boundary).
+            return comm.psum_scatter(out, "model", scatter_dimension=1,
+                                     tiled=True, mesh=mesh)
+        return comm.psum(out, "model", mesh=mesh)
 
 
 def moe_ffn_dense(moe: MoE, x: torch.Tensor) -> torch.Tensor:

@@ -3,8 +3,8 @@
 
 Per-tensor symmetric int8 with an fp32 residual that carries each step's
 quantisation error into the next, so the compressed sum tracks the true
-sum.  :func:`compressed_psum`, the cross-device reduction it feeds, needs
-several cards and is not ported yet.
+sum.  :func:`compressed_psum` is the cross-rank reduction it feeds, on an
+axis of a ``launch.mesh.ProcessMesh`` (``core.comm``).
 """
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.core.device import MULTI_CARD
+from repro_torch.core import comm
 from repro_torch.core.tree import map_tree
 
 
@@ -42,12 +42,30 @@ def compress_grad(g: torch.Tensor, residual: torch.Tensor
 
 
 def compressed_psum(g: torch.Tensor, residual: torch.Tensor,
-                    axis_name: str):
-    """The int8 all-reduce over a device axis: not ported (it needs several
-    cards)."""
-    raise NotImplementedError(
-        f"compressed_psum reduces across devices; it comes with "
-        f"{MULTI_CARD}")
+                    axis_name: str, *, mesh=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 all-reduce of ``g`` over ``axis_name``, the reference's line
+    for line: each rank compresses ``g + residual``, the int8 ``q`` is
+    summed in int32 lanes (an int8 sum can overflow int8; the wire format
+    it models stays 8-bit), the scales are reduced by ``pmax``, and the
+    mean is taken in fp32 after dequantisation.
+
+    Args:
+        g: this rank's gradient.
+        residual: this rank's fp32 error-feedback residual.
+        axis_name: the mesh axis to reduce over.
+        mesh: the ``ProcessMesh`` (default: the entered one).
+
+    Returns:
+        ``(mean, new_residual)``: the mean in ``g``'s dtype and this
+        rank's new residual.
+    """
+    q, scale, new_residual = compress_grad(g.detach(), residual)
+    n = comm.axis_size(axis_name, mesh=mesh)
+    q_sum = comm.psum(q.to(torch.int32), axis_name, mesh=mesh)
+    scale_max = comm.pmax(scale, axis_name, mesh=mesh)
+    out = q_sum.float() * scale_max / n
+    return out.to(g.dtype), new_residual
 
 
 def init_residuals(grads: Dict) -> Dict:

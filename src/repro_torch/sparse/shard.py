@@ -26,14 +26,31 @@ shard's sparsity-aware roofline time plus the strategy's collective cost
 (``repro_torch.core.roofline.collective_time``).  The scoring is the
 reference's, on the host, number for number.
 
-Execution is one process over the mesh's devices.  Each shard holds its
-own ``torch``-backend layout on its device (the reference's per-shard
-``jax`` kernels; no shard is padded to the largest), and the collectives
-are explicit tensor operations: ``replicate`` copies B to each shard's
+On a :class:`~repro_torch.launch.mesh.ShardMesh`, execution is one
+process over the mesh's devices.  Each shard holds its own
+``torch``-backend layout on its device (the reference's per-shard ``jax``
+kernels; no shard is padded to the largest), and the collectives are
+explicit tensor operations: ``replicate`` copies B to each shard's
 device, ``all_gather`` concatenates the row slices of B on each device,
 ``reduce_scatter`` sums the full-height partials into each owner's row
 block in shard order.  C is assembled on the plan's device in row order.
 A mesh may repeat a device (``ShardMesh(["cuda:0"] * 4)``).
+
+On a :class:`~repro_torch.launch.mesh.ProcessMesh` with a ``"shard"``
+axis, shard ``i`` lives on the rank of index ``i``, every rank plans the
+same (the scoring is deterministic) and keeps only its own shard, packed
+for its kernel (the CSR row-tile kernel for the CSR family and ELL, the
+BCSR kernel, the banded kernel, on the rank's device), and the
+collectives are ``core.comm``'s, as the reference's ``shard_map``
+closures run them: ``replicate`` broadcasts B from shard 0,
+``all_gather`` gathers B's row slices, ``reduce_scatter`` runs
+``psum_scatter`` on the full-height partials (fp32), and the DIA bands
+are summed by ``psum`` (``replicate``) or ``psum_scatter``.  A kernel
+whose operand must be square sees the shard as an ``[n, n]`` matrix (a
+row block's rows first, a column block's B slice padded to ``n`` rows)
+and the rows past the shard's are dropped.  ``execute`` returns this
+rank's block of C (rows ``c_rows``; all of C for a DIA ``replicate``)
+and :meth:`ShardedPlan.gather_c` assembles the whole on every rank.
 """
 from __future__ import annotations
 
@@ -47,7 +64,7 @@ from repro_torch.core import sparsity_models as sm
 from repro_torch.core.patterns import COOMatrix
 from repro_torch.core.precision import Precision, as_precision
 from repro_torch.core.roofline import ShardRoofline, collective_time
-from repro_torch.launch.mesh import SHARD_AXIS, ShardMesh
+from repro_torch.launch.mesh import SHARD_AXIS, ProcessMesh, ShardMesh
 from repro_torch.sparse import formats as fmt
 from repro_torch.sparse import stream as _stream
 
@@ -114,7 +131,12 @@ class ShardedPlan(_stream.StreamPlan):
             diagonals).
         shard_nnz: nonzeros per shard under the chosen partition.
         shard_layouts: each shard's ``torch``-backend layout on its device
-            (None for a shard that holds no nonzero).
+            (None for a shard that holds no nonzero); on a process mesh,
+            this rank's shard packed for its kernel.
+        c_rows: on a process mesh, the rows of C this rank's ``execute``
+            returns.
+        c_bounds: on a process mesh, the row bounds of every rank's block
+            of C (None where every rank holds all of C).
     """
 
     def __init__(self, dispatcher, m: COOMatrix, spec, mesh, *,
@@ -138,8 +160,18 @@ class ShardedPlan(_stream.StreamPlan):
         if b_strategy not in ("auto",) + B_STRATEGIES:
             raise ValueError(f"unknown b_strategy {b_strategy!r}; choose "
                              f"from {('auto',) + B_STRATEGIES}")
-        self.mesh = ShardMesh(mesh.devices)
-        self.num_shards = self.mesh.size
+        if isinstance(mesh, ProcessMesh):
+            if SHARD_AXIS not in mesh.shape:
+                raise ValueError(f"a process mesh for the sharded tier "
+                                 f"needs a {SHARD_AXIS!r} axis, not "
+                                 f"{mesh.axis_names}")
+            self.mesh = mesh
+            self.num_shards = mesh.shape[SHARD_AXIS]
+        else:
+            self.mesh = ShardMesh(mesh.devices)
+            self.num_shards = self.mesh.size
+        self.c_rows: Optional[Tuple[int, int]] = None
+        self.c_bounds: Optional[List[int]] = None
         self._b_strategy_req = b_strategy
         super().__init__(dispatcher, m, spec, strategy=strategy)
 
@@ -283,14 +315,16 @@ class ShardedPlan(_stream.StreamPlan):
         single-device plan resolved; per-shard hand-written kernels are a
         follow-up, as the reference's per-shard Pallas packings are.
         """
-        if fmt_name == "dia":
-            return self._bind_dia(bounds)
         if fmt_name in ("binned", "rowsplit", "ell_coo"):
             # CSR-equivalent gather layouts (the scale-free tier): their
             # host-side orderings are whole-matrix properties that do not
             # survive row/column slicing, so the shards reuse the CSR
             # packing and the CSR implementation.
             fmt_name = "csr"
+        if isinstance(self.mesh, ProcessMesh):
+            return self._bind_ranked(fmt_name, bounds)
+        if fmt_name == "dia":
+            return self._bind_dia(bounds)
         if self.b_strategy == "reduce_scatter":
             return self._bind_cols(fmt_name, bounds)
         return self._bind_rows(fmt_name, bounds)
@@ -318,6 +352,58 @@ class ShardedPlan(_stream.StreamPlan):
             outs.append(out if keep is None else out[:keep])
         return outs
 
+    @staticmethod
+    def _row_shard(a, fmt_name: str, r0: int, r1: int, n: int):
+        """Rows ``[r0, r1)`` of layout ``a`` as a shard's layout, rows
+        localized, columns global; and the rows of its output kept (None:
+        all)."""
+        if fmt_name == "csr":
+            ptr = a.indptr[r0:r1 + 1]
+            lo, hi = (int(x) for x in ptr[[0, -1]].cpu())
+            return fmt.CSRMatrix(
+                data=a.data[lo:hi], indices=a.indices[lo:hi],
+                indptr=ptr - lo, row_ids=a.row_ids[lo:hi] - r0,
+                n=r1 - r0), None
+        if fmt_name == "ell":
+            return fmt.ELLMatrix(data=a.data[r0:r1],
+                                 indices=a.indices[r0:r1], n=r1 - r0), None
+        # bcsr: n stays global: the implementation tiles B by n // t and B
+        # is the full [n, d] operand.  Localized block rows land the
+        # shard's output in rows [0, r1 - r0).
+        t = a.t
+        ptr = a.block_ptr[r0 // t:r1 // t + 1]
+        lo, hi = (int(x) for x in ptr[[0, -1]].cpu())
+        return fmt.BCSRMatrix(
+            blocks=a.blocks[lo:hi], block_rows=a.block_rows[lo:hi]
+            - r0 // t, block_cols=a.block_cols[lo:hi],
+            block_ptr=ptr - lo, n=n, t=t, nnz=a.nnz), r1 - r0
+
+    @staticmethod
+    def _col_shard(a, fmt_name: str, c0: int, c1: int, n: int):
+        """The nonzeros of columns ``[c0, c1)`` of CSR or BCSR layout ``a``
+        as a full-height shard layout, columns localized; None when it
+        holds none."""
+        if fmt_name == "csr":
+            sel = (a.indices >= c0) & (a.indices < c1)
+            rows = a.row_ids[sel]
+            counts = torch.bincount(rows.long(), minlength=n)
+            indptr = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+            local = fmt.CSRMatrix(
+                data=a.data[sel], indices=a.indices[sel] - c0,
+                indptr=indptr.to(torch.int32), row_ids=rows, n=n)
+            return local if local.nnz > 0 else None
+        t = a.t
+        s0, s1 = c0 // t, c1 // t
+        sel = (a.block_cols >= s0) & (a.block_cols < s1)
+        brows = a.block_rows[sel]
+        counts = torch.bincount(brows.long(), minlength=n // t)
+        ptr = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+        local = fmt.BCSRMatrix(
+            blocks=a.blocks[sel], block_rows=brows,
+            block_cols=a.block_cols[sel] - s0,
+            block_ptr=ptr.to(torch.int32), n=n, t=t, nnz=a.nnz)
+        return local if local.num_blocks > 0 else None
+
     def _bind_rows(self, fmt_name: str, bounds: np.ndarray):
         """Row-block execution: replicate-B or all-gather-B."""
         disp, m = self._dispatcher, self._m
@@ -326,31 +412,8 @@ class ShardedPlan(_stream.StreamPlan):
         a = disp.convert(m, fmt_name, precision=prec)
         shards: List[_Shard] = []
         for i in range(D):
-            r0, r1 = int(bounds[i]), int(bounds[i + 1])
-            if fmt_name == "csr":
-                ptr = a.indptr[r0:r1 + 1]
-                lo, hi = (int(x) for x in ptr[[0, -1]].cpu())
-                local = fmt.CSRMatrix(
-                    data=a.data[lo:hi], indices=a.indices[lo:hi],
-                    indptr=ptr - lo, row_ids=a.row_ids[lo:hi] - r0,
-                    n=r1 - r0)
-                keep = None
-            elif fmt_name == "ell":
-                local = fmt.ELLMatrix(data=a.data[r0:r1],
-                                      indices=a.indices[r0:r1], n=r1 - r0)
-                keep = None
-            else:                               # bcsr
-                # n stays global: the implementation tiles B by n // t and
-                # B is the full [n, d] operand.  Localized block rows land
-                # the shard's output in rows [0, r1 - r0).
-                t = a.t
-                ptr = a.block_ptr[r0 // t:r1 // t + 1]
-                lo, hi = (int(x) for x in ptr[[0, -1]].cpu())
-                local = fmt.BCSRMatrix(
-                    blocks=a.blocks[lo:hi], block_rows=a.block_rows[lo:hi]
-                    - r0 // t, block_cols=a.block_cols[lo:hi],
-                    block_ptr=ptr - lo, n=n, t=t, nnz=a.nnz)
-                keep = r1 - r0
+            local, keep = self._row_shard(a, fmt_name, int(bounds[i]),
+                                          int(bounds[i + 1]), n)
             shards.append((devs[i], local.to(devs[i]), keep))
         self._shard_format = fmt_name
         self.shard_layouts = tuple(s[1] for s in shards)
@@ -383,21 +446,7 @@ class ShardedPlan(_stream.StreamPlan):
         prec = self._exec_precision()
         vdt = prec.value_torch
         shards: List[_Shard] = []
-        if fmt_name == "csr":
-            a = disp.convert(m, "csr", precision=prec)
-            for i in range(D):
-                c0, c1 = int(bounds[i]), int(bounds[i + 1])
-                sel = (a.indices >= c0) & (a.indices < c1)
-                rows = a.row_ids[sel]
-                counts = torch.bincount(rows.long(), minlength=n)
-                indptr = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
-                local = fmt.CSRMatrix(
-                    data=a.data[sel], indices=a.indices[sel] - c0,
-                    indptr=indptr.to(torch.int32), row_ids=rows, n=n)
-                has = local.nnz > 0
-                shards.append((devs[i], local.to(devs[i]) if has else None,
-                               None))
-        elif fmt_name == "ell":
+        if fmt_name == "ell":
             for i in range(D):
                 c0, c1 = int(bounds[i]), int(bounds[i + 1])
                 sel = (m.cols >= c0) & (m.cols < c1)
@@ -410,22 +459,13 @@ class ShardedPlan(_stream.StreamPlan):
                 shards.append((devs[i], fmt.coo_to_ell(lm, dtype=vdt,
                                                        device=devs[i]),
                                None))
-        else:                                   # bcsr
-            a = disp.convert(m, "bcsr", precision=prec)
-            t = a.t
+        else:                                   # csr, bcsr
+            a = disp.convert(m, fmt_name, precision=prec)
             for i in range(D):
-                s0, s1 = int(bounds[i]) // t, int(bounds[i + 1]) // t
-                sel = (a.block_cols >= s0) & (a.block_cols < s1)
-                brows = a.block_rows[sel]
-                counts = torch.bincount(brows.long(), minlength=n // t)
-                ptr = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
-                local = fmt.BCSRMatrix(
-                    blocks=a.blocks[sel], block_rows=brows,
-                    block_cols=a.block_cols[sel] - s0,
-                    block_ptr=ptr.to(torch.int32), n=n, t=t, nnz=a.nnz)
-                has = local.num_blocks > 0
-                shards.append((devs[i], local.to(devs[i]) if has else None,
-                               None))
+                local = self._col_shard(a, fmt_name, int(bounds[i]),
+                                        int(bounds[i + 1]), n)
+                shards.append((devs[i], None if local is None else
+                               local.to(devs[i]), None))
         self._shard_format = fmt_name
         self.shard_layouts = tuple(s[1] for s in shards)
         lo_hi = [(int(bounds[i]), int(bounds[i + 1])) for i in range(D)]
@@ -481,6 +521,131 @@ class ShardedPlan(_stream.StreamPlan):
                                             lambda i, dev: b.to(dev))
                 return self._reduce_scatter(partials, b)
         return run
+
+    # ------------------------------------------------------------- #
+    # Execution on a process mesh: one shard per rank, on its kernel.
+    # ------------------------------------------------------------- #
+
+    def _kernel_operand(self, fmt_name: str, local, dev):
+        """``(layout, wrapper)``: shard layout ``local`` packed for its
+        kernel on ``dev``, as the ``cuda`` specs pack a whole matrix (a
+        CSR shard as row tiles over ``n`` rows, a BCSR shard with its
+        empty block rows padded, a band of diagonals as the banded
+        kernel's layout)."""
+        from repro_torch.kernels import (band_to_blocks, banded_spmm,
+                                         bcsr_spmm, csr_spmm,
+                                         pad_empty_block_rows)
+        from repro_torch.kernels.registry import pallas_band_tile
+        n = self.n
+        if fmt_name == "dia":
+            t = pallas_band_tile(n)
+            band, w = band_to_blocks(fmt.host_values(local.data),
+                                     [int(o) for o in local.offsets],
+                                     n=n, t=t)
+            return banded_spmm.band_layout(band, w, t, dev), \
+                banded_spmm.banded_spmm
+        if fmt_name == "bcsr":
+            return pad_empty_block_rows(local.to(dev)), bcsr_spmm.bcsr_spmm
+        ctx = self._kernel_ctx()
+        indptr = local.indptr.cpu().numpy().astype(np.int64)
+        indptr = np.concatenate(
+            [indptr, np.full(n - local.n, indptr[-1])])
+        bt = ctx.resolve_b_tile(n)
+        arrays = csr_spmm.csr_to_row_tiles(
+            indptr, local.indices.cpu().numpy(),
+            fmt.host_values(local.data), n=n, row_tile=ctx.row_tile,
+            chunk=ctx.chunk, b_tile=bt, index_dtype=np.int32)
+        return csr_spmm.row_tile_layout(*arrays, n=n, b_tile=bt,
+                                        row_tile=ctx.row_tile,
+                                        device=dev), csr_spmm.csr_spmm
+
+    def _bind_ranked(self, fmt_name: str, bounds: np.ndarray):
+        """This rank's shard and the strategy's collectives (``core.comm``
+        on the mesh's ``"shard"`` axis)."""
+        from repro_torch.core import comm
+        disp, m, mesh = self._dispatcher, self._m, self.mesh
+        D, n, dev = self.num_shards, self._m.n, mesh.device
+        me = mesh.axis_index(SHARD_AXIS)
+        prec = self._exec_precision()
+        lo, hi = int(bounds[me]), int(bounds[me + 1])
+        if fmt_name == "ell":
+            fmt_name = "csr"        # the CSR kernel carries ELL, as in cuda
+        a = disp.convert(m, fmt_name, precision=prec)
+        keep = None
+        if fmt_name == "dia":
+            local = fmt.DIAMatrix(data=a.data[lo:hi],
+                                  offsets=a.offsets[lo:hi], n=a.n) \
+                if hi > lo else None
+        elif self.b_strategy == "reduce_scatter":
+            local = self._col_shard(a, fmt_name, lo, hi, n)
+        else:
+            local, _ = self._row_shard(a, fmt_name, lo, hi, n)
+            keep = hi - lo
+        layout, kernel = (None, None) if local is None else \
+            self._kernel_operand(fmt_name, local, dev)
+        self._shard_format = fmt_name
+        self.shard_layouts = (layout,)
+        Rb = -(-n // D)
+        replicated = fmt_name == "dia" and self.b_strategy == "replicate"
+        if self.b_strategy == "reduce_scatter":
+            self.c_bounds = [min(j * Rb, n) for j in range(D + 1)]
+        elif replicated:
+            self.c_bounds = None
+        else:
+            self.c_bounds = [int(x) for x in bounds]
+        self.c_rows = (0, n) if replicated else \
+            (self.c_bounds[me], self.c_bounds[me + 1])
+
+        def partial(b_op: torch.Tensor) -> torch.Tensor:
+            b_op = b_op.to(prec.value_torch) if prec.reduced else b_op
+            if layout is None:
+                return b_op.new_zeros((n if keep is None else keep,
+                                       b_op.shape[1]))
+            out = kernel(layout, b_op.contiguous())
+            return out if keep is None else out[:keep]
+
+        def run(b: torch.Tensor) -> torch.Tensor:
+            out_dtype = self._out_dtype(b)
+            if self.b_strategy == "reduce_scatter" and fmt_name != "dia":
+                # This rank's rows of B, padded to the kernel's n rows.
+                b_op = b.new_zeros((n, b.shape[1]))
+                b_op[:hi - lo] = b[lo:hi]
+            elif self.b_strategy == "all_gather":
+                piece = b.new_zeros((Rb, b.shape[1]))
+                rows = b[me * Rb:(me + 1) * Rb]
+                piece[:rows.shape[0]] = rows
+                b_op = comm.all_gather(piece, SHARD_AXIS, dim=0, tiled=True,
+                                       mesh=mesh)[:n]
+            else:
+                b_op = comm.broadcast(b, SHARD_AXIS, 0, mesh=mesh)
+            part = partial(b_op)
+            if self.b_strategy != "reduce_scatter" and not replicated:
+                return part.to(out_dtype)
+            part = part.to(torch.float32)
+            if replicated:
+                return comm.psum(part, SHARD_AXIS, mesh=mesh).to(out_dtype)
+            part = torch.cat([part, part.new_zeros((D * Rb - n,
+                                                    part.shape[1]))])
+            block = comm.psum_scatter(part, SHARD_AXIS, scatter_dimension=0,
+                                      tiled=True, mesh=mesh)
+            return block[:self.c_rows[1] - self.c_rows[0]].to(out_dtype)
+        return run
+
+    def gather_c(self, c_block: torch.Tensor) -> torch.Tensor:
+        """The whole C on every rank from each rank's :meth:`execute`
+        block (process meshes; an all-gather over ``"shard"``)."""
+        from repro_torch.core import comm
+        if not isinstance(self.mesh, ProcessMesh):
+            raise ValueError("gather_c assembles a process mesh's blocks")
+        if self.c_bounds is None:
+            return c_block
+        sizes = np.diff(self.c_bounds)
+        R = int(max(sizes.max(), 1))
+        pad = c_block.new_zeros((R, c_block.shape[1]))
+        pad[:c_block.shape[0]] = c_block
+        full = comm.all_gather(pad, SHARD_AXIS, dim=0, tiled=False,
+                               mesh=self.mesh)
+        return torch.cat([full[j, :sizes[j]] for j in range(len(sizes))])
 
     def _reduce_scatter(self, partials: List[Optional[torch.Tensor]],
                         b: torch.Tensor) -> torch.Tensor:

@@ -280,5 +280,8 @@ def test_init_residuals_shapes():
 
 
 def test_compressed_psum_needs_several_cards():
-    with pytest.raises(NotImplementedError, match="multi-card"):
+    """It reduces over an axis of a process mesh: with none given or
+    entered it raises (the multi-rank cases are in
+    ``tests/test_torch_multicard_optim.py``)."""
+    with pytest.raises(RuntimeError, match="no process mesh"):
         compression.compressed_psum(torch.ones(2), torch.zeros(2), "pod")
