@@ -70,7 +70,7 @@ The run reads and writes calibrations only in a fresh temporary
    freed before the next phase.
 6. **families** (the ``local``, ``vlm`` and ``encdec`` families, no
    port kernel on the path): counters are zeroed first and must all read
-   0 after.  gemma3-12b at full width and depth (48 layers, five local to
+   0 after.  gemma3-12b at full width, 24 of its 48 layers (five local to
    one global; one period of 6 under ``--quick``) through ``serve
    --arch``, as in ``lm`` (parameters, ``max_memory_allocated``, tok/s,
    the step median and max beside the byte bound: every weight the step
@@ -88,7 +88,7 @@ The run reads and writes calibrations only in a fresh temporary
    zero cross K/V), then ``encode`` -> ``prime_cross_cache`` -> 48
    teacher-forced steps of batch 4 against ``forward(tokens, frames=...)``,
    rejecting a zeroed cross cache and an encoder without its sinusoidal
-   positions.  qwen2-vl-7b at full width and depth (2 layers under
+   positions.  qwen2-vl-7b at full width, 14 of its 28 layers (2 under
    ``--quick``) through ``serve --arch`` (1-D RoPE, the reference's
    meaning), and one forward of 1 x 1024 tokens with the pipeline's
    stubs (256 patch tokens on a 16 x 16 grid, their embeddings through
@@ -102,8 +102,8 @@ The run reads and writes calibrations only in a fresh temporary
 7. **recurrent** (the ``ssm`` and ``hybrid`` families, no port kernel on
    the path): counters are zeroed first and must all read 0 after.
    falcon-mamba-7b (64 mamba layers, d 4096, d_in 8192, state 16) and
-   recurrentgemma-9b (26 RG-LRU and 12 local layers, d 4096; 2 and 19
-   layers under ``--quick``) at full width and depth through ``serve
+   recurrentgemma-9b (26 RG-LRU and 12 local layers, d 4096) at full
+   width, 32 and 19 layers (2 and 19 under ``--quick``), through ``serve
    --arch``, as in ``families`` (parameters, their bytes,
    ``max_memory_allocated``, tok/s, the step median and max beside the
    byte bound, which counts each recurrent layer's conv inputs and fp32
@@ -260,12 +260,29 @@ The run reads and writes calibrations only in a fresh temporary
    2**18 and ``uniform`` (the CSR kernel) at 2**16, d = 64, f32i32, every
    eligible B strategy: C gathered
    against the unsharded plan and the in-process ``ShardedPlan``, one
-   launch of the chosen kernel per rank.  Then a world of one rank on
+   launch of the chosen kernel per rank.  (e) the policy-partitioned steps
+   (``train.train_step`` over a ``ProcessMesh``): (e1) olmoe-1b-7b at full
+   width, 2 of 16 layers, fp32 masters and bf16 compute, batch 4 x 512, on
+   ``(data=1, model=2)`` against the one-process port on the same card
+   from the same seed (which runs first, its blocks kept on the host, and
+   whose routing the partitioned model replays, so that the two differ
+   only by roundings; the rows where its own router would have chosen
+   otherwise are counted): the forward's vocab block of the logits and
+   the loss, then steps 1 and 2 (loss, ``grad_norm``, every gradient and
+   parameter block) within ``models.model.rounding_tolerance``
+   (``mc_gspmd_train``); 12 grouped launches per rank and step; the
+   counted bytes per kind beside ``core.collectives.step_collectives``;
+   planted faults (the row-parallel outputs left unsummed, the
+   vocab-parallel logsumexp without its ``psum``) must break their
+   bounds.  (e2) the partitioned prefill on ``(data=2, model=1)`` (FSDP,
+   1 layer, bf16 weights): each rank's logits equal to the one-process
+   forward on its rows bit for bit; the FSDP blocks gathered in reversed
+   order must differ.  Then a world of one rank on
    NCCL in this process runs every ``core.comm`` op once, and, on one
    card, a world of two ranks on ``cuda:0`` under NCCL must be refused
    (its message is printed).  Every kernel of the path must have launched
    on every rank (``multicard_launches``, per rank, in the record).
-   ``--quick``: 2 x 128 tokens, 2 layers, n = 2**12.
+   ``--quick``: 2 x 128 tokens, 2 layers ((e1): 1), n = 2**12.
 
 Each phase prints its seconds.
 
@@ -392,8 +409,10 @@ LM_QUICK_LAYERS = 2
 LM_CHECK_STEPS = 4
 
 #: The families phase: gemma3-12b, whisper-base and qwen2-vl-7b through
-#: ``serve --arch`` at full width and depth (``--quick``: gemma3's one
-#: pattern period, qwen2-vl's first 2 layers); the ring check on one
+#: ``serve --arch`` at full width, gemma3-12b at 24 of its 48 layers and
+#: qwen2-vl-7b at 14 of 28 (``FAMILIES_LAYERS``, the depth cut that keeps
+#: the whole run near 950 s; whisper-base whole; ``--quick``: gemma3's
+#: one pattern period, qwen2-vl's first 2 layers); the ring check on one
 #: period of gemma3 at full width over 1536 tokens (3 q blocks of 512; the
 #: 1024-slot rings wrap at step 1024), its planted decode faults over the
 #: first 64 steps; whisper's decode-vs-forward check over 48 steps of
@@ -401,6 +420,7 @@ LM_CHECK_STEPS = 4
 #: layers (the pipeline's stubs put 64 patch tokens on an 8 x 8 grid,
 #: whose first 64 steps the M-RoPE fault runs); qwen2-vl's forward of the
 #: pipeline's stubs at 1 x 1024 (256 patch tokens on a 16 x 16 grid).
+FAMILIES_LAYERS = {"gemma3-12b": 24, "qwen2-vl-7b": 14}
 FAMILIES_QUICK_LAYERS = {"gemma3-12b": 6, "qwen2-vl-7b": 2}
 RING_TOKENS, RING_FAULT_STEPS = 1536, 64
 WHISPER_STEPS, VLM_CHECK_STEPS = 48, 256
@@ -411,14 +431,16 @@ VLM_CHECK_LAYERS, VLM_CHECK_LAYERS_QUICK = 4, 2
 VLM_FORWARD = (1, 1024)
 
 #: The recurrent phase: falcon-mamba-7b and recurrentgemma-9b through
-#: ``serve --arch`` at full width and depth (``--quick``: 2 layers, one
-#: pattern period of 19); the decode-vs-forward check at full width on a
+#: ``serve --arch`` at full width, 32 of 64 and 19 of 38 layers (one
+#: pattern period; ``RECURRENT_LAYERS``, the depth cut that keeps the
+#: whole run near 950 s; ``--quick``: 2 layers, one pattern period); the decode-vs-forward check at full width on a
 #: cut depth, (layer pattern or None for the config's, layers, tokens):
 #: falcon-mamba's first 4 layers over 1 x 512 tokens (two scan chunks of
 #: 256), recurrentgemma's (rglru, rglru, local) over 1 x 1024 (two RG-LRU
 #: chunks of 512; its 2048-slot ring does not wrap); decode faults over
 #: the first 64 steps.
 RECURRENT_ARCHS = ("falcon-mamba-7b", "recurrentgemma-9b")
+RECURRENT_LAYERS = {"falcon-mamba-7b": 32, "recurrentgemma-9b": 19}
 RECURRENT_QUICK_LAYERS = {"falcon-mamba-7b": 2, "recurrentgemma-9b": 19}
 RECURRENT_CHECKS = {"falcon-mamba-7b": (None, 4, 512),
                     "recurrentgemma-9b": (("rglru", "rglru", "local"), 3,
@@ -1721,9 +1743,10 @@ def families_phase(quick: bool, dev) -> dict:
     kernels.reset_launch_counts()
     result = {}
 
-    # gemma3-12b: serve at full depth, and profile two steps.
-    g = families_serve("gemma3-12b", FAMILIES_QUICK_LAYERS["gemma3-12b"]
-                       if quick else None, dev)
+    # gemma3-12b: serve, and profile two steps.
+    g = families_serve("gemma3-12b", (FAMILIES_QUICK_LAYERS if quick
+                                      else FAMILIES_LAYERS)["gemma3-12b"],
+                       dev)
     prof = lm_profile(g["model"], g["prompts"], dev)
     log_profile("families", "gemma3-12b", prof)
     g["profile"] = {k: prof[k] for k in ("wall_ms", "device_ms", "kernels")}
@@ -1795,11 +1818,12 @@ def families_phase(quick: bool, dev) -> dict:
     del model, enc, no_pos, x, batch, toks, fwd
     free(dev)
 
-    # qwen2-vl-7b: serve at full depth and one forward of the pipeline's
-    # patch stubs; then decode against forward with M-RoPE positions on
-    # its first VLM_CHECK_LAYERS layers.
-    q = families_serve("qwen2-vl-7b", FAMILIES_QUICK_LAYERS["qwen2-vl-7b"]
-                       if quick else None, dev)
+    # qwen2-vl-7b: serve and one forward of the pipeline's patch stubs;
+    # then decode against forward with M-RoPE positions on its first
+    # VLM_CHECK_LAYERS layers.
+    q = families_serve("qwen2-vl-7b", (FAMILIES_QUICK_LAYERS if quick
+                                       else FAMILIES_LAYERS)["qwen2-vl-7b"],
+                       dev)
     model = q.pop("model")
     b, s = VLM_FORWARD
     batch = pipeline_batch(model.cfg, s, b, dev)
@@ -1860,8 +1884,8 @@ def recurrent_phase(quick: bool, dev) -> dict:
     """The ``ssm`` and ``hybrid`` families on the card, through the port's
     LM path, with no port kernel launched (the counters are zeroed first
     and must read 0 after).  For falcon-mamba-7b and recurrentgemma-9b:
-    ``serve --arch`` at full width and depth and a profile of two steps;
-    then the decode-vs-forward check at full width on a cut depth
+    ``serve --arch`` at full width on ``RECURRENT_LAYERS`` layers and a
+    profile of two steps; then the decode-vs-forward check at full width on a cut depth
     (``RECURRENT_CHECKS``), which must reject (a) a forward that drops the
     chunk carry, and (b) a mamba conv cache of activated inputs or (c) an
     RG-LRU decode without its decay.  Each model is freed before the
@@ -1893,8 +1917,9 @@ def recurrent_phase(quick: bool, dev) -> dict:
     kernels.reset_launch_counts()
     result = {}
     for arch in RECURRENT_ARCHS:
-        r = families_serve(arch, RECURRENT_QUICK_LAYERS[arch] if quick
-                           else None, dev, phase="recurrent")
+        r = families_serve(arch, (RECURRENT_QUICK_LAYERS if quick
+                                  else RECURRENT_LAYERS)[arch], dev,
+                           phase="recurrent")
         prof = lm_profile(r["model"], r["prompts"], dev)
         log_profile("recurrent", arch, prof)
         r["profile"] = {k: prof[k] for k in ("wall_ms", "device_ms",
@@ -2962,11 +2987,11 @@ MC_SHARD_N_QUICK = 2 ** 12
 MC_MOE_ROUNDINGS = 6
 
 
-def mc_ratio(got, ref, stages: int, dtype=None) -> float:
+def mc_ratio(got, ref, stages: int, dtype=None, dims=(-1,)) -> float:
     """Worst ``|got - ref|`` over ``models.model.rounding_tolerance`` of
     ``stages`` roundings to ``dtype`` (bf16 by default) at the scale of
-    each row's largest ``|ref|`` (the last dimension's); an error where
-    the bound is 0 is infinite."""
+    each row's largest ``|ref|`` (over ``dims``: by default the last
+    dimension's); an error where the bound is 0 is infinite."""
     import torch
     from repro_torch.models.model import rounding_tolerance
     g, r = got.detach().float(), ref.detach().float()
@@ -2975,7 +3000,8 @@ def mc_ratio(got, ref, stages: int, dtype=None) -> float:
                            f"{tuple(r.shape)}")
     if not bool(torch.isfinite(g).all()):
         return float("inf")
-    scale = r.abs().amax(dim=-1, keepdim=True) if r.ndim else r.abs()
+    dims = tuple(d for d in dims if -r.ndim <= d < r.ndim)
+    scale = r.abs().amax(dim=dims, keepdim=True) if dims else r.abs()
     tol = rounding_tolerance(stages, scale, r.numel(),
                              dtype or torch.bfloat16)
     err = (g - r).abs()
@@ -3365,9 +3391,399 @@ def mc_shard(dev, backend, quick: bool, lines: list) -> dict:
     return {"rows": rows, "launches": launches}
 
 
+#: (e) the partitioned steps: olmoe-1b-7b at full width, 2 of 16 layers,
+#: batch 4 x 512 (``--quick``: 1 layer, 2 x 128), fp32 masters and bf16
+#: compute; the train step on ``(data=1, model=2)`` at steps 1 and 2 of
+#: ``[train]``'s schedule, the prefill on ``(data=2, model=1)`` at 1
+#: layer.
+MC_GSPMD_LAYERS, MC_GSPMD_LAYERS_QUICK = 2, 1
+MC_GSPMD_STEPS = (1, 2)
+
+
+class ReplayRouting:
+    """Records each ``models.moe.router`` call's top-k ids while active;
+    with ``replay`` (another run's ids, in call order), each call takes
+    the replayed ids instead of its own and weights them by its own
+    probabilities, so that two runs differ only by their roundings (its
+    router's gradient stays its own).  ``flips`` counts the calls' rows
+    whose own ids differed from the replayed ones."""
+
+    def __init__(self, replay: Optional[list] = None):
+        self.replay, self.ids, self.flips, self.rows = replay, [], 0, 0
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self._orig = moe.router
+
+        def router(x, kernel, k):
+            weights, ids = self._orig(x, kernel, k)
+            if self.replay is not None:
+                want = self.replay[len(self.ids)]
+                same = (ids.sort(dim=1).values ==
+                        want.sort(dim=1).values).all(dim=1)
+                self.flips += int((~same).sum())
+                self.rows += ids.shape[0]
+                probs = torch.softmax(x.float() @ kernel.float(), dim=-1)
+                weights = torch.gather(probs, 1, want)
+                weights = weights / torch.clamp(
+                    weights.sum(dim=-1, keepdim=True), min=1e-9)
+                ids = want
+            self.ids.append(ids.detach())
+            return weights, ids
+        moe.router = router
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.router = self._orig
+
+
+def mc_roundings(cfg, tp: int) -> int:
+    """Roundings to bf16 between the embedding and the logits of the
+    partitioned forward against one process's: the model's own
+    (``models.model.roundings``) and, at each of a layer's two
+    row-parallel exits, each rank's partial sum rounded before the sum
+    (``tp`` more)."""
+    from repro_torch.models.model import roundings
+    return roundings(cfg) + 2 * cfg.num_layers * tp
+
+
+def mc_gspmd_train(dev, backend, quick: bool, lines: list) -> dict:
+    """(e1) The partitioned train step on ``(data=1, model=2)`` against the
+    one-process step on the same card, from the same seed: first the
+    one-process model runs its forward and steps 1 and 2, recording its
+    routing, loss, ``grad_norm``, and this rank's blocks of its gradients
+    and parameters after each step (kept on the host); it is freed, and
+    the partitioned model runs the same, replaying that routing (so that
+    the two differ only by their roundings; the rows where its own
+    router would have chosen otherwise are counted).  Bounds
+    (``models.model.rounding_tolerance`` over ``mc_roundings`` stages):
+    the logits over those stages at each row's scale; the loss within
+    twice the bound of a logit at the largest row rms (a token's loss
+    moves by at most twice its logits' largest move); the gradient blocks
+    over twice the stages (forward and backward) at the scale of each
+    matrix (an expert's, or the leaf's: a row of a weight's gradient can
+    be exactly 0 in one run and not the other, where an expert's few
+    tokens have an input feature that rounds to 0 in one run only),
+    ``grad_norm`` likewise at its own scale; the parameter blocks within
+    what two AdamW steps can move an element apart, ``2 * lr *
+    sum(lr_scale) * (1 + wd * |p|)``.  Faults on the forward: the
+    row-parallel outputs left unsummed (the logits' bound) and the
+    vocab-parallel logsumexp without its ``psum`` (the loss's bound)."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import comm
+    from repro_torch.core.collectives import step_collectives
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import abstract_mesh, make_process_mesh
+    from repro_torch.models.model import (LM, init_params, layer_kinds,
+                                          rounding_tolerance)
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as TS
+
+    cfg = dataclasses.replace(
+        get_config(MC_ARCH),
+        num_layers=MC_GSPMD_LAYERS_QUICK if quick else MC_GSPMD_LAYERS)
+    B, S = MC_TOKENS_QUICK if quick else MC_TOKENS
+    shape = ShapeConfig("mc-train", S, B, "train")
+    mesh = make_process_mesh((1, 2), ("data", "model"), device=dev,
+                             backend=backend)
+    tp, mi = 2, mesh.axis_index("model")
+    tag = f"[multicard] (e1) rank {mesh.rank}"
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR)
+    pipe = Pipeline(cfg, shape, DataConfig(seed=0))
+    batches = {s: {k: torch.from_numpy(v).to(dev) for k, v in
+                   pipe.batch_for_step(s).items()} for s in MC_GSPMD_STEPS}
+    first = batches[MC_GSPMD_STEPS[0]]
+    stages = mc_roundings(cfg, tp)
+    specs = TS.step_specs(cfg, shape, mesh)["params"]
+    eps32 = float(torch.finfo(torch.float32).eps)
+
+    def seeded():
+        g = torch.Generator(device=dev).manual_seed(0)
+        return init_params(cfg, device=dev, generator=g, masters=True)
+
+    def host_blocks(named):
+        """This rank's blocks of whole leaves, copied to the host (the next
+        step updates the parameters in place)."""
+        return {n: SH.local_block(t.detach(), specs[n], mesh).to(
+            "cpu", copy=True) for n, t in named.items()}
+
+    grads = {}
+    apply = adamw.apply_updates
+
+    def recording(params, g, state, cfg_, lr_scale=1.0, **kw):
+        grads["last"] = {n: t.detach() for n, t in g.items()}
+        return apply(params, g, state, cfg_, lr_scale, **kw)
+
+    # The one-process model: its forward, then steps 1 and 2.
+    one = seeded()
+    step_one = TS.make_train_step(cfg, shape, opt_cfg=opt_cfg,
+                                  schedule_kwargs=TRAIN_SCHEDULE)
+    opt_one = adamw.init_state(dict(one.named_parameters()), opt_cfg)
+    with torch.no_grad(), ReplayRouting() as fwd_routes:
+        logits = one(first["tokens"])
+    v = logits.shape[-1] // tp
+    want_logits = logits[..., mi * v:(mi + 1) * v].clone()
+    rms = logits.pow(2).mean(dim=-1).sqrt().max()
+    want_loss = float(TS.softmax_xent(logits, first["labels"],
+                                      cfg.vocab_size))
+    loss_bound = 2 * float(rounding_tolerance(stages, rms, 1))
+    del logits
+    ref_steps = []
+    adamw.apply_updates = recording
+    try:
+        for s in MC_GSPMD_STEPS:
+            with ReplayRouting() as routes:
+                m = step_one(one, opt_one, batches[s], s)
+            ref_steps.append({
+                "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                "lr_scale": float(m["lr_scale"]), "routes": routes.ids,
+                "grads": host_blocks(grads.pop("last")),
+                "params": host_blocks(dict(one.named_parameters()))})
+    finally:
+        adamw.apply_updates = apply
+    del one, opt_one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The partitioned model: the same forward, the two faults, the steps.
+    part = seeded().shard(mesh)
+    if part.param_specs != specs:
+        raise SmokeFailure(f"{tag}: LM.shard's specs differ from the step's")
+    ctx = TS.make_ctx(cfg, mesh, shape)
+    local = SH.batch_shard(first, cfg, mesh, shape)
+
+    def forward(fault=None):
+        with torch.no_grad(), ReplayRouting(fwd_routes.ids):
+            real = comm.psum_scatter, comm.psum
+            if fault == "row-parallel unsummed":
+                def no_sum(t, axis, *, scatter_dimension, tiled, mesh):
+                    n = t.shape[scatter_dimension] // mesh.axis_size(axis)
+                    return t.narrow(scatter_dimension,
+                                    mesh.axis_index(axis) * n, n)
+                comm.psum_scatter = no_sum
+            try:
+                logits = part(local["tokens"], ctx=ctx, remat=False)
+                if fault == "logsumexp without psum":
+                    comm.psum = lambda x, axis, *, mesh=None: x
+                share = TS._mesh_loss(cfg, logits, local["labels"], ctx)
+            finally:
+                comm.psum_scatter, comm.psum = real
+            loss = float(comm.psum(share, mesh.axis_names, mesh=mesh))
+        return logits, abs(loss - want_loss) / loss_bound
+
+    logits, loss_ratio = forward()
+    logit_ratio = mc_ratio(logits, want_logits, stages)
+    faults = {"row-parallel unsummed": mc_ratio(
+        forward("row-parallel unsummed")[0], want_logits, stages),
+        "logsumexp without psum": forward("logsumexp without psum")[1]}
+    del logits, want_logits
+    if logit_ratio > 1 or loss_ratio > 1:
+        raise SmokeFailure(f"{tag}: forward against one process: logits "
+                           f"err / bound {logit_ratio:.3f}, loss "
+                           f"{loss_ratio:.3f}")
+    missed = {k: r for k, r in faults.items() if r <= 1}
+    if missed:
+        raise SmokeFailure(f"{tag}: planted faults passed {missed}")
+
+    step_part, _ = TS.make_train_step(cfg, shape, mesh, opt_cfg=opt_cfg,
+                                      schedule_kwargs=TRAIN_SCHEDULE)
+    opt_part = adamw.init_state(dict(part.named_parameters()), opt_cfg)
+    rows, launches, step_ms, lr_sum = [], 0, [], 0.0
+    log_ = mesh.reset_log()
+    adamw.apply_updates = recording
+    try:
+        for s, ref in zip(MC_GSPMD_STEPS, ref_steps):
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            with ReplayRouting(ref["routes"]) as replay:
+                m = step_part(part, opt_part,
+                              SH.batch_shard(batches[s], cfg, mesh, shape), s)
+            loss = float(m["loss"])
+            torch.cuda.synchronize(dev)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            launches += kernels.launch_counts()["grouped_matmul"]
+            got = grads.pop("last")
+            worst_g = max((mc_ratio(g, ref["grads"][n].to(dev),
+                                    2 * stages, dims=(-2, -1)), n)
+                          for n, g in got.items())
+            del got
+            lr_sum += ref["lr_scale"]
+            moved = 2 * TRAIN_LR * lr_sum
+            worst_p = 0.0
+            for n, p in part.named_parameters():
+                want = ref["params"][n].to(dev)
+                allowed = moved * (1 + opt_cfg.weight_decay * want.abs()) \
+                    + 8 * eps32 * want.abs()
+                worst_p = max(worst_p, float(((p.detach() - want).abs() /
+                                              allowed).max()))
+            gn = float(m["grad_norm"])
+            row = {"step": s, "loss": (ref["loss"], loss),
+                   "loss_ratio": abs(loss - ref["loss"]) / loss_bound,
+                   "grad_norm": (ref["grad_norm"], gn),
+                   "grad_norm_ratio": abs(gn - ref["grad_norm"]) / float(
+                       rounding_tolerance(2 * stages, ref["grad_norm"], 1)),
+                   "grads": worst_g, "params": worst_p,
+                   "flips": replay.flips, "rows": replay.rows}
+            rows.append(row)
+            if max(row["loss_ratio"], row["grad_norm_ratio"],
+                   row["grads"][0], row["params"]) > 1:
+                raise SmokeFailure(f"{tag}: step {s} against one process: "
+                                   f"{row}")
+    finally:
+        adamw.apply_updates = apply
+    planned = part.grouped_launches_per_step(train=True) * \
+        len(MC_GSPMD_STEPS) if dev.type == "cuda" else 0
+    if launches != planned:
+        raise SmokeFailure(f"{tag}: {launches} grouped launches, planned "
+                           f"{planned}")
+    counted = {k: v for k, v in log_.bytes.items() if v}
+    named = dict(LM(cfg, device="meta", masters=True).named_parameters())
+    am = abstract_mesh((1, 2), ("data", "model"))
+    modelled = step_collectives(
+        cfg, shape, am, params={n: (tuple(p.shape), 4)
+                                for n, p in named.items()},
+        specs=SH.param_pspecs(cfg, named, am),
+        constraints=[("tokens_bse", (B, S, cfg.d_model), "bfloat16",
+                      ("data", "model")),
+                     ("logits_bsv", (B, S, cfg.padded_vocab), "float32",
+                      ("data", "model"))],
+        kinds=layer_kinds(cfg), compute_itemsize=2).summary()[0]
+    modelled = {k: v * len(MC_GSPMD_STEPS) for k, v in modelled.items()
+                if v}
+    ratio = sum(counted.values()) / modelled["total"]
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 \
+        if dev.type == "cuda" else 0.0
+    lines.append(
+        f"{tag}: olmoe-1b-7b {cfg.num_layers} layers at full width, batch "
+        f"{B} x {S}, {part.layers[0].moe.e_loc} experts per rank; forward "
+        f"logits err / bound {logit_ratio:.3f}, loss {loss_ratio:.3f} "
+        f"(bound {loss_bound:.3e}); faults err / bound "
+        + ", ".join(f"{k} {v:.1f}" for k, v in faults.items())
+        + "; steps " + "; ".join(
+            f"{r['step']}: loss {r['loss'][1]:.6f} vs {r['loss'][0]:.6f} "
+            f"({r['loss_ratio']:.3f}), grad_norm {r['grad_norm'][1]:.5f} vs "
+            f"{r['grad_norm'][0]:.5f} ({r['grad_norm_ratio']:.3f}), grads "
+            f"{r['grads'][0]:.3f} ({r['grads'][1]}), params "
+            f"{r['params']:.3f}, own router differs on {r['flips']} of "
+            f"{r['rows']} rows" for r in rows)
+        + f"; grouped launches {launches} = planned {planned}; step ms "
+        f"{', '.join(f'{t:.1f}' for t in step_ms)} ({mesh.backend}"
+        + (", host staging: not a link rate" if mesh.stages_through_host
+           else "")
+        + f"); collective bytes per kind "
+        f"{dict((k, int(v)) for k, v in counted.items())} vs the dry run's "
+        f"step_collectives "
+        f"{dict((k, int(v)) for k, v in modelled.items())}, ratio "
+        f"{ratio:.3f}; staged through the host "
+        f"{dict((k, int(v)) for k, v in log_.staged.items() if v)}; peak "
+        f"{peak:.2f} GB allocated")
+    out = {"launches": launches, "planned": planned, "steps": rows,
+           "logit_ratio": logit_ratio, "loss_ratio": loss_ratio,
+           "faults": faults, "step_ms": step_ms, "bytes": counted,
+           "modelled_bytes": modelled, "bytes_ratio": ratio,
+           "peak_gb": peak}
+    del part, opt_part, ref_steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mc_gspmd_prefill(dev, backend, quick: bool, lines: list) -> dict:
+    """(e2) The partitioned prefill on ``(data=2, model=1)`` (FSDP, 1
+    layer, bf16 weights) against the one-process forward on this data
+    shard's rows: bit for bit (the gather rebuilds the weights exactly).
+    Fault: the FSDP blocks gathered in reversed order (its err over the
+    logits' rounding bound is printed; any difference fails)."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import comm
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models.model import init_params
+    from repro_torch.train import train_step as TS
+
+    cfg = dataclasses.replace(get_config(MC_ARCH), num_layers=1)
+    B, S = MC_TOKENS_QUICK if quick else MC_TOKENS
+    shape = ShapeConfig("mc-prefill", S, B, "prefill")
+    mesh = make_process_mesh((2, 1), ("data", "model"), device=dev,
+                             backend=backend)
+    tag = f"[multicard] (e2) rank {mesh.rank}"
+    tokens = torch.from_numpy(Pipeline(cfg, shape, DataConfig(seed=0))
+                              .batch_for_step(0)["tokens"]).to(dev)
+    local = SH.batch_shard({"tokens": tokens}, cfg, mesh, shape)
+
+    def seeded():
+        g = torch.Generator(device=dev).manual_seed(0)
+        return init_params(cfg, device=dev, generator=g)
+
+    with torch.no_grad():
+        want = seeded()(local["tokens"], remat=False)
+    part = seeded().shard(mesh)
+    fn, specs = TS.make_prefill_step(cfg, shape, mesh)
+    kernels.reset_launch_counts()
+    log_ = mesh.reset_log()
+    got = fn(part, local)
+    launches = kernels.launch_counts()["grouped_matmul"]
+    counted = dict(log_.bytes)
+    real = comm.all_gather
+
+    def reversed_blocks(x, axis, *, dim=0, tiled=False, mesh=None):
+        y = real(x, axis, dim=dim, tiled=tiled, mesh=mesh)
+        if axis != "data":
+            return y
+        return torch.cat(y.chunk(mesh.axis_size(axis), dim=dim)[::-1],
+                         dim=dim)
+    comm.all_gather = reversed_blocks
+    try:
+        bad = fn(part, local)
+    finally:
+        comm.all_gather = real
+    exact = bool(torch.equal(got, want))
+    fault_equal = bool(torch.equal(bad, want))
+    fault_ratio = mc_ratio(bad, want, mc_roundings(cfg, 1))
+    planned = part.grouped_launches_per_step() if dev.type == "cuda" else 0
+    if not exact:
+        raise SmokeFailure(f"{tag}: the partitioned prefill differs from one "
+                           f"process: max |err| "
+                           f"{float((got - want).abs().max()):.3e}")
+    if fault_equal:
+        raise SmokeFailure(f"{tag}: the reversed FSDP gather passed")
+    if launches != planned:
+        raise SmokeFailure(f"{tag}: {launches} grouped launches, planned "
+                           f"{planned}")
+    lines.append(
+        f"{tag}: olmoe-1b-7b 1 layer at full width, bf16, rows "
+        f"{tuple(local['tokens'].shape)} of {tuple(tokens.shape)}; logits "
+        f"{tuple(got.shape)} (spec {specs['logits']}) equal the one-process "
+        f"forward bit for bit; reversed FSDP gather: err / rounding bound "
+        f"{fault_ratio:.1f}; grouped launches {launches} = planned "
+        f"{planned}; collective bytes "
+        f"{dict((k, int(v)) for k, v in counted.items())}")
+    out = {"launches": launches, "planned": planned, "exact": exact,
+           "fault_ratio": fault_ratio, "bytes": counted}
+    del part, got, bad, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def multicard_rank(rank: int, world: int, quick: bool,
                    distinct: bool) -> dict:
-    """One rank of the ``[multicard]`` world: (a)-(d) in order."""
+    """One rank of the ``[multicard]`` world: (a)-(e) in order."""
     import importlib
     import threading
     import torch
@@ -3402,6 +3818,12 @@ def multicard_rank(rank: int, world: int, quick: bool,
     t0 = time.perf_counter()
     out["shard"] = mc_shard(dev, backend, quick, lines)
     out["seconds"]["d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out["gspmd"] = {"train": mc_gspmd_train(dev, backend, quick, lines),
+                    "prefill": mc_gspmd_prefill(dev, backend, quick,
+                                                lines)}
+    out["seconds"]["e"] = time.perf_counter() - t0
     out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     return out
 
@@ -3523,9 +3945,13 @@ def multicard_phase(quick: bool, dev) -> dict:
             log(f"[multicard] NCCL on two ranks of one card: "
                 f"{lines[-1].strip()}")
     launches = {k: [0] * MC_WORLD for k in KERNEL_MODULES}
+    gspmd = [0] * MC_WORLD
     for r in results:
+        gspmd[r["rank"]] = r["gspmd"]["train"]["launches"] + \
+            r["gspmd"]["prefill"]["launches"]
         launches["grouped_matmul"][r["rank"]] += sum(
-            m["launches"] for m in r["moe"]) + r["pipeline"]["launches"]
+            m["launches"] for m in r["moe"]) + r["pipeline"]["launches"] + \
+            gspmd[r["rank"]]
         for k, v in r["shard"]["launches"].items():
             launches[k][r["rank"]] += v
     for k in ("grouped_matmul", "bcsr_spmm", "banded_spmm", "csr_spmm"):
@@ -3535,8 +3961,12 @@ def multicard_phase(quick: bool, dev) -> dict:
     log(f"[multicard] launches per rank: "
         f"{ {k: v for k, v in launches.items() if any(v)} }; world "
         f"{world_s:.1f} s")
-    return {"launches": launches, "results": results,
-            "backend": "nccl" if distinct else "gloo",
+    log(f"[multicard] (e) grouped launches per rank {gspmd} (train "
+        f"planned {results[0]['gspmd']['train']['planned']}, prefill "
+        f"{results[0]['gspmd']['prefill']['planned']} per rank); (e) "
+        f"seconds per rank {[round(r['seconds']['e'], 1) for r in results]}")
+    return {"launches": launches, "gspmd_launches": gspmd,
+            "results": results, "backend": "nccl" if distinct else "gloo",
             "world_seconds": world_s}
 
 
@@ -3570,6 +4000,7 @@ def main(argv=None) -> int:
 
 def run(quick: bool, n: int) -> int:
     """Every phase in order; a failure raises."""
+    import gc
     import torch
     t_start = time.perf_counter()
     seconds = {}
@@ -3655,10 +4086,17 @@ def run(quick: bool, n: int) -> int:
     harvest_phase(dev)
     seconds["harvest"] = time.perf_counter() - t0
     log(f"[harvest] phase took {seconds['harvest']:.1f}s")
+    # The served plans' layouts (about 22 GB on the card) are not read
+    # again: free them for the multicard world's ranks, which share it.
+    del served, moe
+    gc.collect()
+    empty_cache(dev)
     t0 = time.perf_counter()
     multicard = multicard_phase(quick, dev)
     for rec in records:
         rec["multicard_launches"] = multicard["launches"][rec["name"]]
+        rec["multicard_gspmd_launches"] = multicard["gspmd_launches"] \
+            if rec["name"] == "grouped_matmul" else [0] * MC_WORLD
     seconds["multicard"] = time.perf_counter() - t0
     log(f"[multicard] phase took {seconds['multicard']:.1f}s "
         f"({multicard['backend']})")

@@ -23,6 +23,10 @@ Layout (one directory per step), the same files the reference writes:
   ProcessMesh`` its own block of each leaf, as a spec (the policy's
   format, ``launch.sharding``) splits it, reading only that block from
   the file: the counterpart of the reference's ``restore(shardings=)``.
+  ``save(mesh=, specs=)`` is its inverse: every rank passes its blocks,
+  each leaf is assembled whole (``launch.sharding.assemble``) and rank 0
+  writes the same files a one-process save writes; every rank waits at a
+  barrier before rank 0 commits and again after.
 """
 from __future__ import annotations
 
@@ -30,12 +34,13 @@ import json
 import os
 import shutil
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core.tree import leaves, unflatten
+from repro_torch.launch.sharding import assemble, block_slices
 
 #: The ``.npy`` dtype descriptor of a bf16 leaf: a raw 2-byte record,
 #: as ``np.save`` writes ``ml_dtypes.bfloat16``.
@@ -69,36 +74,6 @@ def from_host(arr: np.ndarray, dtype: str,
     return t if device is None else t.to(device)
 
 
-def block_slices(spec, shape: Tuple[int, ...], mesh) -> Tuple[slice, ...]:
-    """This rank's block of a leaf of ``shape`` split by ``spec`` on
-    ``mesh``: a dim whose entry names axes ``(a, b, ...)`` is cut into
-    ``size(a) * size(b) * ...`` equal blocks, ``a`` the major one, as
-    ``jax.sharding.NamedSharding`` cuts it; the rank takes the block of its
-    coordinates.  Dims past the spec are whole.
-
-    Raises:
-        ValueError: a spec longer than the leaf, or a dim its axes do not
-            evenly divide.
-    """
-    from repro_torch.launch.sharding import axes_of
-    if len(spec) > len(shape):
-        raise ValueError(f"spec {spec} has more entries than the leaf's "
-                         f"{len(shape)} dims")
-    out = []
-    for dim, size in enumerate(shape):
-        axes = axes_of(spec[dim]) if dim < len(spec) else ()
-        parts, index = 1, 0
-        for a in axes:
-            parts *= mesh.shape[a]
-            index = index * mesh.shape[a] + mesh.coords[a]
-        if size % parts:
-            raise ValueError(f"dim {dim} of {shape} does not split into "
-                             f"{parts} blocks over {axes}")
-        step = size // parts
-        out.append(slice(index * step, (index + 1) * step))
-    return tuple(out)
-
-
 class Checkpointer:
     def __init__(self, root: str, keep: int = 3):
         self.root = root
@@ -108,21 +83,53 @@ class Checkpointer:
     def _dir(self, step: int) -> str:
         return os.path.join(self.root, f"step_{step:09d}")
 
-    def save(self, step: int, tree: Dict) -> str:
+    def save(self, step: int, tree: Dict, *, mesh=None,
+             specs: Optional[Dict] = None) -> str:
         """Write a committed checkpoint for ``step``; returns its path.
-        Leaves go to the host one at a time."""
+        Leaves go to the host one at a time.
+
+        With ``mesh`` (a ``ProcessMesh``) and ``specs`` (nested or
+        ``/``-keyed flat, as :meth:`restore` takes them), every rank of
+        the mesh calls this with its blocks of ``tree``: each leaf that
+        has a spec is assembled whole over the mesh, rank 0 writes it,
+        and every rank returns once rank 0 has committed.
+
+        Raises:
+            ValueError: one of ``mesh`` and ``specs`` without the other.
+        """
+        from repro_torch.core import comm
+        if (mesh is None) != (specs is None):
+            raise ValueError("a save over a mesh needs both mesh= and "
+                             "specs=")
+        flat_specs = dict(leaves(specs)) if specs else {}
+        writer = mesh is None or mesh.rank == 0
         final = self._dir(step)
         tmp = final + ".tmp"
-        if os.path.exists(tmp):
-            shutil.rmtree(tmp)
         arrays_dir = os.path.join(tmp, "arrays")
-        os.makedirs(arrays_dir)
+        if writer:
+            if os.path.exists(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(arrays_dir)
         manifest = {"step": step, "time": time.time(), "arrays": {}}
         for key, val in leaves(tree):
+            if flat_specs.get(key) is not None:
+                val = assemble(val, flat_specs[key], mesh)
+            if not writer:
+                continue
             fname = key.replace("/", ".") + ".npy"
             shape, dtype = save_leaf(os.path.join(arrays_dir, fname), val)
             manifest["arrays"][key] = {"file": fname, "shape": shape,
                                        "dtype": dtype}
+        if mesh is not None:
+            comm.barrier(mesh=mesh)
+        if writer:
+            self._commit(tmp, final, step, manifest)
+        if mesh is not None:
+            comm.barrier(mesh=mesh)
+        return final
+
+    def _commit(self, tmp: str, final: str, step: int,
+                manifest: Dict) -> None:
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
         if os.path.exists(final):
@@ -133,7 +140,6 @@ class Checkpointer:
         with open(os.path.join(final, "COMMITTED"), "w") as f:
             f.write(str(step))
         self._gc()
-        return final
 
     def committed_steps(self):
         steps = []

@@ -7,14 +7,18 @@ import torch
 
 DeviceLike = Union[None, str, torch.device]
 
-#: What brings the steps that XLA's partitioner spreads over a mesh (the
-#: train, prefill and serve steps, the trainer and ``launch.train`` over a
-#: mesh); the port raises ``NotImplementedError`` naming it.  The explicit
-#: per-shard programs (``core.comm``, the expert-parallel MoE, the
-#: pipeline, ``compressed_psum``, the sharded tier on a process mesh) are
-#: ported.
-MULTI_CARD = ("the multi-card item, part 2 (GSPMD-partitioned steps; "
-              "ROADMAP.md Queue A, \"Multi-card item\")")
+#: What brings the rest of the multi-card runtime; the port raises
+#: ``NotImplementedError`` naming it.  Ported: the explicit per-shard
+#: programs (``core.comm``, the expert-parallel MoE, the pipeline,
+#: ``compressed_psum``, the sharded tier on a process mesh) and the
+#: policy-partitioned train and prefill steps of the ``dense`` and ``moe``
+#: archs of global attention, with ``Trainer(mesh=)`` and ``launch.train
+#: --mesh``.  Part 3 brings the serve step over a mesh (its
+#: sequence-sharded KV cache) and the ``local``, ``vlm``, ``encdec``,
+#: ``ssm`` and ``hybrid`` families over a mesh.
+MULTI_CARD = ("the multi-card item, part 3 (the serve step over a mesh "
+              "and the local, vlm, encdec, ssm and hybrid families over "
+              "a mesh; ROADMAP.md Queue A, \"Multi-card item\")")
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

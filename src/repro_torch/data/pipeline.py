@@ -4,7 +4,9 @@
 ``batch_for_step(step)`` is a pure function of (seed, step, shape), so a
 restarted trainer resumes at step k and regenerates exactly the batch the
 interrupted run would have seen.  Batches are numpy on the host; the
-trainer moves them to the device.
+trainer moves them to the device.  Over a mesh each rank draws the
+step's global batch from the seed and keeps its rows
+(:meth:`Pipeline.shard_for_step`, ``launch.sharding.batch_shard``).
 
 Two sources:
   synthetic  zipf-distributed token ids (heavy-tailed like real text)
@@ -67,6 +69,15 @@ class Pipeline:
         batch = {"tokens": seqs[:, :-1], "labels": seqs[:, 1:]}
         batch.update(self.modality_stubs(rng, b, s))
         return batch
+
+    def shard_for_step(self, step: int, mesh,
+                       grad_accum: int = 1) -> Dict[str, np.ndarray]:
+        """This rank's rows of :meth:`batch_for_step` on a process mesh
+        (``launch.sharding.batch_shard``: its data shard of each of the
+        ``grad_accum`` micro-batches, in order)."""
+        from repro_torch.launch.sharding import batch_shard
+        return batch_shard(self.batch_for_step(step), self.cfg, mesh,
+                           self.shape, grad_accum)
 
     def modality_stubs(self, rng, b: int, s: int) -> Dict[str, np.ndarray]:
         """Precomputed frame / patch embeddings for the audio (``encdec``)

@@ -122,7 +122,8 @@ def _stacked_slot(cfg, parts):
     return None
 
 
-def params_from_numpy(cfg, tree, device=None, dtype=None, masters=False):
+def params_from_numpy(cfg, tree, device=None, dtype=None, masters=False, *,
+                      mesh=None, specs=None):
     """The port's :class:`~repro_torch.models.model.LM` holding the
     reference's ``init_params`` weights.
 
@@ -142,6 +143,11 @@ def params_from_numpy(cfg, tree, device=None, dtype=None, masters=False):
     reference's per-use cast gives; norm scales and biases and the router
     stay fp32.  ``w_gate`` and ``w_up`` go side by side into
     ``w_gate_up``.
+
+    With ``mesh`` (a ``launch.mesh.ProcessMesh``) the model keeps this
+    rank's blocks (``LM.shard(mesh, specs)``; ``specs`` default to the
+    policy's), so the reference's parameters carry across to a
+    partitioned step.
     """
     import torch
     from repro_torch.models.model import LM
@@ -167,7 +173,7 @@ def params_from_numpy(cfg, tree, device=None, dtype=None, masters=False):
     tensors = {name: torch.from_numpy(np.array(arr)).to(dev, own[name].dtype)
                for name, arr in state.items()}
     model.load_state_dict(tensors, strict=True, assign=True)
-    return model
+    return model if mesh is None else model.shard(mesh, specs)
 
 
 def tree_to_numpy(cfg, named) -> dict:
@@ -218,5 +224,14 @@ def tree_to_numpy(cfg, named) -> dict:
 
 def params_to_numpy(model) -> dict:
     """The reference's parameter pytree of a port
-    :class:`~repro_torch.models.model.LM` (see :func:`tree_to_numpy`)."""
-    return tree_to_numpy(model.cfg, dict(model.named_parameters()))
+    :class:`~repro_torch.models.model.LM` (see :func:`tree_to_numpy`).
+    A model sharded on a mesh (``LM.shard``) has its whole leaves
+    assembled from every rank's blocks (``launch.sharding.assemble``):
+    every rank of the mesh must call this, and each gets the whole
+    tree."""
+    named = dict(model.named_parameters())
+    if model.mesh is not None:
+        from repro_torch.launch.sharding import assemble
+        named = {n: assemble(p.detach(), model.param_specs[n], model.mesh)
+                 for n, p in named.items()}
+    return tree_to_numpy(model.cfg, named)

@@ -1,10 +1,14 @@
 """Sharding policy: parameter specs, activation rules, batch and cache specs.
 
 The counterpart of the reference's ``repro.launch.sharding``, for the
-dry run (``launch.dryrun``): the port executes on one card, so nothing
-here places a tensor.  A *spec* is a tuple with one entry per dim: a mesh
-axis name, a tuple of names, or ``None`` (not split).  A mesh is anything
-with ``axis_names`` and a ``shape`` mapping (``launch.mesh.AbstractMesh``).
+dry run (``launch.dryrun``) and for the partitioned steps on a
+``launch.mesh.ProcessMesh``: :func:`block_slices` / :func:`local_block`
+cut a rank's block of a whole leaf as ``jax.sharding.NamedSharding`` cuts
+it, and :func:`batch_shard` keeps a rank's rows of a global batch.  A
+*spec* is a tuple with one entry per dim: a mesh axis name, a tuple of
+names, or ``None`` (not split).  A mesh is anything with ``axis_names``
+and a ``shape`` mapping (``launch.mesh.AbstractMesh``); cutting a block
+also reads a process mesh's ``coords``.
 
 Scheme (the reference's):
   * weights: Megatron tensor parallelism over ``"model"`` (column-parallel
@@ -29,6 +33,8 @@ from __future__ import annotations
 
 import re
 from typing import Dict, List, Mapping, Tuple, Union
+
+import numpy as np
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 
@@ -244,3 +250,132 @@ def model_axes_of(spec: Spec) -> Tuple[str, ...]:
     """The axes a parameter stays split over once its FSDP shards are
     gathered for use: every axis but the data axes."""
     return tuple(a for a in spec_axes(spec) if a not in DATA_AXES)
+
+
+# ---------------------------------------------------------------------------
+# A rank's blocks.
+# ---------------------------------------------------------------------------
+
+def block_slices(spec: Spec, shape: Tuple[int, ...], mesh
+                 ) -> Tuple[slice, ...]:
+    """This rank's block of a leaf of ``shape`` split by ``spec`` on
+    ``mesh``: a dim whose entry names axes ``(a, b, ...)`` is cut into
+    ``size(a) * size(b) * ...`` equal blocks, ``a`` the major one, as
+    ``jax.sharding.NamedSharding`` cuts it; the rank takes the block of its
+    coordinates (``mesh.coords``).  Dims past the spec are whole.
+
+    Raises:
+        ValueError: a spec longer than the leaf, or a dim its axes do not
+            evenly divide.
+    """
+    if len(spec) > len(shape):
+        raise ValueError(f"spec {spec} has more entries than the leaf's "
+                         f"{len(shape)} dims")
+    out = []
+    for dim, size in enumerate(shape):
+        axes = axes_of(spec[dim]) if dim < len(spec) else ()
+        parts, index = 1, 0
+        for a in axes:
+            parts *= mesh.shape[a]
+            index = index * mesh.shape[a] + mesh.coords[a]
+        if size % parts:
+            raise ValueError(f"dim {dim} of {shape} does not split into "
+                             f"{parts} blocks over {axes}")
+        step = size // parts
+        out.append(slice(index * step, (index + 1) * step))
+    return tuple(out)
+
+
+def local_shape(spec: Spec, shape: Tuple[int, ...], mesh
+                ) -> Tuple[int, ...]:
+    """The shape of a rank's block of a leaf of ``shape`` (every rank's
+    is the same)."""
+    return tuple(s.stop - s.start for s in block_slices(spec, shape, mesh))
+
+
+def local_block(x, spec: Spec, mesh):
+    """This rank's block of the whole leaf ``x`` (a tensor or an array):
+    a view of it, :func:`block_slices` ``(spec, x.shape, mesh)``."""
+    return x[block_slices(spec, tuple(x.shape), mesh)]
+
+
+def assemble(x, spec: Spec, mesh):
+    """The whole leaf of which ``x`` is this rank's block (the inverse of
+    :func:`local_block`): gathered over each axis its spec splits it on,
+    the minor axis of a dim first, with ``core.comm.all_gather`` (every
+    rank of the mesh must call it, in the same order, with its own
+    block).  Gradients do not flow through it."""
+    import torch
+    from repro_torch.core import comm
+    with torch.no_grad():
+        for dim, entry in enumerate(spec):
+            for a in reversed(axes_of(entry)):
+                if mesh.shape[a] > 1:
+                    x = comm.all_gather(x, a, dim=dim, tiled=True,
+                                        mesh=mesh)
+    return x
+
+
+def batch_rows(global_batch: int, dp_size: int, dp_index: int,
+               grad_accum: int = 1) -> np.ndarray:
+    """The global rows data shard ``dp_index`` of ``dp_size`` keeps, in the
+    order of its micro-batches: micro-batch ``i`` of ``grad_accum`` is
+    global rows ``[i * B / a, (i + 1) * B / a)``, of which the shard keeps
+    block ``dp_index`` of ``dp_size``, i.e. rows ``i * B / a + dp_index *
+    B / (a * dp)`` and the next ``B / (a * dp) - 1``.  So the shard's
+    micro-batch ``i`` is its rows ``[i * B / (a * dp), (i + 1) * B / (a *
+    dp))``, as the reference's step splits each micro-batch over the data
+    axes (not the ``i``-th slice of contiguous rows: the MoE's capacity is
+    local, and the other split would drop other tokens).
+
+    Raises:
+        ValueError: ``grad_accum * dp_size`` does not divide the batch.
+    """
+    a = grad_accum
+    if global_batch % (a * dp_size):
+        raise ValueError(f"a batch of {global_batch} rows does not split "
+                         f"into {a} micro-batches over {dp_size} data "
+                         f"shards")
+    per = global_batch // (a * dp_size)
+    return np.concatenate([
+        np.arange(per) + i * (global_batch // a) + dp_index * per
+        for i in range(a)])
+
+
+def batch_shard(batch: Mapping, cfg: ModelConfig, mesh, shape: ShapeConfig,
+                grad_accum: int = 1) -> Dict:
+    """This rank's part of a global batch (numpy arrays or tensors, as
+    :func:`batch_pspecs` names them): along each entry's batch dim, the
+    rows of :func:`batch_rows` for the rank's index on the batch's data
+    axes (``dp_axes_for_batch``); whole on the axes that do not split it.
+    """
+    dp, _ = dp_axes_for_batch(mesh, shape.global_batch)
+    dp_size, dp_index = 1, 0
+    for a in dp:
+        dp_size *= mesh.shape[a]
+        dp_index = dp_index * mesh.shape[a] + mesh.coords[a]
+    rows = batch_rows(shape.global_batch, dp_size, dp_index, grad_accum)
+    specs = batch_pspecs(cfg, mesh, shape)
+    out = {}
+    for key, value in batch.items():
+        spec = specs.get(key, (canonical(dp),))
+        dim = next((i for i, e in enumerate(spec) if e is not None), None)
+        if dim is None:
+            out[key] = value
+            continue
+        if not isinstance(value, np.ndarray):
+            import torch
+            index = torch.as_tensor(rows, device=value.device)
+        else:
+            index = rows
+        out[key] = value[(slice(None),) * dim + (index,)]
+    return out
+
+
+def replicated_axes(spec: Spec, mesh) -> Tuple[str, ...]:
+    """The mesh axes (of size > 1) a leaf split by ``spec`` is replicated
+    over: its gradient is the sum of the ranks' along them."""
+    named = set(spec_axes(spec))
+    return tuple(a for a in mesh.axis_names
+                 if a not in named and mesh.shape[a] > 1)
+

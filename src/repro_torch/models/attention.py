@@ -103,18 +103,22 @@ def _merge(acc, m_acc, l_acc, out, m, l):
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, q_block: int = 512,
-                      kv_block: int = 1024) -> torch.Tensor:
+                      kv_block: int = 1024,
+                      q_offset: int = 0) -> torch.Tensor:
     """Global (or bidirectional) chunked attention.
 
-    q: ``[B,Sq,Hq,D]``; k/v: ``[B,Skv,Hkv,D]``.  Causal masking aligns q
-    and k positions at the start (``Sq == Skv`` in ``forward``).  Returns
+    q: ``[B,Sq,Hq,D]``; k/v: ``[B,Skv,Hkv,D]``.  Causal masking puts query
+    row ``i`` at position ``q_offset + i`` and key ``j`` at ``j``
+    (``Sq == Skv`` and offset 0 in ``forward``; a context-parallel rank's
+    block of the queries starts at its first row).  Returns
     ``[B,Sq,Hq,D]`` in q's dtype.
     """
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     bq = _pick_block(sq, q_block)
-    triangle = causal and CAUSAL_IMPL == "triangle" and sq == skv
+    triangle = causal and CAUSAL_IMPL == "triangle" and sq == skv and \
+        q_offset == 0
     # The triangle walks square block pairs (i, j <= i) row by row.
     bk = bq if triangle else _pick_block(skv, kv_block)
     # The 1/sqrt(D) scale is applied in q's dtype, as the reference does.
@@ -125,7 +129,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     def tile(i, j, qi, kj, vj, acc, m_acc, l_acc):
         mask = None
         if causal:
-            mask = (i * bq + q_pos[:, None]) >= (j * bk + k_pos[None, :])
+            mask = (q_offset + i * bq + q_pos[:, None]) >= \
+                (j * bk + k_pos[None, :])
         return _merge(acc, m_acc, l_acc, *_attn_block(qi, kj, vj, mask))
 
     def q_step(i, qi, k, v, pairs):

@@ -4,6 +4,19 @@ their initialisers.
 
 The counterpart of the reference's ``repro.models.layers``.  The plain
 functions take tensors; the modules hold their weights and call them.
+
+In a partitioned step (a ``ShardingCtx`` with a ``ProcessMesh``,
+``models.sharding_ctx``) each module holds its block of every weight, as
+``launch.sharding.param_pspecs`` splits it (``LM.shard``), and the
+Megatron points live here: :func:`mesh_param` (a block as this rank uses
+it: FSDP-gathered over ``"data"`` in the compute dtype after the cast,
+its gradient summed over the ranks it is replicated on), :func:`sp_enter`
+and :func:`sp_exit` (the sequence-parallel residual stream: all-gathered
+along the sequence over ``"model"`` at a sublayer's entry, its
+row-parallel partial sums reduce-scattered at the exit), the
+column-/row-parallel MLP (:meth:`MLP.forward`) and the vocab-split
+embedding (:func:`embed_mesh`).  Norms stay local: every rank holds the
+whole ``d_model`` of its tokens.
 Compute runs in the model's compute dtype (bf16, ``models.model``) with
 fp32 statistics in the norms and fp32 rotary angles.  The reference keeps
 fp32 masters and casts each weight to the compute dtype where it is used.
@@ -22,6 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core import comm
+from repro_torch.launch import sharding as SH
 from repro_torch.models.sharding_ctx import NO_SHARDING, ShardingCtx
 
 
@@ -73,8 +88,11 @@ class RMSNorm(nn.Module):
         self.scale = weight(torch.zeros(d, device=device), torch.float32,
                             trainable)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return rmsnorm(x, self.scale, self.eps)
+    def forward(self, x: torch.Tensor,
+                ctx: ShardingCtx = NO_SHARDING) -> torch.Tensor:
+        scale = self.scale if ctx.process_mesh is None else \
+            mesh_param(self, "scale", ctx)
+        return rmsnorm(x, scale, self.eps)
 
 
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -103,6 +121,77 @@ class LayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layernorm(x, self.scale, self.bias, self.eps)
+
+
+# ---------------------------------------------------------------------------
+# Partitioned steps: blocks, and the sequence-parallel residual stream.
+# ---------------------------------------------------------------------------
+
+def mesh_param(module: nn.Module, name: str, ctx: ShardingCtx,
+               dtype: Optional[torch.dtype] = None,
+               keep: tuple = ("model",)) -> torch.Tensor:
+    """``module``'s block of weight ``name`` as this rank uses it in a
+    partitioned step.
+
+    The block (split by ``module.specs[name]``, ``LM.shard``) is marked as
+    used on every rank of the axes it is replicated over
+    (``comm.pvary``: its gradient is the sum of theirs), cast to ``dtype``
+    (default: kept), and all-gathered over every axis of its spec not in
+    ``keep``: the FSDP gather over ``"data"``, in the compute dtype after
+    the cast (half the bytes, the same values), and over ``"model"`` too
+    where the caller needs the weight whole.
+    """
+    mesh = ctx.process_mesh
+    spec = module.specs[name]
+    w = getattr(module, name)
+    rep = SH.replicated_axes(spec, mesh)
+    if rep:
+        w = comm.pvary(w, rep, mesh=mesh)
+    if dtype is not None:
+        w = w.to(dtype)
+    for dim, entry in enumerate(spec):
+        for a in reversed(SH.axes_of(entry)):
+            if a not in keep and mesh.shape[a] > 1:
+                w = comm.all_gather(w, a, dim=dim, tiled=True, mesh=mesh)
+    return w
+
+
+def sequence_parallel(ctx: ShardingCtx) -> bool:
+    """Whether the residual stream is split along the sequence over
+    ``"model"`` (the rule of ``"tokens_bse"``; not where the axis does
+    not divide the sequence)."""
+    return ctx.parts("tokens_bse", 1) > 1
+
+
+def sp_enter(x: torch.Tensor, ctx: ShardingCtx) -> torch.Tensor:
+    """A sublayer's entry: this rank's ``[B, S / tp, d]`` block of the
+    residual stream all-gathered along the sequence over ``"model"`` (the
+    stream as it is where it is not split)."""
+    if not sequence_parallel(ctx):
+        return x
+    return comm.all_gather(x, "model", dim=1, tiled=True,
+                           mesh=ctx.process_mesh)
+
+
+def sp_exit(y: torch.Tensor, ctx: ShardingCtx,
+            partial: bool) -> torch.Tensor:
+    """A sublayer's exit: ``y [B, S, d]``, this rank's row-parallel
+    partial sums (``partial``) or the whole value on every rank of
+    ``"model"``, to the residual stream's layout.  Partial sums are
+    ``psum_scatter``-ed along the sequence, or ``psum``-med where the
+    stream is not split; a whole value keeps this rank's block of the
+    sequence."""
+    mesh = ctx.process_mesh
+    tp = mesh.shape["model"]
+    if sequence_parallel(ctx):
+        if partial:
+            return comm.psum_scatter(y, "model", scatter_dimension=1,
+                                     tiled=True, mesh=mesh)
+        n = y.shape[1] // tp
+        return y.narrow(1, mesh.axis_index("model") * n, n)
+    if partial and tp > 1:
+        return comm.psum(y, "model", mesh=mesh)
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -185,6 +274,10 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 ctx: ShardingCtx = NO_SHARDING) -> torch.Tensor:
+        """``x [B, S, d]`` -> ``[B, S, d]``; in a partitioned step, this
+        rank's residual block in and out (:meth:`forward_mesh`)."""
+        if ctx.process_mesh is not None:
+            return self.forward_mesh(x, ctx)
         if hasattr(self, "wi_fused"):
             return mlp(x, self.wi_fused.kernel, self.wo.kernel,
                        self.variant, ctx=ctx)
@@ -192,6 +285,34 @@ class MLP(nn.Module):
             return mlp(x, self.wi_gate.kernel, self.wo.kernel, self.variant,
                        self.wi_up.kernel, ctx=ctx)
         return mlp(x, self.wi.kernel, self.wo.kernel, self.variant, ctx=ctx)
+
+    def forward_mesh(self, x: torch.Tensor,
+                     ctx: ShardingCtx) -> torch.Tensor:
+        """Megatron's MLP on this rank's block ``x`` of the residual
+        stream: the sequence gathered, the input projections
+        column-parallel (``d_ff / tp`` columns), ``wo`` row-parallel, its
+        partial sums reduce-scattered back along the sequence.  Where
+        ``"model"`` does not divide ``d_ff``, or for the fused kernel
+        (whose blocks would cut the gate's columns from the up's), every
+        rank computes the whole FFN on the gathered weights and keeps its
+        block."""
+        split = ctx.parts("ffn_bsf", 2) > 1 and not hasattr(self,
+                                                            "wi_fused")
+        keep = ("model",) if split else ()
+
+        def w(dense):
+            return mesh_param(dense, "kernel", ctx, x.dtype, keep)
+
+        h = sp_enter(x, ctx)
+        if hasattr(self, "wi_fused"):
+            # Whole on every rank: not the "ffn_bsf" rule's layout.
+            y = mlp(h, w(self.wi_fused), w(self.wo), self.variant)
+        elif self.variant in ("swiglu", "geglu"):
+            y = mlp(h, w(self.wi_gate), w(self.wo), self.variant,
+                    w(self.wi_up), ctx=ctx)
+        else:
+            y = mlp(h, w(self.wi), w(self.wo), self.variant, ctx=ctx)
+        return sp_exit(y, ctx, partial=split)
 
 
 # ---------------------------------------------------------------------------
@@ -279,6 +400,27 @@ def embed(table: torch.Tensor, tokens: torch.Tensor, scale: bool = False,
         x = x * torch.tensor(math.sqrt(table.shape[1]), dtype=x.dtype,
                              device=x.device)
     return x
+
+
+def embed_mesh(module: nn.Module, tokens: torch.Tensor, ctx: ShardingCtx,
+               scale: bool, dtype: torch.dtype) -> torch.Tensor:
+    """The embedding in a partitioned step: this rank's block of the
+    residual stream for the tokens ``[B, S]`` of its data shard.  With the
+    table split over the vocab (``"model"``), each rank looks up the
+    tokens its rows hold, zeros elsewhere, and the partial rows are
+    reduce-scattered along the sequence (exactly one rank adds a nonzero
+    row, so the sum is exact); else the whole lookup keeps its block."""
+    table = mesh_param(module, "table", ctx)
+    if "model" not in SH.spec_axes(module.specs["table"]) or \
+            ctx.process_mesh.shape["model"] == 1:
+        return sp_exit(embed(table, tokens, scale, dtype), ctx,
+                       partial=False)
+    rows = table.shape[0]
+    local = tokens - ctx.process_mesh.axis_index("model") * rows
+    inside = (local >= 0) & (local < rows)
+    x = embed(table, local.clamp(0, rows - 1), scale, dtype)
+    return sp_exit(torch.where(inside[..., None], x, 0.0), ctx,
+                   partial=True)
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

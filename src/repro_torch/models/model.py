@@ -50,7 +50,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.core import comm
+from repro_torch.core.device import MULTI_CARD, DeviceLike, resolve_device
+from repro_torch.launch import sharding as SH
 from repro_torch.kernels.grouped_matmul import grouped_matmul
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -218,6 +220,19 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{FAMILIES}, layer kinds {LAYER_KINDS})")
 
 
+def check_mesh_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` unless the partitioned steps run
+    ``cfg`` over a mesh: a ``dense`` or ``moe`` arch whose layers are all
+    ``"global"`` (llama3.2-1b, gemma-2b, qwen2-72b, olmoe-1b-7b,
+    qwen3-moe-235b-a22b).  The other families come with
+    :data:`~repro_torch.core.device.MULTI_CARD`."""
+    if cfg.family not in ("dense", "moe") or \
+            tuple(cfg.layer_pattern) != ("global",):
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}, layers {cfg.layer_pattern}) over a "
+            f"mesh comes with {MULTI_CARD}")
+
+
 def layer_kinds(cfg: ModelConfig) -> List[str]:
     """The kind of each decoder layer: ``layer_pattern[i % period]``."""
     pattern = cfg.layer_pattern
@@ -325,6 +340,103 @@ class Attention(nn.Module):
         out = ctx.constrain(out, "heads_bshd")
         return self.wo(out.reshape(b, s, -1))
 
+    def _proj(self, x: torch.Tensor, name: str, ctx: ShardingCtx,
+              keep: tuple) -> torch.Tensor:
+        """``x`` through projection ``name`` on this rank's operand of its
+        kernel (and bias), :func:`models.layers.mesh_param` with
+        ``keep``."""
+        dense = getattr(self, name)
+        bias = None if dense.bias is None else \
+            L.mesh_param(dense, "bias", ctx, x.dtype, keep)
+        return L.dense(x, L.mesh_param(dense, "kernel", ctx, x.dtype, keep),
+                       bias)
+
+    def _qkv_mesh(self, x: torch.Tensor, ctx: ShardingCtx, q_keep: tuple,
+                  kv_keep: tuple):
+        """q, k and v of ``x`` (no RoPE) on this rank's kernels: ``keep``
+        ``("model",)`` gives the rank's heads, ``()`` all of them.  The
+        fused kernel is gathered whole (its blocks would cut q's columns
+        from k's); the caller picks the heads it needs."""
+        cfg = self.cfg
+        if hasattr(self, "wqkv"):
+            nq = cfg.num_heads * cfg.head_dim
+            nkv = cfg.num_kv_heads * cfg.head_dim
+            y = self._proj(x, "wqkv", ctx, ())
+            return (self._heads(y[..., :nq], cfg.num_heads),
+                    self._heads(y[..., nq:nq + nkv], cfg.num_kv_heads),
+                    self._heads(y[..., nq + nkv:], cfg.num_kv_heads))
+        out = []
+        for name, keep in (("wq", q_keep), ("wk", kv_keep),
+                           ("wv", kv_keep)):
+            y = self._proj(x, name, ctx, keep)
+            out.append(y.reshape(y.shape[0], y.shape[1], -1,
+                                 cfg.head_dim))
+        return tuple(out)
+
+    def forward_mesh(self, x: torch.Tensor, ctx: ShardingCtx
+                     ) -> torch.Tensor:
+        """Causal attention in a partitioned step on ``x``, ln1 of this
+        rank's block of the residual stream; returns the sublayer's output
+        in the same layout.
+
+        * Heads over ``"model"`` (the rule of ``"heads_bshd"`` splits them,
+          ``num_heads % tp == 0``): the sequence is gathered, q is
+          column-parallel (``H / tp`` heads), K and V are the rank's
+          ``Hkv / tp`` heads, or whole where ``"model"`` does not divide
+          the kv heads (each local q head then reads its group's kv
+          head), and ``wo`` is row-parallel, its partial sums
+          reduce-scattered along the sequence.
+        * Otherwise the context-parallel fallback: every rank computes all
+          heads of its block of the queries on the whole kernels, K and V
+          of its block are gathered along the sequence, and the causal mask
+          and RoPE positions are offset by the block's first row; its
+          output is already the rank's block.  Where ``"model"`` does not
+          divide the sequence either, every rank computes the whole layer.
+        """
+        cfg, mesh = self.cfg, ctx.process_mesh
+        tp, mi = mesh.shape["model"], mesh.axis_index("model")
+        if ctx.parts("heads_bshd", 2) > 1:
+            h = L.sp_enter(x, ctx)
+            b, s, _ = h.shape
+            hl, h0 = cfg.num_heads // tp, mi * (cfg.num_heads // tp)
+            kv_split = ctx.parts("kv_bskd", 2) > 1
+            q, k, v = self._qkv_mesh(h, ctx, ("model",),
+                                     ("model",) if kv_split else ())
+            if q.shape[2] != hl:                     # the fused kernel
+                q = q[:, :, h0:h0 + hl]
+                if kv_split:
+                    n = cfg.num_kv_heads // tp
+                    k, v = k[:, :, mi * n:(mi + 1) * n], \
+                        v[:, :, mi * n:(mi + 1) * n]
+            if not kv_split:
+                k, v = kv_for_heads(k, h0, hl, cfg.num_heads), \
+                    kv_for_heads(v, h0, hl, cfg.num_heads)
+            pos = torch.arange(s, device=x.device)[None].expand(b, s)
+            q = L.apply_rope(q, pos, cfg.rope_theta)
+            k = L.apply_rope(k, pos, cfg.rope_theta)
+            q = ctx.constrain(q, "heads_bshd")
+            if kv_split:
+                k, v = ctx.constrain(k, "kv_bskd"), ctx.constrain(v, "kv_bskd")
+            o = ctx.constrain(A.chunked_attention(q, k, v, causal=True),
+                              "heads_bshd")
+            wo = L.mesh_param(self.wo, "kernel", ctx, o.dtype)
+            return L.sp_exit(o.reshape(b, s, -1) @ wo, ctx, partial=True)
+        cp = ctx.parts("heads_bshd", 1) > 1
+        b, sl, _ = x.shape
+        s0 = mi * sl if cp else 0
+        q, k, v = self._qkv_mesh(x, ctx, (), ())
+        pos = (s0 + torch.arange(sl, device=x.device))[None].expand(b, sl)
+        q = ctx.constrain(L.apply_rope(q, pos, cfg.rope_theta),
+                          "heads_bshd")
+        k = L.apply_rope(k, pos, cfg.rope_theta)
+        if cp:
+            k = comm.all_gather(k, "model", dim=1, tiled=True, mesh=mesh)
+            v = comm.all_gather(v, "model", dim=1, tiled=True, mesh=mesh)
+        o = ctx.constrain(A.chunked_attention(q, k, v, causal=True,
+                                              q_offset=s0), "heads_bshd")
+        return o.reshape(b, sl, -1) @ L.mesh_param(self.wo, "kernel", ctx,
+                                                   o.dtype, keep=())
+
     def cross(self, x: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
         """The decoder's queries ``x [B, S, d]`` on the encoder's output
         (bidirectional, no RoPE)."""
@@ -362,6 +474,21 @@ class Attention(nn.Module):
         return self.wo(out.reshape(b, 1, -1))
 
 
+def kv_for_heads(k: torch.Tensor, h0: int, hl: int,
+                 num_heads: int) -> torch.Tensor:
+    """The kv heads of ``k [B, S, Hkv, D]`` (all of them) that query heads
+    ``[h0, h0 + hl)`` read, in an order that ``chunked_attention``'s
+    grouping maps back to them: a contiguous run of kv heads where the
+    local q heads take whole groups of one or more (a slice), else one kv
+    head per q head."""
+    g = num_heads // k.shape[2]
+    idx = [(h0 + j) // g for j in range(hl)]
+    lo, n = idx[0], idx[-1] + 1 - idx[0]
+    if hl % n == 0 and idx == [lo + j // (hl // n) for j in range(hl)]:
+        return k[:, :, lo:lo + n]
+    return k[:, :, idx]
+
+
 class Block(nn.Module):
     """Pre-norm attention of one ``kind`` (``"global"``, ``"local"`` or, in
     whisper's encoder, ``"encoder"``), then, in an ``encdec`` decoder
@@ -397,12 +524,28 @@ class Block(nn.Module):
                 gmm: GroupedMatmul = grouped_matmul,
                 enc_out: Optional[torch.Tensor] = None,
                 ctx: ShardingCtx = NO_SHARDING) -> torch.Tensor:
+        if ctx.process_mesh is not None:
+            return self.forward_mesh(x, gmm, ctx)
         # whisper's encoder constrains only its MLP, as the reference's.
         x = x + self.attn(self.ln1(x), positions,
                           NO_SHARDING if self.attn.kind == "encoder" else ctx)
         if hasattr(self, "cross"):
             x = x + self.cross.cross(self.ln_cross(x), enc_out)
         return self.ffn(x, gmm, ctx)
+
+    def forward_mesh(self, x: torch.Tensor, gmm: GroupedMatmul,
+                     ctx: ShardingCtx) -> torch.Tensor:
+        """The layer in a partitioned step, on this rank's block ``x`` of
+        the residual stream: attention (:meth:`Attention.forward_mesh`),
+        then the dense FFN (``MLP.forward_mesh``) or the expert-parallel
+        MoE on the gathered tokens of the data shard, whose
+        ``psum_scatter`` (or ``psum``) is the sublayer's exit."""
+        x = x + self.attn.forward_mesh(self.ln1(x, ctx), ctx)
+        h = self.ln2(x, ctx)
+        if hasattr(self, "moe"):
+            return x + self.moe.forward_sharded(
+                L.sp_enter(h, ctx), ctx.process_mesh, gmm, vary=False)
+        return x + self.mlp(h, ctx)
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                pos: int, positions: torch.Tensor,
@@ -547,6 +690,10 @@ class LM(nn.Module):
         if cfg.family == "vlm":
             self.mm_proj = L.Dense(cfg.d_model, cfg.d_model, **kw)
         self._sinusoid_table: Optional[torch.Tensor] = None
+        #: The process mesh and the specs of :meth:`shard` (None until
+        #: then).
+        self.mesh = None
+        self.param_specs: Optional[Dict[str, tuple]] = None
 
     @property
     def device(self) -> torch.device:
@@ -570,6 +717,63 @@ class LM(nn.Module):
         if self.lm_head is None:
             return L.unembed(self.embed.table, x).float()
         return self.lm_head(x).float()
+
+    def head_mesh(self, h: torch.Tensor, ctx: ShardingCtx) -> torch.Tensor:
+        """The head in a partitioned step: the gathered final-norm hidden
+        states ``[B, S, d]`` of this rank's data shard -> fp32 logits of
+        its block of the vocab (``[B, S, V_padded / tp]``; the whole vocab
+        where ``"model"`` does not divide it), through the tied table's
+        rows or ``lm_head``'s columns."""
+        if self.lm_head is None:
+            return L.unembed(L.mesh_param(self.embed, "table", ctx, h.dtype),
+                             h).float()
+        return L.dense(h, L.mesh_param(self.lm_head, "kernel", ctx,
+                                       h.dtype)).float()
+
+    def shard(self, mesh, specs: Optional[Dict[str, tuple]] = None) -> "LM":
+        """Keep this rank's block of every parameter, in place, for the
+        partitioned steps on ``mesh`` (a ``launch.mesh.ProcessMesh``).
+
+        ``specs`` (default: ``launch.sharding.param_pspecs`` on the whole
+        model) name each block: this rank keeps
+        ``launch.sharding.local_block``; the MoE layers through
+        ``MoE.shard``, whose blocks the specs must name.  Each module keeps
+        the specs of its weights (``module.specs``), which
+        ``models.layers.mesh_param`` reads; the model keeps the mesh and
+        the specs (:attr:`mesh`, :attr:`param_specs`).
+
+        Raises:
+            NotImplementedError: an arch the partitioned steps do not run
+                (:func:`check_mesh_supported`).
+            ValueError: a model already sharded, or an MoE block that the
+                specs do not name.
+        """
+        check_mesh_supported(self.cfg)
+        if self.mesh is not None:
+            raise ValueError("the model is already sharded")
+        named = dict(self.named_parameters())
+        specs = dict(specs or SH.param_pspecs(self.cfg, named, mesh))
+        moes = {n for n, m in self.named_modules() if isinstance(m, MoE)}
+        for name, p in named.items():
+            owner, _, leaf = name.rpartition(".")
+            mod = self.get_submodule(owner)
+            mod.specs = {**getattr(mod, "specs", {}), leaf: specs[name]}
+            if owner in moes and leaf != "router":
+                continue
+            block = SH.local_block(p.detach(), specs[name], mesh)
+            setattr(mod, leaf, L.weight(block.clone(), p.dtype,
+                                        p.requires_grad))
+        for owner in moes:
+            mod = self.get_submodule(owner).shard(mesh)
+            for leaf in ("w_gate_up", "w_down"):
+                whole = tuple(named[f"{owner}.{leaf}"].shape)
+                want = SH.local_shape(specs[f"{owner}.{leaf}"], whole, mesh)
+                if tuple(getattr(mod, leaf).shape) != want:
+                    raise ValueError(f"{owner}.{leaf}: MoE.shard kept "
+                                     f"{tuple(getattr(mod, leaf).shape)}, "
+                                     f"the spec names {want}")
+        self.mesh, self.param_specs = mesh, specs
+        return self
 
     def unembed_table(self) -> torch.Tensor:
         """``[V_padded, d]`` output-projection table (tied or separate), in
@@ -637,6 +841,10 @@ class LM(nn.Module):
             ValueError: an ``encdec`` config without ``frames``.
         """
         cfg = self.cfg
+        if ctx.process_mesh is not None:
+            return self.forward_mesh(tokens, gmm, remat=remat,
+                                     return_pre_logits=return_pre_logits,
+                                     ctx=ctx)
         if cfg.family == "encdec" and frames is None:
             raise ValueError(f"{cfg.name}: forward needs the encoder's "
                              f"frames")
@@ -656,6 +864,40 @@ class LM(nn.Module):
         if return_pre_logits:
             return x
         return ctx.constrain(self._head(x), "logits_bsv")
+
+    def forward_mesh(self, tokens: torch.Tensor,
+                     gmm: GroupedMatmul = grouped_matmul, *,
+                     remat: bool = True, return_pre_logits: bool = False,
+                     ctx: ShardingCtx) -> torch.Tensor:
+        """:meth:`forward` in a partitioned step (``ctx`` with the
+        ``ProcessMesh`` this model was :meth:`shard`-ed on): ``tokens [B /
+        dp, S]``, this rank's data shard (``launch.sharding.batch_shard``)
+        -> fp32 logits ``[B / dp, S, V_padded / tp]`` of its vocab block,
+        or the gathered final-norm hidden states ``[B / dp, S, d]`` when
+        ``return_pre_logits``.  The embedding (:func:`models.layers.
+        embed_mesh`) leaves the residual stream split along the sequence;
+        each layer (checkpointed under ``remat`` where gradients are
+        recorded: its collectives run again in the recompute, in the same
+        order on every rank) takes and returns its block; the final norm
+        runs on the block, whose gather feeds the head
+        (:meth:`head_mesh`).
+
+        Raises:
+            ValueError: the model was not sharded on ``ctx``'s mesh.
+        """
+        if self.mesh is not ctx.process_mesh:
+            raise ValueError("the model is not sharded on this step's mesh: "
+                             "call LM.shard(mesh) first")
+        x = ctx.constrain(L.embed_mesh(self.embed, tokens.to(self.device),
+                                       ctx, scale_embed(self.cfg),
+                                       self.dtype), "tokens_bse")
+        for block in self.layers:
+            x = ctx.constrain(self._layer(block, remat, x, None, gmm, None,
+                                          ctx), "tokens_bse")
+        h = L.sp_enter(self.final_norm(x, ctx), ctx)
+        if return_pre_logits:
+            return h
+        return ctx.constrain(self.head_mesh(h, ctx), "logits_bsv")
 
     def init_cache(self, batch: int,
                    cache_len: int) -> List[Dict[str, torch.Tensor]]:

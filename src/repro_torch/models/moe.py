@@ -259,25 +259,36 @@ class MoE(nn.Module):
         return combine_local(out, combine).reshape(B, S, d)
 
     def forward_sharded(self, x: torch.Tensor, mesh: ProcessMesh,
-                        gmm: GroupedMatmul = grouped_matmul
-                        ) -> torch.Tensor:
+                        gmm: GroupedMatmul = grouped_matmul,
+                        vary: bool = True) -> torch.Tensor:
         """The expert-parallel FFN on this rank (the reference's
         ``shard_fn``), after :meth:`shard` on ``mesh``.
 
         x: this data shard's ``[B, S, d]`` tokens, the same on every rank
         of ``"model"``.  Returns this rank's ``[B, S / tp, d]`` block of
         the sequence when ``S % tp == 0 and S > 1``, else the whole ``[B,
-        S, d]``, summed over ``"model"``.
+        S, d]``, summed over ``"model"``.  With ``vary`` (the reference's
+        ``shard_map`` operand), x's gradient is summed over ``"model"``;
+        a partitioned step passes ``vary=False``, since x is the
+        all-gather of its sequence blocks, whose backward sums it.  The
+        expert weights' gradients are summed over the axes besides
+        ``"model"`` and ``"data"`` (``"pod"``), which replicate them.
         """
         B, S, d = x.shape
         tp = mesh.shape["model"]
         if self.e_loc * tp != self.num_experts:
             raise ValueError("the layer is not sharded for this mesh: call "
                              "MoE.shard(mesh) first")
-        x = comm.pvary(x, "model", mesh=mesh)
+        if vary:
+            x = comm.pvary(x, "model", mesh=mesh)
         kernel = comm.pvary(self.router, mesh.axis_names, mesh=mesh)
-        w_gate_up = self.w_gate_up.to(x.dtype)
-        w_down = self.w_down.to(x.dtype)
+        w_gate_up, w_down = self.w_gate_up, self.w_down
+        rep = tuple(a for a in mesh.axis_names
+                    if a not in ("model", "data") and mesh.shape[a] > 1)
+        if rep:
+            w_gate_up = comm.pvary(w_gate_up, rep, mesh=mesh)
+            w_down = comm.pvary(w_down, rep, mesh=mesh)
+        w_gate_up, w_down = w_gate_up.to(x.dtype), w_down.to(x.dtype)
         if mesh.shape.get("data", 1) > 1:
             # FSDP gather in the compute dtype, as the reference's.
             w_gate_up = comm.all_gather(w_gate_up, "data", dim=1, tiled=True,

@@ -3,11 +3,24 @@
 The counterpart of the reference's ``repro.models.sharding_ctx``.  Models
 never name mesh axes; they call ``ctx.constrain(x, kind)`` with a semantic
 activation kind, and the launch layer's rules (``launch.sharding.
-activation_rules``) say how that kind is split.  The port executes on one
-card, so :meth:`ShardingCtx.constrain` always returns ``x`` itself.  An
-``observer`` attached to the context hears ``(x, kind)`` at every call:
-the dry run's counter (``core.step_cost``) reads the rule of each kind
-from there.  The default context has no rules and no observer.
+activation_rules``) say how that kind is split.
+:meth:`ShardingCtx.constrain` always returns ``x`` itself: the port has no
+partitioner that could move it.
+
+* With an abstract mesh (the dry run) the rules are only reported: an
+  ``observer`` attached to the context hears ``(x, kind)`` at every call,
+  and the dry run's counter (``core.step_cost``) reads the rule of each
+  kind from there.
+* With a ``launch.mesh.ProcessMesh`` and the step's global ``dims``
+  (:func:`step_dims`), the context describes a partitioned step (the train
+  and prefill steps of ``train.train_step`` over a mesh): the layers
+  change layouts themselves, at the Megatron points of ``models.layers``
+  and ``models.model``, and ``constrain`` checks that ``x``'s local shape
+  is the global shape split by the rule of its kind, so a layout error
+  fails where it happens.  :meth:`ShardingCtx.parts` tells the layers how
+  many blocks the rule cuts a dim into.
+
+The default context has no rules, no mesh and no observer.
 """
 from __future__ import annotations
 
@@ -37,16 +50,69 @@ class ShardingCtx:
 
     def __init__(self, rules: Optional[Dict[str, tuple]] = None,
                  mesh: Optional[object] = None,
-                 observer: Optional[Observer] = None):
+                 observer: Optional[Observer] = None,
+                 dims: Optional[Dict[str, int]] = None):
         self.rules = rules or {}
         self.mesh = mesh
         self.observer = observer
+        self.dims = dims
+
+    @property
+    def process_mesh(self):
+        """The ``ProcessMesh`` of a partitioned step (one with ``dims``),
+        else None."""
+        from repro_torch.launch.mesh import ProcessMesh
+        if self.dims is not None and isinstance(self.mesh, ProcessMesh):
+            return self.mesh
+        return None
+
+    def parts(self, kind: str, dim: int) -> int:
+        """How many blocks the rule of ``kind`` cuts dim ``dim`` into: 1
+        without a rule, or where its axes do not divide the dim's global
+        size (the reference's constraint drops such a split)."""
+        from repro_torch.launch.sharding import axes_of, axes_size
+        spec = self.rules.get(kind)
+        if spec is None or dim >= len(spec) or spec[dim] is None:
+            return 1
+        n = axes_size(self.mesh, axes_of(spec[dim]))
+        return n if self.dims[CHECKED[kind][dim]] % n == 0 else 1
 
     def constrain(self, x: torch.Tensor, kind: str) -> torch.Tensor:
-        """``x`` itself, after telling the observer (if any) its kind."""
+        """``x`` itself, after telling the observer (if any) its kind and,
+        in a partitioned step, checking its local shape.
+
+        Raises:
+            RuntimeError: in a partitioned step, ``x``'s shape is not its
+                global shape split by the rule of ``kind``.
+        """
         if self.observer is not None:
             self.observer(x, kind)
+        if self.process_mesh is not None and kind in self.rules and \
+                kind in CHECKED and x.ndim == len(CHECKED[kind]):
+            full = tuple(self.dims[c] for c in CHECKED[kind])
+            want = tuple(n // self.parts(kind, i)
+                         for i, n in enumerate(full))
+            if tuple(x.shape) != want:
+                raise RuntimeError(
+                    f"{kind}: this rank holds {tuple(x.shape)}, the rule "
+                    f"{self.rules[kind]} splits the global {full} into "
+                    f"{want}")
         return x
+
+
+#: The kinds a partitioned step checks, and the :func:`step_dims` letter
+#: of each of their dims.
+CHECKED = {"tokens_bse": "bse", "heads_bshd": "bshd", "kv_bskd": "bskd",
+           "logits_bsv": "bsv", "ffn_bsf": "bsf"}
+
+
+def step_dims(cfg, batch: int, seq: int) -> Dict[str, int]:
+    """The global sizes of the dims the kinds name, for a step of ``cfg``
+    on ``batch`` rows of ``seq`` tokens (``b``, ``s``, ``e``, ``h``,
+    ``k``, ``d``, ``f``, ``v``)."""
+    return {"b": batch, "s": seq, "e": cfg.d_model, "h": cfg.num_heads,
+            "k": cfg.num_kv_heads, "d": cfg.head_dim,
+            "f": cfg.d_ff or cfg.moe_d_ff, "v": cfg.padded_vocab}
 
 
 NO_SHARDING = ShardingCtx()

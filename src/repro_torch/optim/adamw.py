@@ -12,17 +12,20 @@ one level deep).  The math is the reference's, in fp32:
 
 with ``c1 = 1 - b1 ** count``, ``c2 = 1 - b2 ** count`` after ``count``
 is incremented, and weight decay on every leaf (norm scales, embedding and
-router too).  ``mu`` and ``nu`` are stored in ``state_dtype``.  Unlike the
-reference, which returns new trees, :func:`apply_updates` writes the
-parameters and the state in place, leaf by leaf, with in-place and fused
-elementwise ops (``addcmul_``, ``add_`` with ``alpha``) that may round
-once where the reference rounds twice.
+router too).  ``mu`` and ``nu`` are stored in ``state_dtype``.  In a
+partitioned step (``specs`` and a ``ProcessMesh``) each rank updates its
+blocks with the same math; only the norm is global: each leaf's sum of
+squares is summed over the axes its spec splits it on, and a replicated
+leaf counts once.  Unlike the reference, which returns new trees,
+:func:`apply_updates` writes the parameters and the state in place, leaf
+by leaf, with in-place and fused elementwise ops (``addcmul_``, ``add_``
+with ``alpha``) that may round once where the reference rounds twice.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, List, Union
+from typing import Dict, List, Optional, Union
 
 import torch
 
@@ -50,26 +53,53 @@ def init_state(params: Dict, cfg: AdamWConfig) -> Dict:
             "count": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(grads: Union[Dict, List[torch.Tensor]]) -> torch.Tensor:
-    """``sqrt(sum of every leaf's sum of squares)`` in fp32 (0-d)."""
-    gs = [g for _, g in leaves(grads)] if isinstance(grads, dict) else grads
-    return torch.sqrt(functools.reduce(
-        torch.add, (g.float().square().sum() for g in gs)))
+def global_norm(grads: Union[Dict, List[torch.Tensor]],
+                specs: Optional[Dict] = None, mesh=None) -> torch.Tensor:
+    """``sqrt(sum of every leaf's sum of squares)`` in fp32 (0-d).
+
+    With ``specs`` (a dict of the leaves' specs, ``launch.sharding``) and
+    ``mesh`` (a ``ProcessMesh``), ``grads`` (a dict) are this rank's
+    blocks: the leaves' sums of squares are added up by the axes their
+    specs split them on (those of size > 1), each group's total ``psum``-ed
+    over its axes, in the same order on every rank; a replicated leaf,
+    the same on every rank, counts once."""
+    if specs is None:
+        gs = [g for _, g in leaves(grads)] if isinstance(grads, dict) \
+            else grads
+        return torch.sqrt(functools.reduce(
+            torch.add, (g.float().square().sum() for g in gs)))
+    from repro_torch.core import comm
+    from repro_torch.launch.sharding import spec_axes
+    groups: Dict[tuple, List[torch.Tensor]] = {}
+    for key, g in leaves(grads):
+        axes = tuple(a for a in spec_axes(specs[key]) if mesh.shape[a] > 1)
+        groups.setdefault(axes, []).append(g.float().square().sum())
+    total = None
+    for axes in sorted(groups):
+        part = functools.reduce(torch.add, groups[axes])
+        if axes:
+            part = comm.psum(part, axes, mesh=mesh)
+        total = part if total is None else total + part
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
 def apply_updates(params: Dict, grads: Dict, state: Dict, cfg: AdamWConfig,
-                  lr_scale: Union[float, torch.Tensor] = 1.0
+                  lr_scale: Union[float, torch.Tensor] = 1.0, *,
+                  specs: Optional[Dict] = None, mesh=None
                   ) -> Dict[str, torch.Tensor]:
     """One AdamW step, in place on ``params`` and ``state`` (``grads`` are
     read only).  Returns ``{"grad_norm"}``, a 0-d fp32 tensor, computed on
-    the device without a host sync."""
+    the device without a host sync.  With ``specs`` and ``mesh`` the
+    leaves are this rank's blocks and the norm is global
+    (:func:`global_norm`)."""
     ps = list(leaves(params))
     gs = dict(leaves(grads))
     mus, nus = dict(leaves(state["mu"])), dict(leaves(state["nu"]))
     if set(gs) != {k for k, _ in ps}:
         raise ValueError("apply_updates: grads and params hold other keys")
-    gnorm = global_norm([gs[k] for k, _ in ps])
+    gnorm = global_norm([gs[k] for k, _ in ps]) if specs is None else \
+        global_norm({k: gs[k] for k, _ in ps}, specs, mesh)
     scale = torch.clamp(torch.full_like(gnorm, cfg.grad_clip) /
                         torch.clamp(gnorm, min=1e-9), max=1.0)
     state["count"].add_(1)

@@ -1,7 +1,23 @@
 """The train step: forward (per-layer checkpointed), softmax cross-entropy
 over the padded vocab, backward, AdamW (the reference's
-``repro.train.train_step.make_train_step`` without a mesh), and the
-prefill and serve steps (``make_prefill_step``, ``make_serve_step``).
+``repro.train.train_step.make_train_step``), and the prefill and serve
+steps (``make_prefill_step``, ``make_serve_step``).
+
+Over a mesh (a ``launch.mesh.ProcessMesh``; the ``dense`` and ``moe``
+archs of global attention) the train and prefill steps are the per-rank
+programs that XLA's partitioner derives from the reference's policy
+(``launch.sharding``): every rank holds its block of each parameter
+(``LM.shard``) and of the optimiser state, and its data shard of the batch
+(``launch.sharding.batch_shard``); the layers change layouts at the
+Megatron points (``models.layers``, ``models.model``) with
+``core.comm``'s collectives, whose transposes give the backward.  The
+loss is vocab-parallel: a ``pmax`` over ``"model"`` of the detached
+maximum, a ``psum`` of the sums of exponentials and of the gold logit
+(a masked gather), the padded columns masked by their global index, and
+the mean over the global token count.  Each rank differentiates its share
+of it (its tokens' losses over the global count, divided by the ranks
+that hold the same tokens), so that the shares of every rank sum to the
+loss.  The serve step over a mesh comes with ``core.device.MULTI_CARD``.
 
 Microbatch gradient accumulation (``grad_accum``) sums the fp32
 micro-gradients and scales them, as the reference does.  The step updates
@@ -19,9 +35,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.core import comm
 from repro_torch.core.device import MULTI_CARD
 from repro_torch.launch import sharding as SH
-from repro_torch.models.sharding_ctx import NO_SHARDING, ShardingCtx
+from repro_torch.launch.mesh import ProcessMesh
+from repro_torch.models.sharding_ctx import (NO_SHARDING, ShardingCtx,
+                                             step_dims)
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import cosine_with_warmup
 
@@ -38,15 +57,53 @@ StepFn = Callable[..., Dict]
 
 
 def _token_losses(logits: torch.Tensor, labels: torch.Tensor,
-                  vocab: Optional[int]) -> torch.Tensor:
+                  vocab: Optional[int], mesh=None,
+                  v0: int = 0) -> torch.Tensor:
     """``logsumexp - gold`` per token, fp32, the columns ``>= vocab``
-    masked."""
+    masked.  With ``mesh``, ``logits`` are this rank's block of the vocab
+    (global columns ``[v0, v0 + V_local)``) and the reductions run over
+    ``"model"``: a ``pmax`` of the detached maximum, a ``psum`` of the
+    sums of exponentials and of the gold logit."""
     logits = logits.float()
-    if vocab is not None and vocab < logits.shape[-1]:
-        pad = torch.arange(logits.shape[-1], device=logits.device) >= vocab
-        logits = torch.where(pad, PAD_LOGIT, logits)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return torch.logsumexp(logits, dim=-1) - gold
+    if mesh is None:
+        if vocab is not None and vocab < logits.shape[-1]:
+            pad = torch.arange(logits.shape[-1],
+                               device=logits.device) >= vocab
+            logits = torch.where(pad, PAD_LOGIT, logits)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        return torch.logsumexp(logits, dim=-1) - gold
+    rows = logits.shape[-1]
+    cols = v0 + torch.arange(rows, device=logits.device)
+    if vocab is not None:
+        logits = torch.where(cols >= vocab, PAD_LOGIT, logits)
+    m = comm.pmax(logits.detach().amax(dim=-1), "model", mesh=mesh)
+    sumexp = comm.psum(torch.exp(logits - m[..., None]).sum(dim=-1),
+                       "model", mesh=mesh)
+    local = labels.long() - v0
+    inside = (local >= 0) & (local < rows)
+    gold = torch.gather(logits, -1, local.clamp(0, rows - 1)[..., None])
+    gold = comm.psum(torch.where(inside, gold[..., 0], 0.0), "model",
+                     mesh=mesh)
+    return torch.log(sumexp) + m - gold
+
+
+def _mesh_loss(cfg: ModelConfig, logits: torch.Tensor,
+               labels: torch.Tensor, ctx: ShardingCtx) -> torch.Tensor:
+    """This rank's share of the mean loss in a partitioned step: the sum
+    of its tokens' losses (vocab-parallel where ``logits`` are a block of
+    the vocab) over the global token count and over the ranks that hold
+    the same tokens."""
+    mesh = ctx.process_mesh
+    rows = logits.shape[-1]
+    split = rows != cfg.padded_vocab
+    losses = _token_losses(logits, labels, cfg.vocab_size,
+                           mesh if split else None,
+                           mesh.axis_index("model") * rows if split else 0)
+    # The ranks that hold the same rows: the mesh over the data shards
+    # the batch's rule splits it into.
+    dp = SH.axes_of(ctx.rules["tokens_bse"][0])
+    replicas = mesh.size // SH.axes_size(mesh, dp)
+    return losses.sum() / (ctx.dims["b"] * ctx.dims["s"] * replicas)
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
@@ -56,14 +113,41 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     return _token_losses(logits, labels, vocab).mean()
 
 
-def make_ctx(cfg: ModelConfig, mesh, shape: ShapeConfig) -> ShardingCtx:
+def make_ctx(cfg: ModelConfig, mesh, shape: ShapeConfig,
+             grad_accum: int = 1) -> ShardingCtx:
     """The sharding context of a step: :data:`NO_SHARDING` without a
     mesh, else the policy's activation rules on ``mesh``
-    (``launch.sharding.activation_rules``), which the port only reports
-    (``models.sharding_ctx``)."""
+    (``launch.sharding.activation_rules``); on a ``ProcessMesh`` also the
+    global dims of one micro-batch (``models.sharding_ctx.step_dims``),
+    which make it a partitioned step's context."""
     if mesh is None:
         return NO_SHARDING
-    return ShardingCtx(SH.activation_rules(cfg, mesh, shape), mesh)
+    dims = None
+    if isinstance(mesh, ProcessMesh):
+        dims = step_dims(cfg, shape.global_batch // grad_accum,
+                         shape.seq_len)
+    return ShardingCtx(SH.activation_rules(cfg, mesh, shape), mesh,
+                       dims=dims)
+
+
+def step_specs(cfg: ModelConfig, shape: ShapeConfig, mesh) -> Dict:
+    """The specs of a partitioned step (the reference's ``shardings``):
+    ``params`` (``launch.sharding.param_pspecs`` by the port's names),
+    ``opt`` (AdamW's state) and ``batch``."""
+    from repro_torch.models.model import LM
+    named = dict(LM(cfg, device="meta", masters=True).named_parameters())
+    pspecs = SH.param_pspecs(cfg, named, mesh)
+    return {"params": pspecs, "opt": SH.opt_state_pspecs(pspecs),
+            "batch": SH.batch_pspecs(cfg, mesh, shape)}
+
+
+def _check_mesh(cfg: ModelConfig, mesh, what: str) -> None:
+    from repro_torch.models.model import check_mesh_supported
+    check_mesh_supported(cfg)
+    if not isinstance(mesh, ProcessMesh):
+        raise TypeError(f"{what} over a mesh runs on a launch.mesh."
+                        f"ProcessMesh (one rank per process), not "
+                        f"{type(mesh).__name__}")
 
 
 def chunked_xent(model, hidden: torch.Tensor, labels: torch.Tensor,
@@ -86,13 +170,20 @@ def chunked_xent(model, hidden: torch.Tensor, labels: torch.Tensor,
                                "logits_bsv")
         return _token_losses(logits, lab_c, vocab).sum()
 
+    def chunk_loss_mesh(h_c, lab_c):
+        return _mesh_loss(model.cfg, model.head_mesh(h_c, ctx), lab_c, ctx)
+
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(S // ch):
         part = slice(i * ch, (i + 1) * ch)
-        total = total + checkpoint(chunk_loss, hidden[:, part],
-                                   labels[:, part], table,
-                                   use_reentrant=False)
-    return total / (B * S)
+        if ctx.process_mesh is not None:
+            total = total + checkpoint(chunk_loss_mesh, hidden[:, part],
+                                       labels[:, part], use_reentrant=False)
+        else:
+            total = total + checkpoint(chunk_loss, hidden[:, part],
+                                       labels[:, part], table,
+                                       use_reentrant=False)
+    return total if ctx.process_mesh is not None else total / (B * S)
 
 
 def make_grads(cfg: ModelConfig, *, remat: bool = True,
@@ -103,7 +194,15 @@ def make_grads(cfg: ModelConfig, *, remat: bool = True,
     by name.  With ``grad_accum`` > 1 the batch splits into that many
     micro-batches along its first axis; their fp32 gradients and losses
     are summed and scaled by ``1 / grad_accum``.  ``ctx`` goes to the
-    model and the chunked loss."""
+    model and the chunked loss.
+
+    In a partitioned step (``ctx`` of ``make_ctx`` on a ``ProcessMesh``)
+    ``model`` holds this rank's blocks and ``batch`` its data shard
+    (``launch.sharding.batch_shard`` with the same ``grad_accum``, so that
+    its micro-batch ``i`` is its rows of the reference's micro-batch
+    ``i``); the gradients are of the blocks, and the loss is the global
+    mean on every rank."""
+    mesh = ctx.process_mesh
 
     def loss_fn(model, batch):
         extras = {k: batch[k] for k in MODALITY_KEYS if k in batch}
@@ -112,7 +211,15 @@ def make_grads(cfg: ModelConfig, *, remat: bool = True,
                            return_pre_logits=True, ctx=ctx, **extras)
             return chunked_xent(model, hidden, batch["labels"], ctx=ctx)
         logits = model(batch["tokens"], remat=remat, ctx=ctx, **extras)
+        if mesh is not None:
+            return _mesh_loss(cfg, logits, batch["labels"].to(logits.device),
+                              ctx)
         return softmax_xent(logits, batch["labels"], cfg.vocab_size)
+
+    def metric(loss):
+        loss = loss.detach()
+        return loss if mesh is None else \
+            comm.psum(loss, mesh.axis_names, mesh=mesh)
 
     def grads_fn(model, batch):
         params = dict(model.named_parameters())
@@ -121,7 +228,7 @@ def make_grads(cfg: ModelConfig, *, remat: bool = True,
         if grad_accum == 1:
             loss = loss_fn(model, batch)
             grads = torch.autograd.grad(loss, leaves)
-            return loss.detach(), dict(zip(names, grads))
+            return metric(loss), dict(zip(names, grads))
         micro = {k: v.reshape((grad_accum, v.shape[0] // grad_accum)
                               + tuple(v.shape[1:])) for k, v in batch.items()}
         loss_acc = torch.zeros((), dtype=torch.float32, device=model.device)
@@ -131,7 +238,7 @@ def make_grads(cfg: ModelConfig, *, remat: bool = True,
             loss = loss_fn(model, {k: v[i] for k, v in micro.items()})
             for n, g in zip(names, torch.autograd.grad(loss, leaves)):
                 acc[n].add_(g.float())
-            loss_acc = loss_acc + loss.detach()
+            loss_acc = loss_acc + metric(loss)
         inv = 1.0 / grad_accum
         return loss_acc * inv, {n: g * inv for n, g in acc.items()}
 
@@ -142,8 +249,9 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
                     opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig(),
                     remat: bool = True, grad_accum: int = 1,
                     chunked_loss: bool = False,
-                    schedule_kwargs: Optional[Dict] = None) -> StepFn:
-    """``step_fn(model, opt_state, batch, step) -> metrics``.
+                    schedule_kwargs: Optional[Dict] = None):
+    """``step_fn(model, opt_state, batch, step) -> metrics``, or over a
+    ``mesh`` ``(step_fn, specs)``.
 
     ``model`` is an ``LM`` with fp32 masters (``masters=True``), updated in
     place with ``opt_state``; ``batch`` holds ``tokens`` and ``labels``
@@ -152,46 +260,74 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
     ``lr_scale`` and ``grad_norm``; ``loss`` and ``grad_norm`` stay 0-d
     tensors on the device (reading one waits for the step).
 
+    Over a ``launch.mesh.ProcessMesh`` each rank calls ``step_fn`` with
+    its blocks: the model :meth:`~repro_torch.models.model.LM.shard`-ed on
+    ``mesh``, the optimiser state of those blocks and its rows of the
+    batch (``launch.sharding.batch_shard(batch, cfg, mesh, shape,
+    grad_accum)``); the metrics are the global ones on every rank.
+    ``specs`` (:func:`step_specs`) name the blocks of ``params``, ``opt``
+    and ``batch``.
+
     Raises:
-        NotImplementedError: for a ``mesh``.
+        NotImplementedError: a mesh with an arch other than the ``dense``
+            and ``moe`` ones of global attention (``MULTI_CARD``).
+        TypeError: a mesh that is not a ``ProcessMesh``.
     """
+    ctx = NO_SHARDING
+    specs = None
     if mesh is not None:
-        raise NotImplementedError(f"make_train_step over a mesh comes with "
-                                  f"{MULTI_CARD}")
+        _check_mesh(cfg, mesh, "make_train_step")
+        ctx = make_ctx(cfg, mesh, shape, grad_accum)
+        specs = step_specs(cfg, shape, mesh)
     sched = functools.partial(cosine_with_warmup, **(schedule_kwargs or {}))
     grads_fn = make_grads(cfg, remat=remat, grad_accum=grad_accum,
-                          chunked_loss=chunked_loss)
+                          chunked_loss=chunked_loss, ctx=ctx)
+
+    norm_kw = {} if mesh is None else {"specs": specs["params"],
+                                       "mesh": mesh}
 
     def step_fn(model, opt_state, batch, step):
         loss, grads = grads_fn(model, batch)
         lr_scale = sched(step)
         om = adamw.apply_updates(dict(model.named_parameters()), grads,
-                                 opt_state, opt_cfg, lr_scale)
+                                 opt_state, opt_cfg, lr_scale, **norm_kw)
         return {"loss": loss, "lr_scale": lr_scale, **om}
 
-    return step_fn
+    return step_fn if mesh is None else (step_fn, specs)
 
 
 def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
-    """Inference prefill: ``(fn, None)`` with ``fn(model, batch, ctx=
-    NO_SHARDING) -> logits``, a forward with no recompute and no gradients
-    on the model's device (``batch`` holds ``tokens`` and the modality
-    keys; ``ctx`` hears the constraints, as the dry run's counter does).
+    """Inference prefill: ``(fn, specs)`` with ``fn(model, batch, ctx=)
+    -> logits``, a forward with no recompute and no gradients on the
+    model's device (``batch`` holds ``tokens`` and the modality keys).
+
+    Without a mesh ``specs`` is None and ``ctx`` defaults to
+    :data:`NO_SHARDING` (the dry run's counter passes its own).  Over a
+    ``ProcessMesh`` the model is this rank's shard and ``batch`` its data
+    shard; ``fn`` returns this rank's block of the logits, ``[B / dp, S,
+    V_padded / tp]``, and ``specs`` holds ``params``, ``batch`` and
+    ``logits`` (the reference's ``P(dp, None, "model")``).
 
     Raises:
-        NotImplementedError: for a ``mesh``.
+        NotImplementedError: a mesh with an arch other than the ``dense``
+            and ``moe`` ones of global attention (``MULTI_CARD``).
+        TypeError: a mesh that is not a ``ProcessMesh``.
     """
+    default, specs = NO_SHARDING, None
     if mesh is not None:
-        raise NotImplementedError(f"make_prefill_step over a mesh comes "
-                                  f"with {MULTI_CARD}")
-    del cfg, shape
+        _check_mesh(cfg, mesh, "make_prefill_step")
+        default = make_ctx(cfg, mesh, shape)
+        full = step_specs(cfg, shape, mesh)
+        dp, _ = SH.dp_axes_for_batch(mesh, shape.global_batch)
+        specs = {"params": full["params"], "batch": full["batch"],
+                 "logits": (SH.canonical(dp), None, "model")}
 
-    def prefill(model, batch, ctx: ShardingCtx = NO_SHARDING):
+    def prefill(model, batch, ctx: ShardingCtx = default):
         extras = {k: batch[k] for k in MODALITY_KEYS if k in batch}
         with torch.no_grad():
             return model(batch["tokens"], remat=False, ctx=ctx, **extras)
 
-    return prefill, None
+    return prefill, specs
 
 
 def make_serve_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
@@ -202,10 +338,12 @@ def make_serve_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
     broadcasts it.
 
     Raises:
-        NotImplementedError: for a ``mesh``.
+        NotImplementedError: for a ``mesh``: the sequence-sharded decode
+            cache and its distributed softmax come with ``MULTI_CARD``.
     """
     if mesh is not None:
-        raise NotImplementedError(f"make_serve_step over a mesh comes with "
+        raise NotImplementedError(f"make_serve_step over a mesh (the "
+                                  f"sequence-sharded KV cache) comes with "
                                   f"{MULTI_CARD}")
     del shape
 

@@ -10,6 +10,15 @@
 The model is an ``LM`` with fp32 masters on ``device``, built from a
 ``torch.Generator`` seeded with ``TrainerConfig.seed``; a step's wall time
 ends when its loss is read back (which waits for the device).
+
+Over a mesh (a ``launch.mesh.ProcessMesh``: every rank of it runs its own
+``Trainer`` with the same arguments) the trainer runs the partitioned
+step: each rank builds the whole model from the seed and keeps its blocks
+(``LM.shard``), or restores only its blocks, keeps its rows of each batch
+(``Pipeline.shard_for_step``), and saves over the mesh (the whole leaves
+assembled, rank 0 writing the files a one-process run writes).  Every
+rank runs the straggler watchdog on its own step times and keeps its own
+``history``; the losses are global, the same on every rank.
 """
 from __future__ import annotations
 
@@ -22,7 +31,7 @@ import torch
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.core.device import MULTI_CARD, DeviceLike, resolve_device
+from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.data.pipeline import DataConfig, Pipeline
 from repro_torch.models.model import LM, init_params
 from repro_torch.optim import adamw
@@ -49,8 +58,16 @@ class Trainer:
 
     Args:
         cfg, shape, tcfg, opt_cfg, data_cfg: as the reference's.
-        mesh: must be None (several cards come with the multi-card item).
-        device: where the model and the state live (None: the card).
+        mesh: None, or this rank's ``launch.mesh.ProcessMesh`` (a
+            partitioned step; ``cfg`` a ``dense`` or ``moe`` arch of
+            global attention).
+        device: where the model and the state live (None: the card; the
+            mesh's device over a mesh).
+
+    Raises:
+        NotImplementedError: a mesh with another arch
+            (``core.device.MULTI_CARD``).
+        TypeError: a mesh that is not a ``ProcessMesh``.
     """
 
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig,
@@ -58,19 +75,20 @@ class Trainer:
                  opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig(),
                  data_cfg: DataConfig = DataConfig(), *,
                  device: DeviceLike = None):
-        if mesh is not None:
-            raise NotImplementedError(f"Trainer over a mesh comes with "
-                                      f"{MULTI_CARD}")
+        made = TS.make_train_step(
+            cfg, shape, mesh, opt_cfg=opt_cfg, grad_accum=tcfg.grad_accum,
+            schedule_kwargs=tcfg.schedule_kwargs)
+        self.step_fn, self.specs = made if mesh is not None else (made,
+                                                                  None)
         self.cfg = cfg
         self.shape = shape
         self.tcfg = tcfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if mesh is not None and
+                                     device is None else device)
         self.opt_cfg = opt_cfg
         self.pipeline = Pipeline(cfg, shape, data_cfg)
         self.ckpt = Checkpointer(tcfg.ckpt_dir, keep=tcfg.keep)
-        self.step_fn = TS.make_train_step(
-            cfg, shape, opt_cfg=opt_cfg, grad_accum=tcfg.grad_accum,
-            schedule_kwargs=tcfg.schedule_kwargs)
         self.model: Optional[LM] = None
         self.opt_state: Optional[Dict] = None
         self.start_step = 0
@@ -83,8 +101,12 @@ class Trainer:
         seed; returns the first step to run."""
         latest = self.ckpt.latest_step()
         if latest is not None:
-            state = self.ckpt.restore(latest, device=self.device)
+            mesh_kw = {} if self.mesh is None else {
+                "mesh": self.mesh, "specs": self._ckpt_specs()}
+            state = self.ckpt.restore(latest, device=self.device, **mesh_kw)
             self.model = LM(self.cfg, device="meta", masters=True)
+            if self.mesh is not None:
+                self.model.shard(self.mesh, self.specs["params"])
             self.model.load_state_dict(state["params"], strict=True,
                                        assign=True)
             self.opt_state = state["opt"]
@@ -94,6 +116,8 @@ class Trainer:
         gen = torch.Generator(self.device).manual_seed(self.tcfg.seed)
         self.model = init_params(self.cfg, device=self.device, generator=gen,
                                  masters=True)
+        if self.mesh is not None:
+            self.model.shard(self.mesh, self.specs["params"])
         self.opt_state = adamw.init_state(dict(self.model.named_parameters()),
                                           self.opt_cfg)
         self.start_step = 0
@@ -105,9 +129,27 @@ class Trainer:
                            for n, p in self.model.named_parameters()},
                 "opt": self.opt_state}
 
+    def _ckpt_specs(self) -> Dict:
+        """The specs of :meth:`state`'s leaves over the mesh."""
+        return {"params": self.specs["params"], "opt": self.specs["opt"]}
+
+    def _save(self, step: int) -> None:
+        if self.mesh is None:
+            self.ckpt.save(step, self.state())
+        else:
+            self.ckpt.save(step, self.state(), mesh=self.mesh,
+                           specs=self._ckpt_specs())
+
     def _put_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(v).to(self.device)
                 for k, v in batch.items()}
+
+    def _host_batch(self, step: int) -> Dict:
+        """The step's batch: this rank's rows of it over a mesh."""
+        if self.mesh is None:
+            return self.pipeline.batch_for_step(step)
+        return self.pipeline.shard_for_step(step, self.mesh,
+                                            self.tcfg.grad_accum)
 
     def _watchdog(self, step: int, dt: float):
         if self.step_time_ema is None:
@@ -128,7 +170,7 @@ class Trainer:
         done = 0
         metrics = {}
         for step in range(self.start_step, num_steps):
-            batch = self._put_batch(self.pipeline.batch_for_step(step))
+            batch = self._put_batch(self._host_batch(step))
             t0 = time.perf_counter()
             metrics = self.step_fn(self.model, self.opt_state, batch, step)
             loss = float(metrics["loss"])
@@ -137,10 +179,10 @@ class Trainer:
             self.history.append({"step": step, "loss": loss, "dt": dt})
             if (step + 1) % self.tcfg.ckpt_every == 0 or \
                     step == num_steps - 1:
-                self.ckpt.save(step, self.state())
+                self._save(step)
             done += 1
             if stop_after is not None and done >= stop_after:
                 if self.ckpt.latest_step() != step:
-                    self.ckpt.save(step, self.state())
+                    self._save(step)
                 break
         return {k: float(v) for k, v in metrics.items()} if metrics else {}

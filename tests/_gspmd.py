@@ -1,0 +1,409 @@
+"""Shared cases, reference runs and checks of the partitioned-step tests
+(``tests/test_torch_gspmd_{train,train_moe,prefill,trainer}.py``).
+
+The port runs its partitioned steps in one world of four gloo CPU ranks
+per test module (``tests/_gspmd_ranks.py``).  The reference runs the same
+cases once per module, in one subprocess with four host devices
+(``--xla_force_host_platform_device_count=4``): its ``make_train_step``
+/ ``make_prefill_step`` with a mesh of ``axis_types=(AxisType.Auto,) *
+n`` (jax 0.9's default ``Explicit`` axes cannot differentiate through the
+MoE's ``shard_map``), on the same weights (``_torch_train_helpers.
+_weights``) and batches (numpy from a seed), at fp32 in both packages.
+It writes every step's metrics and whole parameter / ``mu`` / ``nu``
+arrays to an npz, and each leaf's spec and the index of every mesh
+position's shard to a json file.  The subprocess starts before the world
+and runs beside it.
+
+A rank's block is held against the reference's shard on the device at
+the rank's mesh coordinates: its index must equal the port's block (and
+the specs must be the same), and its values must pass
+``_torch_train_helpers``' bounds.
+"""
+from __future__ import annotations
+
+import json
+import os
+import pathlib
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+from _gspmd_ranks import LR, SCHEDULE, flat
+from _torch_train_helpers import _weights
+from repro.configs.base import get_config as ref_config
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+B, S = 4, 32
+
+_REF_SCRIPT = r"""
+import dataclasses, json, sys
+import numpy as np
+import jax, jax.numpy as jnp
+from jax.sharding import AxisType
+from repro.configs.base import ShapeConfig, get_config
+from repro.models import model as M
+from repro.optim import adamw
+from repro.train import train_step as TS
+
+M.COMPUTE_DTYPE = jnp.float32
+cases = json.load(open(sys.argv[1]))
+data = np.load(sys.argv[2])
+LR, SCHEDULE = json.loads(sys.argv[5])
+
+
+def nest(prefix):
+    tree = {}
+    for k in data.files:
+        if k.startswith(prefix):
+            node = tree
+            parts = k[len(prefix):].split("/")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = jnp.asarray(data[k])
+    return tree
+
+
+def flat(tree, prefix=""):
+    out = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        out[prefix + "/".join(str(p.key) for p in path)] = leaf
+    return out
+
+
+def spec_of(spec, ndim):
+    out = []
+    for e in tuple(spec) + (None,) * (ndim - len(tuple(spec))):
+        out.append(list(e) if isinstance(e, tuple) else e)
+    return out
+
+
+def where(arr, mesh):
+    idx = arr.sharding.devices_indices_map(arr.shape)
+    out = {}
+    for pos in np.ndindex(mesh.devices.shape):
+        sl = idx[mesh.devices[pos]]
+        out[",".join(map(str, pos))] = [
+            [s.start or 0, arr.shape[i] if s.stop is None else s.stop]
+            for i, s in enumerate(sl)]
+    return {"spec": spec_of(arr.sharding.spec, arr.ndim), "index": out}
+
+
+out, info = {}, {}
+for case in cases:
+    name = case["name"]
+    cfg = dataclasses.replace(get_config(case["arch"]).reduced(),
+                              **case.get("overrides", {}))
+    axes = tuple(case["axes"])
+    mesh = jax.make_mesh(tuple(case["shape"]), axes,
+                         axis_types=(AxisType.Auto,) * len(axes))
+    M.set_fused_projections(bool(case.get("fused")))
+    tree = nest(name + "/w/")
+    kind = case["kind"]
+    shape = ShapeConfig("t", case["seq"], case["batch"], kind)
+    if kind == "prefill":
+        fn, sh = TS.make_prefill_step(cfg, shape, mesh)
+        params = jax.device_put(tree, sh["params"])
+        logits = fn(params, {"tokens": jnp.asarray(data[name + "/tokens"])})
+        out[name + "/logits"] = np.asarray(logits)
+        info[name] = {"logits": where(logits, mesh)}
+        continue
+    fn, sh = TS.make_train_step(cfg, shape, mesh,
+                                opt_cfg=adamw.AdamWConfig(lr=LR),
+                                grad_accum=case.get("grad_accum", 1),
+                                chunked_loss=bool(case.get("chunked")),
+                                schedule_kwargs=SCHEDULE)
+    params = jax.device_put(tree, sh["params"])
+    opt = jax.device_put(adamw.init_state(params, adamw.AdamWConfig(lr=LR)),
+                         sh["opt"])
+    metrics = []
+    for s in range(case["steps"]):
+        batch = {k: data[f"{name}/b{s}/{k}"] for k in ("tokens", "labels")}
+        batch = jax.device_put(batch, {k: sh["batch"][k] for k in batch})
+        params, opt, m = fn(params, opt, batch, jnp.int32(s + 1))
+        metrics.append({k: float(v) for k, v in m.items()})
+        for tag, tree_ in (("params", params), ("mu", opt["mu"]),
+                           ("nu", opt["nu"])):
+            for k, v in flat(tree_).items():
+                out[f"{name}/s{s}/{tag}/{k}"] = np.asarray(v)
+    info[name] = {"metrics": metrics,
+                  "params": {k: where(v, mesh)
+                             for k, v in flat(params).items()},
+                  "mu": {k: where(v, mesh)
+                         for k, v in flat(opt["mu"]).items()}}
+np.savez(sys.argv[3], **out)
+json.dump(info, open(sys.argv[4], "w"))
+print("REF-GSPMD-OK", len(out))
+"""
+
+
+def case(name: str, arch: str, shape, axes=("data", "model"), *,
+         kind: str = "train", steps: int = 3, batch: int = B,
+         **extra) -> dict:
+    """One case: an arch's reduced config (``overrides``) on a mesh, at
+    ``batch`` (default :data:`B`) x :data:`S`."""
+    return {"name": name, "arch": arch, "shape": list(shape),
+            "axes": list(axes), "kind": kind, "steps": steps,
+            "batch": batch, "seq": S, **extra}
+
+
+def ref_cfg(c: dict):
+    import dataclasses
+    return dataclasses.replace(ref_config(c["arch"]).reduced(),
+                               **c.get("overrides", {}))
+
+
+def batch(cfg, seed: int, rows: int = B) -> dict:
+    seqs = np.random.default_rng(seed).integers(
+        2, cfg.vocab_size - 1, size=(rows, S + 1)).astype(np.int32)
+    return {"tokens": seqs[:, :-1], "labels": seqs[:, 1:]}
+
+
+def inputs(cases: list) -> tuple:
+    """Per case: the weights (flat, the reference's layout; fused where the
+    case says so) and the batches (or prefill tokens)."""
+    from repro.models import model as ref_model
+    weights, batches = {}, {}
+    for c in cases:
+        cfg = ref_cfg(c)
+        ref_model.set_fused_projections(bool(c.get("fused")))
+        try:
+            weights[c["name"]] = flat(_weights(cfg))
+        finally:
+            ref_model.set_fused_projections(False)
+        if c["kind"] == "train":
+            batches[c["name"]] = [batch(cfg, s, c["batch"])
+                                  for s in range(c["steps"])]
+        else:
+            batches[c["name"]] = batch(cfg, 0, c["batch"])["tokens"]
+    return weights, batches
+
+
+def start_reference(cases: list, weights: dict, batches: dict,
+                    tmp: pathlib.Path) -> subprocess.Popen:
+    """Start the reference's subprocess on four host devices."""
+    arrays = {}
+    for c in cases:
+        name = c["name"]
+        for k, v in weights[name].items():
+            arrays[f"{name}/w/{k}"] = v
+        if c["kind"] == "train":
+            for s, b in enumerate(batches[name]):
+                for k, v in b.items():
+                    arrays[f"{name}/b{s}/{k}"] = v
+        else:
+            arrays[f"{name}/tokens"] = batches[name]
+    np.savez(tmp / "in.npz", **arrays)
+    (tmp / "cases.json").write_text(json.dumps(cases))
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": os.environ["PATH"],
+           "JAX_PLATFORMS": "cpu", "HOME": str(tmp),
+           "XLA_FLAGS": "--xla_force_host_platform_device_count=4"}
+    return subprocess.Popen(
+        [sys.executable, "-c", _REF_SCRIPT, str(tmp / "cases.json"),
+         str(tmp / "in.npz"), str(tmp / "out.npz"), str(tmp / "info.json"),
+         json.dumps([LR, SCHEDULE])],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=str(ROOT))
+
+
+def finish_reference(proc: subprocess.Popen, tmp: pathlib.Path) -> tuple:
+    """Wait for the reference; ``(arrays, info)``."""
+    try:
+        stdout, stderr = proc.communicate(timeout=400)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    assert "REF-GSPMD-OK" in stdout, stderr[-3000:]
+    with np.load(tmp / "out.npz") as z:
+        arrays = {k: z[k] for k in z.files}
+    return arrays, json.loads((tmp / "info.json").read_text())
+
+
+def run_module(cases: list, rank_fn, tmp: pathlib.Path) -> dict:
+    """A test module's run: the reference's subprocess and the port's
+    world side by side, with the cases by name."""
+    from repro_torch.launch.spawn import run_world
+    weights, batches = inputs(cases)
+    t0 = time.perf_counter()
+    proc = start_reference(cases, weights, batches, tmp)
+    try:
+        ranks = run_world(rank_fn, 4, cases, weights, batches, threads=1,
+                          timeout=300)
+    except BaseException:
+        proc.kill()
+        raise
+    world_s = time.perf_counter() - t0
+    arrays, info = finish_reference(proc, tmp)
+    return {"ranks": ranks, "ref": arrays, "info": info,
+            "world_s": world_s, "seconds": time.perf_counter() - t0,
+            "cases": {c["name"]: c for c in cases}}
+
+
+def position(c: dict, coords: dict) -> str:
+    """A rank's mesh position, as the reference's index keys write it."""
+    return ",".join(str(coords[a]) for a in c["axes"])
+
+
+def port_spec(spec: tuple, ndim: int) -> list:
+    """A port spec as the reference's json writes one, with the leading
+    group dim of a stacked leaf."""
+    entries = [list(e) if isinstance(e, tuple) else e for e in spec]
+    return [None] * (ndim - len(entries)) + entries
+
+
+def ref_shard(arr: np.ndarray, index: list) -> np.ndarray:
+    return arr[tuple(slice(a, b) for a, b in index)]
+
+
+#: Reference leaf (less the ``layers/p0/`` group prefix) -> the port
+#: parameter name's suffix it comes from.
+_LEAF_OF = {"moe/w_gate": "moe.w_gate_up", "moe/w_up": "moe.w_gate_up",
+            "moe/router/kernel": "moe.router"}
+
+
+def port_name(leaf: str, layer: int = 0) -> str:
+    """The port's parameter name of a reference leaf (layer ``layer`` of
+    a stacked one)."""
+    if leaf.startswith("layers/p0/"):
+        rest = leaf[len("layers/p0/"):]
+        return f"layers.{layer}." + _LEAF_OF.get(rest, rest.replace("/",
+                                                                    "."))
+    return leaf.replace("/", ".")
+
+
+# --------------------------------------------------------------------- #
+# Checks.
+# --------------------------------------------------------------------- #
+
+def _fake_mesh(c: dict, coords: dict):
+    from repro_torch.launch.mesh import ProcessMesh
+    import torch
+    return ProcessMesh(axis_names=tuple(c["axes"]),
+                       shape=dict(zip(c["axes"], c["shape"])),
+                       coords=dict(coords), rank=0,
+                       device=torch.device("cpu"), backend="gloo",
+                       groups={}, group_ranks={}, log=None)
+
+
+def _as_spec(entries: list) -> tuple:
+    return tuple(tuple(e) if isinstance(e, list) else e for e in entries)
+
+
+def check_specs(runs: dict, name: str) -> None:
+    """Every parameter's spec equals the reference's leaf's (with the
+    leading group dim of a stacked leaf)."""
+    info = runs["info"][name]["params"]
+    specs = runs["ranks"][0][name]["specs"]
+    for leaf, where in info.items():
+        got = port_spec(specs[port_name(leaf)], len(where["spec"]))
+        assert got == where["spec"], (leaf, got, where["spec"])
+
+
+def check_blocks_placed(runs: dict, name: str) -> None:
+    """Each rank's block of every leaf is the reference's shard on the
+    device at its mesh position: the same index (the port's
+    ``block_slices`` of the spec on the rank's coordinates) and shape."""
+    from repro_torch.launch.sharding import block_slices
+    c = runs["cases"][name]
+    info = runs["info"][name]["params"]
+    for r in runs["ranks"]:
+        pos = position(c, r[name]["coords"])
+        mesh = _fake_mesh(c, r[name]["coords"])
+        blocks = r[name]["params"][-1]
+        for leaf, where in info.items():
+            index = where["index"][pos]
+            whole = tuple(runs["ref"][f"{name}/s0/params/{leaf}"].shape)
+            mine = block_slices(_as_spec(where["spec"]), whole, mesh)
+            assert [[s.start, s.stop] for s in mine] == index, (leaf, pos)
+            assert blocks[leaf].shape == tuple(b - a for a, b in index), \
+                (leaf, pos, blocks[leaf].shape)
+
+
+def check_metrics_all_ranks(runs: dict, name: str) -> None:
+    """Loss, ``grad_norm`` and ``lr_scale`` within ``_check_metrics``'
+    bounds of the reference's at every step, the same on every rank."""
+    from _torch_train_helpers import _check_metrics
+    want = runs["info"][name]["metrics"]
+    first = runs["ranks"][0][name]["metrics"]
+    _check_metrics(want, first)
+    for r in runs["ranks"][1:]:
+        assert r[name]["metrics"] == first
+
+
+def _shards(runs: dict, name: str, r: dict, tag: str, s: int) -> dict:
+    c = runs["cases"][name]
+    pos = position(c, r[name]["coords"])
+    info = runs["info"][name]["params"]
+    return {leaf: ref_shard(runs["ref"][f"{name}/s{s}/{tag}/{leaf}"],
+                            info[leaf]["index"][pos]) for leaf in info}
+
+
+def _replicas(c: dict, spec: list) -> int:
+    """Ranks that hold the same block of a leaf of ``spec``."""
+    sizes = dict(zip(c["axes"], c["shape"]))
+    world = int(np.prod(c["shape"]))
+    split = 1
+    for entry in spec:
+        for a in (entry if isinstance(entry, list) else [entry]):
+            if a is not None:
+                split *= sizes[a]
+    return world // split
+
+
+def check_params_per_step(runs: dict, name: str) -> None:
+    """After each step, every element of each rank's parameter blocks
+    passes the element rule of ``_torch_train_helpers`` (on the port's
+    gradients of that block so far) against the reference's shard, and
+    at most ``MAX_UNRESOLVED`` of the model's elements go uncompared: the
+    share over the whole model, each block counted once however many
+    ranks hold it (a rank's blocks alone over-weight the leaves that are
+    split least, such as a sparse embedding table)."""
+    from _torch_train_helpers import MAX_UNRESOLVED, _check_elements
+    c = runs["cases"][name]
+    info = runs["info"][name]["params"]
+    lr = [m["lr_scale"] for m in runs["info"][name]["metrics"]]
+    for s in range(c["steps"]):
+        total = unresolved = 0.0
+        for r in runs["ranks"]:
+            res = r[name]
+            counts = _check_elements(_shards(runs, name, r, "params", s),
+                                     res["params"][s], res["grads"][:s + 1],
+                                     lr[:s + 1])
+            for leaf, (n, u) in counts.items():
+                w = 1.0 / _replicas(c, info[leaf]["spec"])
+                total += n * w
+                unresolved += u * w
+        share = unresolved / total
+        assert share <= MAX_UNRESOLVED, \
+            f"step {s + 1}: unresolved share {share:.3f}"
+
+
+def check_opt_state(runs: dict, name: str) -> None:
+    """After step ``k``, each rank's ``mu`` / ``nu`` blocks against the
+    reference's shards, within what the gradients' agreement allows: each
+    gradient within ``GRAD_RTOL * G`` (``G`` the largest |gradient| of the
+    whole leaf over the steps so far, the port's, all ranks) and the clip
+    scale within ``GRAD_RTOL`` relative (``grad_norm``'s bound), so ``|mu
+    - mu_ref| <= 2 * GRAD_RTOL * (1 - b1**k) * G`` and ``|nu - nu_ref| <=
+    4 * GRAD_RTOL * (1 - b2**k) * G**2`` (nu is a sum of squares), with
+    ``8 * eps32`` of the value for their own roundings."""
+    from _torch_train_helpers import EPS32, GRAD_RTOL
+    b1, b2 = 0.9, 0.95
+    c = runs["cases"][name]
+    for s in range(c["steps"]):
+        k = s + 1
+        scale = {leaf: max(float(np.abs(r[name]["grads"][t][leaf]).max())
+                           for r in runs["ranks"] for t in range(k))
+                 for leaf in runs["ranks"][0][name]["mu"][s]}
+        for tag, rel, power in (("mu", 2 * (1 - b1 ** k), 1),
+                                ("nu", 4 * (1 - b2 ** k), 2)):
+            for r in runs["ranks"]:
+                want = _shards(runs, name, r, tag, s)
+                for leaf, got in r[name][tag][s].items():
+                    bound = GRAD_RTOL * rel * scale[leaf] ** power
+                    excess = np.abs(got - want[leaf]) - bound - \
+                        8 * EPS32 * np.abs(want[leaf])
+                    assert excess.max() <= 0, \
+                        (f"{name} step {k} {tag} {leaf}: exceeds the bound "
+                         f"by {excess.max():.3e}")

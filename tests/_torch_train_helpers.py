@@ -221,8 +221,18 @@ def _check_metrics(m_r, m_p):
 def _check_params(want: dict, got: dict, grads: list, lr_scales) -> float:
     """The element rule (module docstring); returns the unresolved
     share."""
+    counts = _check_elements(want, got, grads, lr_scales)
+    total = sum(t for t, _ in counts.values())
+    share = sum(u for _, u in counts.values()) / total
+    assert share <= MAX_UNRESOLVED, f"unresolved share {share:.3f}"
+    return share
+
+
+def _check_elements(want: dict, got: dict, grads: list, lr_scales) -> dict:
+    """The element rule's bound on every compared element; returns
+    ``{leaf: (elements, unresolved elements)}``."""
     assert set(got) == set(want)
-    total = unresolved = 0
+    counts = {}
     moved = LR * sum(lr_scales)
     for k in want:
         resolved = np.ones(want[k].shape, dtype=bool)
@@ -232,12 +242,9 @@ def _check_params(want: dict, got: dict, grads: list, lr_scales) -> float:
             resolved &= np.abs(g[k]) >= RESOLVED * bound
             zero &= g[k] == 0
         compared = resolved | zero
-        total += compared.size
-        unresolved += int((~compared).sum())
+        counts[k] = (compared.size, int((~compared).sum()))
         allowed = 4 / RESOLVED * moved + 8 * EPS32 * np.abs(want[k])
         excess = (np.abs(got[k] - want[k]) - allowed)[compared]
         assert excess.size == 0 or excess.max() <= 0, \
             f"{k}: exceeds the bound by {excess.max():.3e}"
-    share = unresolved / total
-    assert share <= MAX_UNRESOLVED, f"unresolved share {share:.3f}"
-    return share
+    return counts

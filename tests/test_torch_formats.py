@@ -323,6 +323,8 @@ def test_importing_port_leaves_jax_and_reference_unloaded():
         "import repro_torch.core.analyzer, repro_torch.launch.dryrun\n"
         "import repro_torch.core.comm, repro_torch.launch.spawn\n"
         "import repro_torch.train.pipeline\n"
+        "import repro_torch.models.layers, repro_torch.models.attention\n"
+        "import repro_torch.models.moe, repro_torch.core.device\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
         "print(bad)\n"

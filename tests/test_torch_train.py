@@ -320,7 +320,14 @@ def test_grouped_launch_plan_counts():
 
 
 def test_mesh_is_not_ported():
-    cfg = port_config("llama3.2-1b").reduced()
+    # The partitioned step runs the global-attention dense and MoE archs
+    # on a ProcessMesh (tests/test_torch_gspmd_train*.py); the other
+    # families come with part 3 of the multi-card item.
     with pytest.raises(NotImplementedError, match="multi-card"):
-        train_step.make_train_step(cfg, PortShape("t", 8, 2, "train"),
+        train_step.make_train_step(
+            port_config("recurrentgemma-9b").reduced(),
+            PortShape("t", 8, 2, "train"), mesh=object())
+    with pytest.raises(TypeError, match="ProcessMesh"):
+        train_step.make_train_step(port_config("llama3.2-1b").reduced(),
+                                   PortShape("t", 8, 2, "train"),
                                    mesh=object())

@@ -169,9 +169,13 @@ def test_step_factories_refuse_a_mesh():
     cfg = port_config(ARCH).reduced()
     mesh = MS.abstract_mesh((2, 2), ("data", "model"))
     shape = ShapeConfig("p", 32, 4, "prefill")
-    for make in (port_ts.make_prefill_step, port_ts.make_serve_step,
-                 port_ts.make_train_step):
-        with pytest.raises(NotImplementedError, match="multi-card item"):
+    # The serve step over any mesh comes with part 3 of the multi-card
+    # item; the train and prefill steps run on a process mesh only (one
+    # rank per process), not on the dry run's abstract mesh.
+    with pytest.raises(NotImplementedError, match="multi-card item"):
+        port_ts.make_serve_step(cfg, shape, mesh)
+    for make in (port_ts.make_prefill_step, port_ts.make_train_step):
+        with pytest.raises(TypeError, match="ProcessMesh"):
             make(cfg, shape, mesh)
     assert "Multi-card item" in MULTI_CARD
     assert port_ts.make_ctx(cfg, None, shape) is NO_SHARDING

@@ -304,7 +304,14 @@ def test_trainer_defaults_to_the_card(tmp_path):
 
 
 def test_trainer_mesh_is_not_ported(tmp_path):
+    # Over a mesh the trainer runs the global-attention dense and MoE
+    # archs (tests/test_torch_gspmd_trainer.py); the other families come
+    # with part 3 of the multi-card item, and a mesh is a ProcessMesh.
     with pytest.raises(NotImplementedError, match="multi-card"):
+        Trainer(port_config("gemma3-12b").reduced(), SMALL_SHAPE,
+                TrainerConfig(ckpt_dir=str(tmp_path)), mesh=object(),
+                device="cpu")
+    with pytest.raises(TypeError, match="ProcessMesh"):
         Trainer(port_config("llama3.2-1b").reduced(), SMALL_SHAPE,
                 TrainerConfig(ckpt_dir=str(tmp_path)), mesh=object(),
                 device="cpu")
@@ -323,6 +330,12 @@ def test_train_launcher_on_the_cpu(tmp_path, capsys):
         argv[:-3] + ["6", "--ckpt-dir", str(tmp_path)]))
     assert again["trainer"].start_step == 4
     assert [h["step"] for h in again["trainer"].history] == [4, 5]
-    with pytest.raises(NotImplementedError, match="multi-card"):
+    # --mesh spawns a world (tests/test_torch_gspmd_trainer.py); a
+    # trainer made without this rank's mesh refuses, and so does an arch
+    # the partitioned step does not run.
+    with pytest.raises(ValueError, match="spawned world"):
         train_cli.make_trainer(train_cli.parser().parse_args(
             argv + ["--mesh", "2,2"]))
+    with pytest.raises(NotImplementedError, match="multi-card"):
+        train_cli.make_trainer(train_cli.parser().parse_args(
+            ["--arch", "falcon-mamba-7b"] + argv[2:] + ["--mesh", "2,2"]))
