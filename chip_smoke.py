@@ -277,12 +277,28 @@ The run reads and writes calibrations only in a fresh temporary
    bounds.  (e2) the partitioned prefill on ``(data=2, model=1)`` (FSDP,
    1 layer, bf16 weights): each rank's logits equal to the one-process
    forward on its rows bit for bit; the FSDP blocks gathered in reversed
-   order must differ.  Then a world of one rank on
+   order must differ.  (f) the serve step over a mesh (``make_serve_step``
+   over a ``ProcessMesh``, the decode cache split along its sequence, the
+   recurrent states by channels) on ``(data=1, model=2)``, bf16, batch 4,
+   8 steps from a cache filled below the start from a seed
+   (``mc_fill_cache``): (f1) olmoe-1b-7b at full width, 2 of 16 layers,
+   cache 4096, pos 2044..2051 across the two ranks' block boundary;
+   (f2) recurrentgemma-9b at full width, (rglru, rglru, local), its
+   2048-slot ring full to pos 2044 and wrapping at 2048.  Each against the
+   one-process ``decode_step`` on the same card (whose routing (f1)
+   replays): every step's logits block, every attention output and the
+   final K/V, ``h`` and ``conv`` blocks within their rounding bounds
+   (``mc_serve_case``); planted faults must break one: the combine
+   without its ``e^{m - m*}`` rescale and the K/V written on every rank
+   (f1), the RG-LRU's gate blocks from the other rank (f2); grouped
+   launches per rank 2 x 2 x 8; bytes per kind beside
+   ``step_collectives``, step ms, peak memory.  Then a world of one rank on
    NCCL in this process runs every ``core.comm`` op once, and, on one
    card, a world of two ranks on ``cuda:0`` under NCCL must be refused
    (its message is printed).  Every kernel of the path must have launched
    on every rank (``multicard_launches``, per rank, in the record).
-   ``--quick``: 2 x 128 tokens, 2 layers ((e1): 1), n = 2**12.
+   ``--quick``: 2 x 128 tokens, 2 layers ((e1): 1), n = 2**12, (f)'s
+   cache 256.
 
 Each phase prints its seconds.
 
@@ -3781,9 +3797,287 @@ def mc_gspmd_prefill(dev, backend, quick: bool, lines: list) -> dict:
     return out
 
 
+#: (f) the serve step over a mesh: batch, steps, cache length (half of it
+#: under ``--quick``) and the layers of each arch.  The steps start 4
+#: before olmoe's cache boundary (its middle: ranks on ``(1, 2)`` hold one
+#: half each) and 4 before recurrentgemma's ring wraps.
+MC_SERVE_BATCH, MC_SERVE_STEPS = 4, 8
+MC_SERVE_CACHE, MC_SERVE_CACHE_QUICK = 4096, 256
+MC_SERVE_RG = "recurrentgemma-9b"
+#: Depth of each arch: olmoe's first 2 of 16 layers; recurrentgemma's
+#: first period cut to its first 3 layers (rglru, rglru, local) of 38.
+MC_SERVE_DEPTH = {MC_ARCH: {"num_layers": 2},
+                  MC_SERVE_RG: {"num_layers": 3,
+                                "layer_pattern": ("rglru", "rglru",
+                                                  "local")}}
+
+
+def mc_fill_cache(cache, upto: int, seed: int, dev) -> None:
+    """Fill a whole decode cache in place from ``seed``: the K/V slots
+    below ``upto`` (a ring's below ``min(upto, S_c)``) and every recurrent
+    ``conv`` and ``h``, with N(0, 1) in each leaf's dtype, K at 3x (its
+    logits then spread by about 3, so a few slots carry each row's
+    softmax, as in a trained model, and a block's weight in the combine
+    is far from its share of the slots); the other slots stay 0.  The
+    same seed gives the same numbers."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for layer in cache:
+        for name, t in layer.items():
+            r = torch.randn(t.shape, generator=g, device=dev)
+            if name in ("k", "v"):
+                t[:, :upto] = (r[:, :upto] * (3.0 if name == "k" else 1.0)
+                               ).to(t.dtype)
+            else:
+                t.copy_(r.to(t.dtype))
+
+
+class RecordAttention:
+    """Records the output of every decode attention (the input of ``wo``)
+    while active: one process's ``models.attention.decode_attention`` and
+    a partitioned step's ``combine``, in call order."""
+
+    def __init__(self):
+        self.outs = []
+
+    def __enter__(self):
+        from repro_torch.models import attention as A
+        self._orig = A.decode_attention, A.combine
+
+        def recording(fn):
+            def wrapped(*a, **k):
+                out = fn(*a, **k)
+                self.outs.append(out.detach().clone())
+                return out
+            return wrapped
+        A.decode_attention, A.combine = map(recording, self._orig)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention as A
+        A.decode_attention, A.combine = self._orig
+
+
+def mc_serve_case(arch: str, dev, backend, quick: bool, lines: list,
+                  tag: str) -> dict:
+    """One serve case of (f) on ``(data=1, model=2)``: ``arch`` at full
+    width and ``MC_SERVE_DEPTH``'s layers, bf16, batch 4, from a cache
+    filled below the start position (``mc_fill_cache``, the same numbers
+    in the one-process cache and in each rank's blocks).  The one-process
+    ``decode_step`` runs the 8 steps first on the same card (its routing
+    recorded); then the partitioned serve step (``make_serve_step`` over
+    the mesh) replays that routing, with every kernel counter zeroed just
+    before and read just after; then each planted fault from a fresh
+    cache: on olmoe the combine without its ``e^{m - m*}`` rescale and the
+    new K/V written on every rank, on recurrentgemma the RG-LRU's gate
+    blocks taken from the other rank.  Held within
+    ``models.model.rounding_tolerance`` at each row's scale
+    (``mc_ratio``): each step's logits block over ``mc_roundings``
+    stages; each attention output (``RecordAttention``) and each final
+    cache block (K, V, ``h``, ``conv``) over the stages through its layer
+    (``roundings(cfg, i + 1)`` and the row-parallel exits' ``2 (i + 1)
+    tp``).  At full width the logits' bound is loose (a quarter of a
+    row's largest logit); a fault must break one of these bounds."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import comm
+    from repro_torch.core.collectives import step_collectives
+    from repro_torch.core.device import synchronize
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import abstract_mesh, make_process_mesh
+    from repro_torch.models import attention as A
+    from repro_torch.models import rglru as R
+    from repro_torch.models.model import (ATTENTION_KINDS, LM, init_params,
+                                          layer_kinds, roundings)
+    from repro_torch.train import train_step as TS
+
+    cfg = dataclasses.replace(get_config(arch), **MC_SERVE_DEPTH[arch])
+    B, steps = MC_SERVE_BATCH, MC_SERVE_STEPS
+    cache_len = MC_SERVE_CACHE_QUICK if quick else MC_SERVE_CACHE
+    kinds = layer_kinds(cfg)
+    if "local" in kinds:
+        start = min(cache_len, cfg.window_size) - 4     # the ring wraps
+    else:
+        start = cache_len // 2 - 4                      # the block boundary
+    shape = ShapeConfig("mc-serve", cache_len, B, "decode")
+    mesh = make_process_mesh((1, 2), ("data", "model"), device=dev,
+                             backend=backend)
+    tp = 2
+    stages = mc_roundings(cfg, tp)
+
+    def through(i):
+        return roundings(cfg, i + 1) + 2 * (i + 1) * tp
+
+    attn_layers = [i for i, k in enumerate(kinds) if k in ATTENTION_KINDS]
+    serve1, _ = TS.make_serve_step(cfg, shape)
+    serve, specs = TS.make_serve_step(cfg, shape, mesh)
+    g = torch.Generator(device=dev).manual_seed(11)
+    tokens = torch.randint(2, cfg.vocab_size - 1, (steps, B), generator=g,
+                           device=dev)
+
+    def seeded():
+        g = torch.Generator(device=dev).manual_seed(0)
+        return init_params(cfg, device=dev, generator=g)
+
+    one = seeded()
+    filled = one.init_cache(B, cache_len)
+    mc_fill_cache(filled, start, 3, dev)
+    c1 = [{n: t.clone() for n, t in layer.items()} for layer in filled]
+    want = []
+    with ReplayRouting() as routes, RecordAttention() as want_attn:
+        for t in range(steps):
+            logits = serve1(one, c1, tokens[t], start + t)
+            want.append(SH.local_block(logits, specs["logits"], mesh)
+                        .clone())
+    want_cache = [{n: SH.local_block(t, spec[n], mesh).clone()
+                   for n, t in layer.items()}
+                  for layer, spec in zip(c1, specs["cache"])]
+    del one, c1
+    gc.collect()
+    empty_cache(dev)
+
+    part = seeded().shard(mesh)
+
+    def run(count: bool = False) -> dict:
+        cache = SH.cache_blocks(filled, specs["cache"], mesh)
+        out, ms = [], []
+        if count:
+            kernels.reset_launch_counts()
+        with ReplayRouting(routes.ids) as replay, \
+                RecordAttention() as attn:
+            for t in range(steps):
+                synchronize(dev)
+                t0 = time.perf_counter()
+                out.append(serve(part, cache, tokens[t], start + t))
+                synchronize(dev)
+                ms.append((time.perf_counter() - t0) * 1e3)
+        launches = kernels.launch_counts()["grouped_matmul"] if count else 0
+        ratios = {
+            "logits": max(mc_ratio(o, w, stages)
+                          for o, w in zip(out, want)),
+            "attention": max(
+                mc_ratio(o, w, through(attn_layers[c % len(attn_layers)]))
+                for c, (o, w) in enumerate(zip(attn.outs, want_attn.outs))),
+            **{f"{i}.{n}": mc_ratio(got[n], w, through(i))
+               for i, (got, ref) in enumerate(zip(cache, want_cache))
+               for n, w in ref.items()}}
+        del cache
+        return {"ratios": ratios, "ms": ms, "launches": launches,
+                "flips": replay.flips}
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    log_ = mesh.reset_log()
+    good = run(count=True)
+    counted = {k: int(v) for k, v in log_.bytes.items() if v}
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 \
+        if dev.type == "cuda" else 0.0
+    real = {"owner": SH.slot_owner, "gates": R.gate_blocks}
+
+    def no_rescale(acc, m, l, mesh_, axes, dtype):
+        if axes:
+            l = comm.psum(l, axes, mesh=mesh_)
+            acc = comm.psum(acc, axes, mesh=mesh_)
+        return (acc / torch.clamp(l[..., None], min=1e-30)).to(dtype)
+
+    def every_rank(slot, s_c, axes, mesh_):
+        return (SH.axes_index(mesh_, SH.axes_of(axes)),
+                real["owner"](slot, s_c, axes, mesh_)[1])
+
+    def wrong_blocks(p, ctx):
+        n = ctx.process_mesh.shape["model"]
+        return tuple(comm.ppermute(w, "model",
+                                   [(i, (i + 1) % n) for i in range(n)],
+                                   mesh=ctx.process_mesh)
+                     for w in real["gates"](p, ctx))
+
+    # The attention faults on the arch whose every layer attends, the
+    # gates' on the RG-LRU's.
+    if "rglru" in kinds:
+        faults = {"gates from the wrong rank's blocks": (
+            R, "gate_blocks", wrong_blocks)}
+    else:
+        faults = {"combine without the rescale": (A, "combine", no_rescale),
+                  "K/V written on every rank": (SH, "slot_owner",
+                                                every_rank)}
+    fault_ratios = {}
+    for name, (mod, attr, fn) in faults.items():
+        with patched(mod, attr, fn):
+            bad = run()["ratios"]
+        worst = max(bad, key=bad.get)
+        fault_ratios[name] = (bad[worst], worst)
+    planned = part.grouped_launches_per_step() * steps \
+        if dev.type == "cuda" else 0
+    named = dict(LM(cfg, device="meta").named_parameters())
+    am = abstract_mesh((1, 2), ("data", "model"))
+    seq = SH.seq_axes_for_batch(am, B)
+    modelled = step_collectives(
+        cfg, shape, am, params={n: (tuple(p.shape), 2)
+                                for n, p in named.items()},
+        specs=SH.param_pspecs(cfg, named, am),
+        constraints=[("tokens_bse", (B, 1, cfg.d_model), "bfloat16",
+                      ("data",)),
+                     ("kv_cache", (B, cache_len, cfg.num_kv_heads,
+                                   cfg.head_dim), "bfloat16",
+                      ("data",) + seq)],
+        kinds=kinds, compute_itemsize=2).summary()[0]
+    modelled = {k: int(v * steps) for k, v in modelled.items() if v}
+    bytes_ratio = sum(counted.values()) / max(modelled.get("total", 0), 1)
+    ratios = good["ratios"]
+    if max(ratios.values()) > 1:
+        raise SmokeFailure(f"{tag}: err / bound against one process "
+                           f"{ratios}")
+    missed = {k: v for k, v in fault_ratios.items() if v[0] <= 1}
+    if missed:
+        raise SmokeFailure(f"{tag}: planted faults passed {missed}")
+    if good["launches"] != planned:
+        raise SmokeFailure(f"{tag}: {good['launches']} grouped launches, "
+                           f"planned {planned}")
+    lines.append(
+        f"{tag}: {arch} {cfg.num_layers} layers ({', '.join(kinds)}) at full "
+        f"width, bf16, batch {B}, cache {cache_len}, steps at pos {start}.."
+        f"{start + steps - 1}; logits {tuple(want[0].shape)} per rank (spec "
+        f"{specs['logits']}); err / bound "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ratios.items())
+        + "; faults err / bound "
+        + ", ".join(f"{k} {v:.1f} ({w})"
+                    for k, (v, w) in fault_ratios.items())
+        + f"; own router differs on {good['flips']} rows; grouped launches "
+        f"{good['launches']} = planned {planned}; step ms "
+        f"{', '.join(f'{t:.2f}' for t in good['ms'])} ({mesh.backend}"
+        + (", host staging: not a link rate" if mesh.stages_through_host
+           else "")
+        + f"); collective bytes per kind {counted} vs step_collectives "
+        f"{modelled}, ratio {bytes_ratio:.3f}; peak {peak:.2f} GB allocated")
+    out = {"launches": good["launches"], "planned": planned,
+           "ratios": ratios, "faults": fault_ratios, "step_ms": good["ms"],
+           "bytes": counted, "modelled_bytes": modelled,
+           "bytes_ratio": bytes_ratio, "peak_gb": peak,
+           "flips": good["flips"]}
+    del part, filled, want, want_cache
+    gc.collect()
+    empty_cache(dev)
+    return out
+
+
+def mc_gspmd_serve(dev, backend, quick: bool, lines: list) -> dict:
+    """(f) The serve step over a mesh: (f1) olmoe-1b-7b across its cache's
+    block boundary, (f2) recurrentgemma-9b across its ring's wrap
+    (``mc_serve_case``)."""
+    rank = int(os.environ.get("RANK", 0))
+    return {"olmoe": mc_serve_case(MC_ARCH, dev, backend, quick, lines,
+                                   f"[multicard] (f1) rank {rank}"),
+            "rgemma": mc_serve_case(MC_SERVE_RG, dev, backend, quick, lines,
+                                    f"[multicard] (f2) rank {rank}")}
+
+
 def multicard_rank(rank: int, world: int, quick: bool,
                    distinct: bool) -> dict:
-    """One rank of the ``[multicard]`` world: (a)-(e) in order."""
+    """One rank of the ``[multicard]`` world: (a)-(f) in order."""
     import importlib
     import threading
     import torch
@@ -3825,6 +4119,9 @@ def multicard_rank(rank: int, world: int, quick: bool,
                                                 lines)}
     out["seconds"]["e"] = time.perf_counter() - t0
     out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    t0 = time.perf_counter()
+    out["serve"] = mc_gspmd_serve(dev, backend, quick, lines)
+    out["seconds"]["f"] = time.perf_counter() - t0
     return out
 
 
@@ -3889,7 +4186,7 @@ def nccl_world_one(dev) -> dict:
 
 def multicard_phase(quick: bool, dev) -> dict:
     """Spawn the ``[multicard]`` world (NCCL on distinct cards, else gloo
-    with two ranks on ``cuda:0``), run (a)-(d) in it, and a world of one
+    with two ranks on ``cuda:0``), run (a)-(f) in it, and a world of one
     on NCCL here; on one card, also confirm that NCCL refuses two ranks on
     it.  Returns the launches per rank and kernel."""
     import threading
@@ -3946,12 +4243,14 @@ def multicard_phase(quick: bool, dev) -> dict:
                 f"{lines[-1].strip()}")
     launches = {k: [0] * MC_WORLD for k in KERNEL_MODULES}
     gspmd = [0] * MC_WORLD
+    serve = [0] * MC_WORLD
     for r in results:
         gspmd[r["rank"]] = r["gspmd"]["train"]["launches"] + \
             r["gspmd"]["prefill"]["launches"]
+        serve[r["rank"]] = sum(c["launches"] for c in r["serve"].values())
         launches["grouped_matmul"][r["rank"]] += sum(
             m["launches"] for m in r["moe"]) + r["pipeline"]["launches"] + \
-            gspmd[r["rank"]]
+            gspmd[r["rank"]] + serve[r["rank"]]
         for k, v in r["shard"]["launches"].items():
             launches[k][r["rank"]] += v
     for k in ("grouped_matmul", "bcsr_spmm", "banded_spmm", "csr_spmm"):
@@ -3965,7 +4264,14 @@ def multicard_phase(quick: bool, dev) -> dict:
         f"planned {results[0]['gspmd']['train']['planned']}, prefill "
         f"{results[0]['gspmd']['prefill']['planned']} per rank); (e) "
         f"seconds per rank {[round(r['seconds']['e'], 1) for r in results]}")
+    if 0 in serve:
+        raise SmokeFailure(f"[multicard] (f) the grouped kernel did not "
+                           f"launch on every rank: {serve}")
+    log(f"[multicard] (f) grouped launches per rank {serve} (planned "
+        f"{results[0]['serve']['olmoe']['planned']} per rank); (f) seconds "
+        f"per rank {[round(r['seconds']['f'], 1) for r in results]}")
     return {"launches": launches, "gspmd_launches": gspmd,
+            "serve_launches": serve,
             "results": results, "backend": "nccl" if distinct else "gloo",
             "world_seconds": world_s}
 
@@ -4096,6 +4402,8 @@ def run(quick: bool, n: int) -> int:
     for rec in records:
         rec["multicard_launches"] = multicard["launches"][rec["name"]]
         rec["multicard_gspmd_launches"] = multicard["gspmd_launches"] \
+            if rec["name"] == "grouped_matmul" else [0] * MC_WORLD
+        rec["multicard_serve_launches"] = multicard["serve_launches"] \
             if rec["name"] == "grouped_matmul" else [0] * MC_WORLD
     seconds["multicard"] = time.perf_counter() - t0
     log(f"[multicard] phase took {seconds['multicard']:.1f}s "

@@ -146,8 +146,8 @@ def params_from_numpy(cfg, tree, device=None, dtype=None, masters=False, *,
 
     With ``mesh`` (a ``launch.mesh.ProcessMesh``) the model keeps this
     rank's blocks (``LM.shard(mesh, specs)``; ``specs`` default to the
-    policy's), so the reference's parameters carry across to a
-    partitioned step.
+    policy's), for every family: the reference's parameters carry across
+    to a partitioned step.
     """
     import torch
     from repro_torch.models.model import LM
@@ -235,3 +235,106 @@ def params_to_numpy(model) -> dict:
         named = {n: assemble(p.detach(), model.param_specs[n], model.mesh)
                  for n, p in named.items()}
     return tree_to_numpy(model.cfg, named)
+
+
+def _cache_leaves(node: dict) -> dict:
+    """A reference layer cache's leaves by the port's names: an attention
+    layer's ``kv`` (``k``, ``v``) and whisper's ``cross_k`` / ``cross_v``,
+    an ``ssm`` layer's ``conv`` / ``h``, an ``rglru`` layer's under
+    ``rnn``."""
+    out = {}
+    for key, value in node.items():
+        if isinstance(value, dict):
+            out.update(value)
+        else:
+            out[key] = value
+    return out
+
+
+def cache_from_numpy(cfg, tree, device=None, dtype=None, *, mesh=None,
+                     specs=None):
+    """The port's decode cache (``LM.init_cache``'s list of per-layer
+    dicts) holding the reference's ``init_cache`` tree.
+
+    Args:
+        cfg: the model's ``ModelConfig``.
+        tree: the reference's cache as nested dicts of numpy arrays: each
+            kind ``j`` of the layer pattern under ``"p{j}"``, its leaves
+            stacked over the groups (group ``g`` is layer ``g * period +
+            j``): ``{"kv": {"k", "v"}}`` (and whisper's ``cross_k`` /
+            ``cross_v``) for attention, ``{"conv", "h"}`` for ``ssm``,
+            ``{"rnn": {"conv", "h"}}`` for ``rglru``.
+        device: where the cache goes (None: the CPU).
+        dtype: the compute dtype of every leaf but ``h`` (fp32; None:
+            ``models.model.COMPUTE_DTYPE``).
+        mesh, specs: with a ``launch.mesh.ProcessMesh``, this rank's block
+            of every leaf, as ``specs`` cut them (default
+            ``launch.sharding.cache_pspecs`` at the tree's batch).
+    """
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models import model as M
+    dev = device_of(device)
+    dt = dtype or M.COMPUTE_DTYPE
+    period = len(cfg.layer_pattern)
+    cache = []
+    for n in range(cfg.num_layers):
+        g, j = divmod(n, period)
+        leaves = _cache_leaves(tree[f"p{j}"])
+        cache.append({
+            name: torch.from_numpy(np.array(np.asarray(arr[g],
+                                                       dtype=np.float32)))
+            .to(dev, torch.float32 if name == "h" else dt)
+            for name, arr in leaves.items()})
+    if mesh is None:
+        return cache
+    if specs is None:
+        batch = cache[0][next(iter(cache[0]))].shape[0]
+        specs = SH.cache_pspecs(cfg, mesh, ShapeConfig(
+            "decode", 0, batch, "decode"), cache)
+    return SH.cache_blocks(cache, specs, mesh)
+
+
+def cache_tree(cfg, cache) -> dict:
+    """The reference's cache tree (see :func:`cache_from_numpy`) of a port
+    decode cache, whole or a rank's blocks, as fp32 numpy arrays (bf16
+    leaves widened): each kind's layers stacked over the groups."""
+    import torch
+    from repro_torch.models.model import ATTENTION_KINDS
+    period = len(cfg.layer_pattern)
+    tree: dict = {}
+    for j, kind in enumerate(cfg.layer_pattern):
+        layers = cache[j::period]
+        stacked = {n: np.stack([layer[n].detach().to("cpu", torch.float32)
+                                .numpy() for layer in layers])
+                   for n in layers[0]}
+        if kind in ATTENTION_KINDS:
+            node = {"kv": {"k": stacked.pop("k"), "v": stacked.pop("v")}}
+            node.update(stacked)
+        elif kind == "rglru":
+            node = {"rnn": stacked}
+        else:
+            node = stacked
+        tree[f"p{j}"] = node
+    return tree
+
+
+def cache_to_numpy(model, cache, specs=None) -> dict:
+    """:func:`cache_tree` of the whole cache of ``model``.  For a model
+    sharded on a mesh, ``cache`` holds this rank's blocks and ``specs``
+    (``make_serve_step``'s ``specs["cache"]``) name them: the whole leaves
+    are assembled first (``launch.sharding.assemble``; every rank of the
+    mesh must call this, and each gets the whole tree).
+
+    Raises:
+        ValueError: a sharded model's cache without its specs.
+    """
+    if model.mesh is not None:
+        if specs is None:
+            raise ValueError("a sharded model's cache needs its specs")
+        from repro_torch.launch.sharding import assemble
+        cache = [{n: assemble(t, spec[n], model.mesh)
+                  for n, t in layer.items()}
+                 for layer, spec in zip(cache, specs)]
+    return cache_tree(model.cfg, cache)

@@ -4,7 +4,9 @@ The counterpart of the reference's ``repro.launch.sharding``, for the
 dry run (``launch.dryrun``) and for the partitioned steps on a
 ``launch.mesh.ProcessMesh``: :func:`block_slices` / :func:`local_block`
 cut a rank's block of a whole leaf as ``jax.sharding.NamedSharding`` cuts
-it, and :func:`batch_shard` keeps a rank's rows of a global batch.  A
+it, :func:`batch_shard` keeps a rank's rows of a global batch, and
+:func:`cache_blocks` / :func:`slot_owner` give a rank its blocks of a
+decode cache and say which block holds a slot.  A
 *spec* is a tuple with one entry per dim: a mesh axis name, a tuple of
 names, or ``None`` (not split).  A mesh is anything with ``axis_names``
 and a ``shape`` mapping (``launch.mesh.AbstractMesh``); cutting a block
@@ -86,6 +88,16 @@ def axes_size(mesh, axes) -> int:
     return n
 
 
+def axes_index(mesh, axes) -> int:
+    """This rank's position along ``axes`` taken together, the major axis
+    first (the block :func:`block_slices` gives it on a dim split over
+    them)."""
+    index = 0
+    for a in axes:
+        index = index * mesh.shape[a] + mesh.coords[a]
+    return index
+
+
 def validate_spec(spec: Spec, shape, mesh) -> Spec:
     """Drop the split of any dim the mesh axes do not evenly divide.
 
@@ -144,6 +156,12 @@ def dp_axes_for_batch(mesh, batch: int) -> Tuple[Tuple[str, ...],
     return tuple(taken), tuple(leftover)
 
 
+def seq_axes_for_batch(mesh, batch: int) -> Tuple[str, ...]:
+    """The axes a decode cache's sequence is split over at ``batch`` rows:
+    the data axes the batch leaves free, then ``"model"``."""
+    return tuple(dp_axes_for_batch(mesh, batch)[1]) + ("model",)
+
+
 def canonical(axes: Tuple[str, ...]) -> Axes:
     """A spec entry for ``axes``: ``None`` for none, the name for one
     (as ``jax.sharding.PartitionSpec`` writes a one-axis tuple), else the
@@ -160,11 +178,11 @@ def activation_rules(cfg: ModelConfig, mesh, shape: ShapeConfig
     keyed by semantic activation kind."""
     tp = mesh.shape["model"]
     if shape.kind == "decode":
-        dp, rest = dp_axes_for_batch(mesh, shape.global_batch)
-        seq_axes = canonical(tuple(rest) + ("model",))
+        dp = canonical(dp_axes_for_batch(mesh, shape.global_batch)[0])
+        seq_axes = canonical(seq_axes_for_batch(mesh, shape.global_batch))
         return {
-            "tokens_bse": (canonical(dp), None, None),
-            "kv_cache": (canonical(dp), seq_axes, None, None),
+            "tokens_bse": (dp, None, None),
+            "kv_cache": (dp, seq_axes, None, None),
         }
     dp = canonical(dp_axes_for_batch(mesh, shape.global_batch)[0])
     heads_ok = cfg.num_heads and cfg.num_heads % tp == 0
@@ -216,9 +234,8 @@ def cache_pspecs(cfg: ModelConfig, mesh, shape: ShapeConfig,
     over the data axes, the channels over ``"model"``.
     """
     del cfg
-    dp, rest = dp_axes_for_batch(mesh, shape.global_batch)
-    dp = canonical(dp)
-    seq_axes = canonical(tuple(rest) + ("model",))
+    dp = canonical(dp_axes_for_batch(mesh, shape.global_batch)[0])
+    seq_axes = canonical(seq_axes_for_batch(mesh, shape.global_batch))
 
     def spec_for(name: str, leaf) -> Spec:
         if name in ("k", "v", "cross_k", "cross_v"):
@@ -233,6 +250,33 @@ def cache_pspecs(cfg: ModelConfig, mesh, shape: ShapeConfig,
     return [{name: validate_spec(spec_for(name, leaf), tuple(leaf.shape),
                                  mesh)
              for name, leaf in layer.items()} for layer in cache]
+
+
+def cache_blocks(cache: List[Mapping], specs: List[Mapping], mesh
+                 ) -> List[Dict]:
+    """This rank's block of each leaf of a whole per-layer decode cache
+    (``LM.init_cache``'s layout; ``specs`` as :func:`cache_pspecs` gives
+    them): :func:`local_block` of every leaf, copied."""
+    return [{name: local_block(leaf, spec[name], mesh).clone()
+             for name, leaf in layer.items()}
+            for layer, spec in zip(cache, specs)]
+
+
+def slot_owner(slot: int, s_c: int, seq_axes, mesh) -> Tuple[int, int]:
+    """Where global slot ``slot`` of a ``s_c``-slot cache lies when its
+    sequence is cut into equal blocks over ``seq_axes`` (the major axis
+    first, as :func:`block_slices` cuts it): ``(block, index)``, the
+    block's position along the axes and the slot's index inside it.
+    ``seq_axes`` is a spec entry (a name, a tuple of names or None: one
+    block)."""
+    parts = axes_size(mesh, axes_of(seq_axes))
+    if s_c % parts:
+        raise ValueError(f"a {s_c}-slot cache does not split into {parts} "
+                         f"blocks over {seq_axes}")
+    if not 0 <= slot < s_c:
+        raise ValueError(f"slot {slot} is outside a {s_c}-slot cache")
+    step = s_c // parts
+    return slot // step, slot % step
 
 
 def opt_state_pspecs(param_specs: Dict[str, Spec]) -> Dict:
@@ -274,10 +318,7 @@ def block_slices(spec: Spec, shape: Tuple[int, ...], mesh
     out = []
     for dim, size in enumerate(shape):
         axes = axes_of(spec[dim]) if dim < len(spec) else ()
-        parts, index = 1, 0
-        for a in axes:
-            parts *= mesh.shape[a]
-            index = index * mesh.shape[a] + mesh.coords[a]
+        parts, index = axes_size(mesh, axes), axes_index(mesh, axes)
         if size % parts:
             raise ValueError(f"dim {dim} of {shape} does not split into "
                              f"{parts} blocks over {axes}")
@@ -350,11 +391,8 @@ def batch_shard(batch: Mapping, cfg: ModelConfig, mesh, shape: ShapeConfig,
     axes (``dp_axes_for_batch``); whole on the axes that do not split it.
     """
     dp, _ = dp_axes_for_batch(mesh, shape.global_batch)
-    dp_size, dp_index = 1, 0
-    for a in dp:
-        dp_size *= mesh.shape[a]
-        dp_index = dp_index * mesh.shape[a] + mesh.coords[a]
-    rows = batch_rows(shape.global_batch, dp_size, dp_index, grad_accum)
+    rows = batch_rows(shape.global_batch, axes_size(mesh, dp),
+                      axes_index(mesh, dp), grad_accum)
     specs = batch_pspecs(cfg, mesh, shape)
     out = {}
     for key, value in batch.items():

@@ -13,6 +13,13 @@ paper's banded regime applied to attention: each q block reads one band of
 not the sequence.  Logits, softmax statistics and accumulators are fp32;
 the probabilities that multiply V are rounded to V's dtype, as in the
 reference.
+
+Over a mesh the decode cache is split along its sequence
+(``launch.sharding.cache_pspecs``), and one token's softmax spans the
+blocks: :func:`decode_attention_partial` gives each rank's unnormalised
+output, row max and sum on its slots, and :func:`combine` merges them over
+the sequence axes with ``core.comm``'s ``pmax`` and ``psum`` (the
+distributed softmax that XLA's partitioner writes for the reference).
 """
 from __future__ import annotations
 
@@ -20,6 +27,8 @@ import math
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.core import comm
 
 NEG_INF = -1e30
 
@@ -216,3 +225,43 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", probs, v_cache.float())
     return out.reshape(b, 1, hq, d).to(q.dtype)
+
+
+def decode_attention_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, slot_mask: torch.Tensor):
+    """One-token attention on a block of the cache, not yet normalised.
+
+    q: ``[B,1,Hq,D]``; caches: ``[B,S_blk,Hkv,D]``, this rank's slots;
+    slot_mask: ``[B,S_blk]`` bool.  Returns ``(acc, m, l)``, fp32: ``acc
+    [B,1,Hq,D]`` the sum over the valid slots of ``e^{logit - m} v``, ``m
+    [B,1,Hq]`` the largest valid logit and ``l [B,1,Hq]`` the sum of
+    ``e^{logit - m}``.  A row with no valid slot has ``m = -inf`` and adds
+    exactly zero: its ``acc`` and ``l`` are 0, whatever ``m`` is."""
+    b, _, hq, d = q.shape
+    hkv = k_cache.shape[2]
+    qe = _gqa_expand(q, hkv)[:, 0] * (1.0 / math.sqrt(d))    # [B,Hkv,G,D]
+    logits = torch.einsum("bhgd,bshd->bhgs", qe.float(), k_cache.float())
+    valid = slot_mask[:, None, None, :]
+    m = torch.where(valid, logits, -math.inf).amax(dim=-1)   # [B,Hkv,G]
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.where(valid, torch.exp(logits - m_safe[..., None]), 0.0)
+    acc = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
+    return (acc.reshape(b, 1, hq, d), m.reshape(b, 1, hq),
+            p.sum(dim=-1).reshape(b, 1, hq))
+
+
+def combine(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor, mesh,
+            axes, dtype: torch.dtype) -> torch.Tensor:
+    """The softmax of one token over every block of the cache, from each
+    rank's :func:`decode_attention_partial` on ``mesh``: ``m* = pmax(m)``
+    over ``axes`` (the cache's sequence axes), then ``psum`` of ``l e^{m -
+    m*}`` and of ``acc e^{m - m*}``, and their quotient, in ``dtype``.  A
+    block with no valid slot (``m = -inf``) is weighted by exactly 0.
+    Every rank of ``axes`` must call it; with no axes it normalises the
+    one block."""
+    if axes:
+        m_all = comm.pmax(m, axes, mesh=mesh)
+        w = torch.where(torch.isfinite(m), torch.exp(m - m_all), 0.0)
+        l = comm.psum(l * w, axes, mesh=mesh)
+        acc = comm.psum(acc * w[..., None], axes, mesh=mesh)
+    return (acc / torch.clamp(l[..., None], min=1e-30)).to(dtype)

@@ -14,9 +14,11 @@ its gradient summed over the ranks it is replicated on), :func:`sp_enter`
 and :func:`sp_exit` (the sequence-parallel residual stream: all-gathered
 along the sequence over ``"model"`` at a sublayer's entry, its
 row-parallel partial sums reduce-scattered at the exit), the
-column-/row-parallel MLP (:meth:`MLP.forward`) and the vocab-split
-embedding (:func:`embed_mesh`).  Norms stay local: every rank holds the
-whole ``d_model`` of its tokens.
+column-/row-parallel MLP (:meth:`MLP.forward`), the vocab-split
+embedding (:func:`embed_mesh`), and the decode step's column- and
+row-parallel projections of one token (:func:`column_gather`,
+:func:`row_dense`, :func:`local_dense`).  Norms stay local: every rank
+holds the whole ``d_model`` of its tokens.
 Compute runs in the model's compute dtype (bf16, ``models.model``) with
 fp32 statistics in the norms and fp32 rotary angles.  The reference keeps
 fp32 masters and casts each weight to the compute dtype where it is used.
@@ -194,6 +196,53 @@ def sp_exit(y: torch.Tensor, ctx: ShardingCtx,
     return y
 
 
+def splits(module: nn.Module, name: str, dim: int,
+           ctx: ShardingCtx) -> bool:
+    """Whether ``module``'s block of weight ``name`` is split over
+    ``"model"`` along ``dim`` (its spec names the axis and the axis has
+    more than one rank)."""
+    return "model" in SH.axes_of(module.specs[name][dim]) and \
+        ctx.process_mesh.shape["model"] > 1
+
+
+def local_dense(x: torch.Tensor, module: nn.Module,
+                ctx: ShardingCtx) -> torch.Tensor:
+    """``x`` through this rank's block of a :class:`Dense` (its kernel and
+    bias gathered over the data axes, still split over ``"model"``): a
+    column-parallel layer's columns of the product, or a row-parallel
+    layer's partial sums of ``x``'s matching block."""
+    bias = None if module.bias is None else \
+        mesh_param(module, "bias", ctx, x.dtype)
+    return dense(x, mesh_param(module, "kernel", ctx, x.dtype), bias)
+
+
+def column_gather(x: torch.Tensor, module: nn.Module,
+                  ctx: ShardingCtx) -> torch.Tensor:
+    """``x`` through a column-parallel :class:`Dense`, every column on every
+    rank: this rank's columns all-gathered over ``"model"`` (in decode the
+    output is one token's, small beside the kernel)."""
+    y = local_dense(x, module, ctx)
+    if splits(module, "kernel", 1, ctx):
+        y = comm.all_gather(y, "model", dim=-1, tiled=True,
+                            mesh=ctx.process_mesh)
+    return y
+
+
+def row_dense(x: torch.Tensor, module: nn.Module,
+              ctx: ShardingCtx) -> torch.Tensor:
+    """A row-parallel :class:`Dense` (no bias) of ``x`` whole on every rank:
+    this rank's block of ``x``'s last dim times its rows of the kernel,
+    ``psum``-med over ``"model"``; the whole product where the kernel is
+    not split."""
+    kernel = mesh_param(module, "kernel", ctx, x.dtype)
+    if not splits(module, "kernel", 0, ctx):
+        return x @ kernel
+    n = kernel.shape[0]
+    lo = ctx.process_mesh.axis_index("model") * n
+    return comm.psum(x[..., lo:lo + n] @ kernel, "model",
+                     mesh=ctx.process_mesh)
+
+
 # ---------------------------------------------------------------------------
 # Dense / MLP.
 # ---------------------------------------------------------------------------
@@ -295,9 +344,11 @@ class MLP(nn.Module):
         ``"model"`` does not divide ``d_ff``, or for the fused kernel
         (whose blocks would cut the gate's columns from the up's), every
         rank computes the whole FFN on the gathered weights and keeps its
-        block."""
-        split = ctx.parts("ffn_bsf", 2) > 1 and not hasattr(self,
-                                                            "wi_fused")
+        block.  In decode (one token, no ``"ffn_bsf"`` rule) the split
+        follows ``wo``'s spec, and the exit is a ``psum``."""
+        split = (ctx.parts("ffn_bsf", 2) > 1 if "ffn_bsf" in ctx.rules
+                 else splits(self.wo, "kernel", 0, ctx)) and \
+            not hasattr(self, "wi_fused")
         keep = ("model",) if split else ()
 
         def w(dense):
@@ -408,8 +459,9 @@ def embed_mesh(module: nn.Module, tokens: torch.Tensor, ctx: ShardingCtx,
     residual stream for the tokens ``[B, S]`` of its data shard.  With the
     table split over the vocab (``"model"``), each rank looks up the
     tokens its rows hold, zeros elsewhere, and the partial rows are
-    reduce-scattered along the sequence (exactly one rank adds a nonzero
-    row, so the sum is exact); else the whole lookup keeps its block."""
+    reduce-scattered along the sequence, or ``psum``-med where the stream
+    is not split (decode; exactly one rank adds a nonzero row, so the sum
+    is exact); else the whole lookup keeps its block."""
     table = mesh_param(module, "table", ctx)
     if "model" not in SH.spec_axes(module.specs["table"]) or \
             ctx.process_mesh.shape["model"] == 1:

@@ -31,7 +31,14 @@ The public entry points keep the reference's semantics:
   layer's cache is a ring of ``min(cache_len, window)`` slots written at
   ``pos % S_c``; an ``ssm`` or ``rglru`` layer's cache is its last ``K -
   1`` raw conv inputs and its fp32 state (``models.ssm``,
-  ``models.rglru``).
+  ``models.rglru``);
+* over a mesh (``LM.shard``, any arch), :meth:`LM.decode_step_mesh` runs
+  the serve step on this rank's blocks: the KV cache split along its
+  sequence (each attention layer writes the token's K/V only on the rank
+  that owns its slot, and the softmax is combined over the blocks,
+  ``models.attention.combine``), the recurrent states by channels; the
+  train and prefill steps (:meth:`LM.forward_mesh`) run the ``dense`` and
+  ``moe`` archs of global attention.
 
 For serving, weights are held in the dtype each use casts them to in the
 reference: matrices, expert weights, biases and the embedding table in
@@ -49,7 +56,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import comm
 from repro_torch.core.device import MULTI_CARD, DeviceLike, resolve_device
 from repro_torch.launch import sharding as SH
@@ -220,17 +227,22 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{FAMILIES}, layer kinds {LAYER_KINDS})")
 
 
-def check_mesh_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless the partitioned steps run
-    ``cfg`` over a mesh: a ``dense`` or ``moe`` arch whose layers are all
+def check_mesh_supported(cfg: ModelConfig, kind: str = "train") -> None:
+    """Raise ``NotImplementedError`` unless a partitioned step of ``kind``
+    runs ``cfg`` over a mesh: the serve step (``"decode"``) runs every arch
+    the port knows; the train and prefill steps (``"train"``,
+    ``"prefill"``) a ``dense`` or ``moe`` arch whose layers are all
     ``"global"`` (llama3.2-1b, gemma-2b, qwen2-72b, olmoe-1b-7b,
-    qwen3-moe-235b-a22b).  The other families come with
-    :data:`~repro_torch.core.device.MULTI_CARD`."""
+    qwen3-moe-235b-a22b).  The train and prefill steps of the other
+    families come with :data:`~repro_torch.core.device.MULTI_CARD`."""
+    check_supported(cfg)
+    if kind == "decode":
+        return
     if cfg.family not in ("dense", "moe") or \
             tuple(cfg.layer_pattern) != ("global",):
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}, layers {cfg.layer_pattern}) over a "
-            f"mesh comes with {MULTI_CARD}")
+            f"the {kind} step of {cfg.name} ({cfg.family}, layers "
+            f"{cfg.layer_pattern}) over a mesh comes with {MULTI_CARD}")
 
 
 def layer_kinds(cfg: ModelConfig) -> List[str]:
@@ -473,6 +485,96 @@ class Attention(nn.Module):
         out = A.decode_attention(q, k, v, mask)
         return self.wo(out.reshape(b, 1, -1))
 
+    def _column_heads(self, x: torch.Tensor, ctx: ShardingCtx):
+        """q, k and v of one token ``x [B, 1, d]`` (no RoPE) with every
+        head on every rank: the column-parallel projections' outputs (the
+        rank's heads, or a block that cuts a head where ``"model"`` does
+        not divide them) all-gathered over ``"model"``; a kernel the
+        policy leaves whole gives every head itself."""
+        cfg = self.cfg
+        if hasattr(self, "wqkv"):
+            nq = cfg.num_heads * cfg.head_dim
+            nkv = cfg.num_kv_heads * cfg.head_dim
+            y = L.column_gather(x, self.wqkv, ctx)
+            return (self._heads(y[..., :nq], cfg.num_heads),
+                    self._heads(y[..., nq:nq + nkv], cfg.num_kv_heads),
+                    self._heads(y[..., nq + nkv:], cfg.num_kv_heads))
+        return tuple(self._heads(L.column_gather(x, getattr(self, n), ctx),
+                                 h)
+                     for n, h in (("wq", cfg.num_heads),
+                                  ("wk", cfg.num_kv_heads),
+                                  ("wv", cfg.num_kv_heads)))
+
+    def _cache_block(self, k: torch.Tensor, slots: int,
+                     ctx: ShardingCtx):
+        """The sequence axes that split this rank's block ``k`` of a
+        ``slots``-slot cache (checked against the ``"kv_cache"`` rule) and
+        the block's first global slot."""
+        full = (ctx.dims["b"], slots, self.cfg.num_kv_heads,
+                self.cfg.head_dim)
+        ctx.constrain(k, "kv_cache", full)
+        axes = SH.axes_of(ctx.rules["kv_cache"][1]) \
+            if ctx.parts("kv_cache", 1, full) > 1 else ()
+        return axes, SH.axes_index(ctx.process_mesh, axes) * k.shape[1]
+
+    def _attend_mesh(self, q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, mask: torch.Tensor, axes: tuple,
+                     ctx: ShardingCtx) -> torch.Tensor:
+        """Every head of ``q`` on this rank's block of the cache, the
+        blocks' softmax combined over ``axes``
+        (:func:`models.attention.combine`), then the rank's heads' slice
+        of the output into the row-parallel ``wo`` and a ``psum`` over
+        ``"model"``."""
+        mesh = ctx.process_mesh
+        acc, m, l = A.decode_attention_partial(q, k, v, mask)
+        o = A.combine(acc, m, l, mesh,
+                      tuple(a for a in axes if mesh.shape[a] > 1), q.dtype)
+        return L.row_dense(o.reshape(q.shape[0], 1, -1), self.wo, ctx)
+
+    def decode_mesh(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                    pos: int, positions: torch.Tensor,
+                    ctx: ShardingCtx) -> torch.Tensor:
+        """:meth:`decode` in the serve step over a mesh: x ``[B, 1, d]`` is
+        this rank's rows, whole on every rank of ``"model"``; ``cache``
+        holds its block of the K/V cache, split along the sequence over
+        the leftover data axes and ``"model"``.  q, k and v are gathered
+        to every head (:meth:`_column_heads`, then RoPE); only the rank
+        whose block holds slot :func:`cache_slot` writes the token's K/V
+        (``launch.sharding.slot_owner``); the mask is :func:`cache_mask`'s
+        slice of the block.  The collectives do not depend on the rank."""
+        cfg, mesh = self.cfg, ctx.process_mesh
+        b = x.shape[0]
+        q, k_new, v_new = self._column_heads(x, ctx)
+        if cfg.family != "encdec":
+            rope = L.apply_mrope if cfg.mrope and positions.dim() == 3 \
+                else L.apply_rope
+            q = rope(q, positions, cfg.rope_theta)
+            k_new = rope(k_new, positions, cfg.rope_theta)
+        s_c = min(ctx.dims["c"], cfg.window_size) if self.kind == "local" \
+            else ctx.dims["c"]
+        axes, s0 = self._cache_block(cache["k"], s_c, ctx)
+        blk = cache["k"].shape[1]
+        owner, at = SH.slot_owner(cache_slot(self.kind, pos, s_c), s_c,
+                                  axes, mesh)
+        if owner == SH.axes_index(mesh, axes):
+            cache["k"][:, at] = k_new[:, 0].to(cache["k"].dtype)
+            cache["v"][:, at] = v_new[:, 0].to(cache["v"].dtype)
+        mask = cache_mask(self.kind, pos, s_c, x.device)[s0:s0 + blk]
+        return self._attend_mesh(q, cache["k"], cache["v"],
+                                 mask[None, :].expand(b, blk), axes, ctx)
+
+    def cross_decode_mesh(self, x: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, ctx: ShardingCtx
+                          ) -> torch.Tensor:
+        """:meth:`cross_decode` in the serve step over a mesh, on this
+        rank's block of the sequence-split cross K/V (every slot valid;
+        nothing is written)."""
+        b = x.shape[0]
+        q = self._heads(L.column_gather(x, self.wq, ctx), self.cfg.num_heads)
+        axes, _ = self._cache_block(k, self.cfg.encoder_seq, ctx)
+        mask = torch.ones(b, k.shape[1], dtype=torch.bool, device=x.device)
+        return self._attend_mesh(q, k, v, mask, axes, ctx)
+
 
 def kv_for_heads(k: torch.Tensor, h0: int, hl: int,
                  num_heads: int) -> torch.Tensor:
@@ -558,6 +660,27 @@ class Block(nn.Module):
                                             cache["cross_v"])
         return self.ffn(x, gmm, ctx)
 
+    def decode_mesh(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                    pos: int, positions: torch.Tensor, gmm: GroupedMatmul,
+                    ctx: ShardingCtx) -> torch.Tensor:
+        """:meth:`decode` in the serve step over a mesh: attention
+        (:meth:`Attention.decode_mesh`), whisper's cross-attention
+        (:meth:`Attention.cross_decode_mesh`), then the dense FFN (row
+        parallel, exit by ``psum``) or the expert-parallel MoE on the
+        rank's rows (one token each: exit by ``psum``; ``ValueError``
+        where the axes besides ``"model"`` do not split the batch)."""
+        x = x + self.attn.decode_mesh(self.ln1(x), cache, pos, positions,
+                                      ctx)
+        if hasattr(self, "cross"):
+            x = x + self.cross.cross_decode_mesh(
+                self.ln_cross(x), cache["cross_k"], cache["cross_v"], ctx)
+        h = self.ln2(x)
+        if hasattr(self, "moe"):
+            return x + self.moe.forward_sharded(h, ctx.process_mesh, gmm,
+                                                vary=False,
+                                                batch=ctx.dims["b"])
+        return x + self.mlp(h, ctx)
+
 
 class MambaBlock(nn.Module):
     """An ``ssm`` layer: ``x + mamba(ln(x))`` (:class:`models.ssm.Mamba`).
@@ -576,13 +699,19 @@ class MambaBlock(nn.Module):
                 ) -> torch.Tensor:
         return x + S.mamba_forward(self.mamba, self.ln(x), ctx=ctx)
 
-    def init_cache(self, batch: int, dtype: torch.dtype):
-        return S.init_mamba_cache(self.mamba, batch, dtype)
-
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                pos: int, positions, gmm, ctx=NO_SHARDING) -> torch.Tensor:
         """One token; the cache's ``conv`` and ``h`` are replaced."""
         out, new = S.mamba_decode(self.mamba, cache, self.ln(x))
+        cache.update(new)
+        return x + out
+
+    def decode_mesh(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                    pos: int, positions, gmm, ctx: ShardingCtx
+                    ) -> torch.Tensor:
+        """:meth:`decode` on this rank's channel blocks
+        (``models.ssm.mamba_decode_mesh``)."""
+        out, new = S.mamba_decode_mesh(self.mamba, cache, self.ln(x), ctx)
         cache.update(new)
         return x + out
 
@@ -609,9 +738,6 @@ class RGLRUBlock(nn.Module):
         x = x + R.rglru_forward(self.rglru, self.ln1(x), ctx=ctx)
         return x + self.mlp(self.ln2(x), ctx)
 
-    def init_cache(self, batch: int, dtype: torch.dtype):
-        return R.init_rglru_cache(self.rglru, batch, dtype)
-
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                pos: int, positions, gmm, ctx=NO_SHARDING) -> torch.Tensor:
         """One token; the cache's ``conv`` and ``h`` are replaced (as in
@@ -620,6 +746,16 @@ class RGLRUBlock(nn.Module):
         cache.update(new)
         x = x + out
         return x + self.mlp(self.ln2(x))
+
+    def decode_mesh(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                    pos: int, positions, gmm, ctx: ShardingCtx
+                    ) -> torch.Tensor:
+        """:meth:`decode` on this rank's channel blocks
+        (``models.rglru.rglru_decode_mesh``), then the row-parallel MLP."""
+        out, new = R.rglru_decode_mesh(self.rglru, cache, self.ln1(x), ctx)
+        cache.update(new)
+        x = x + out
+        return x + self.mlp(self.ln2(x), ctx)
 
 
 def make_block(cfg: ModelConfig, kind: str, **kw) -> nn.Module:
@@ -742,13 +878,14 @@ class LM(nn.Module):
         ``models.layers.mesh_param`` reads; the model keeps the mesh and
         the specs (:attr:`mesh`, :attr:`param_specs`).
 
+        Every arch shards (the serve step runs all of them); the train and
+        prefill steps refuse the families they do not run
+        (:func:`check_mesh_supported`).
+
         Raises:
-            NotImplementedError: an arch the partitioned steps do not run
-                (:func:`check_mesh_supported`).
             ValueError: a model already sharded, or an MoE block that the
                 specs do not name.
         """
-        check_mesh_supported(self.cfg)
         if self.mesh is not None:
             raise ValueError("the model is already sharded")
         named = dict(self.named_parameters())
@@ -885,6 +1022,8 @@ class LM(nn.Module):
         Raises:
             ValueError: the model was not sharded on ``ctx``'s mesh.
         """
+        check_mesh_supported(self.cfg, "train" if torch.is_grad_enabled()
+                             else "prefill")
         if self.mesh is not ctx.process_mesh:
             raise ValueError("the model is not sharded on this step's mesh: "
                              "call LM.shard(mesh) first")
@@ -899,8 +1038,53 @@ class LM(nn.Module):
             return h
         return ctx.constrain(self.head_mesh(h, ctx), "logits_bsv")
 
-    def init_cache(self, batch: int,
-                   cache_len: int) -> List[Dict[str, torch.Tensor]]:
+    def cache_shapes(self, batch: int, cache_len: int
+                     ) -> List[Dict[str, tuple]]:
+        """Per layer, ``{name: (shape, dtype)}`` of the whole decode cache
+        (:meth:`init_cache`)."""
+        cfg = self.cfg
+
+        def kv(slots):
+            return ((batch, slots, cfg.num_kv_heads, cfg.head_dim),
+                    self.dtype)
+
+        out = []
+        for kind in layer_kinds(cfg):
+            if kind == "ssm":
+                d_in = cfg.ssm_expand * cfg.d_model
+                out.append({"conv": ((batch, cfg.ssm_conv - 1, d_in),
+                                     self.dtype),
+                            "h": ((batch, d_in, cfg.ssm_state),
+                                  torch.float32)})
+                continue
+            if kind == "rglru":
+                rw = cfg.rnn_width or cfg.d_model
+                out.append({"conv": ((batch, cfg.ssm_conv - 1, rw),
+                                     self.dtype),
+                            "h": ((batch, rw), torch.float32)})
+                continue
+            s_c = min(cache_len, cfg.window_size) if kind == "local" \
+                else cache_len
+            layer = {"k": kv(s_c), "v": kv(s_c)}
+            if cfg.family == "encdec":
+                layer["cross_k"] = kv(cfg.encoder_seq)
+                layer["cross_v"] = kv(cfg.encoder_seq)
+            out.append(layer)
+        return out
+
+    def cache_specs(self, batch: int, cache_len: int, mesh
+                    ) -> List[Dict[str, tuple]]:
+        """The specs of the whole decode cache on ``mesh``
+        (``launch.sharding.cache_pspecs`` at ``batch`` rows)."""
+        meta = [{n: torch.empty(shape, device="meta")
+                 for n, (shape, _) in layer.items()}
+                for layer in self.cache_shapes(batch, cache_len)]
+        return SH.cache_pspecs(self.cfg, mesh, ShapeConfig(
+            "decode", cache_len, batch, "decode"), meta)
+
+    def init_cache(self, batch: int, cache_len: int, *, mesh=None,
+                   specs: Optional[List[Dict[str, tuple]]] = None
+                   ) -> List[Dict[str, torch.Tensor]]:
         """Per layer, zeros: for an attention layer ``{"k", "v"}`` ``[B,
         S_c, Hkv, D]`` in the compute dtype, ``S_c = cache_len`` for a
         global layer, ``min(cache_len, window_size)`` for a local layer's
@@ -909,27 +1093,21 @@ class LM(nn.Module):
         (``[B, d_in, N]`` and ``[B, rnn_width]``), whatever ``cache_len``;
         for ``encdec``, also ``{"cross_k", "cross_v"}`` zeros ``[B,
         encoder_seq, Hkv, D]`` (:meth:`prime_cross_cache` fills them) and
-        the sinusoidal table's ``cache_len`` rows, built here once."""
-        cfg = self.cfg
+        the sinusoidal table's ``cache_len`` rows, built here once.
 
-        def zeros(slots):
-            return torch.zeros((batch, slots, cfg.num_kv_heads,
-                                cfg.head_dim), dtype=self.dtype,
-                               device=self.device)
-
-        cache = []
-        for block, kind in zip(self.layers, layer_kinds(cfg)):
-            if kind not in ATTENTION_KINDS:
-                cache.append(block.init_cache(batch, self.dtype))
-                continue
-            s_c = min(cache_len, cfg.window_size) if kind == "local" \
-                else cache_len
-            layer = {"k": zeros(s_c), "v": zeros(s_c)}
-            if cfg.family == "encdec":
-                layer["cross_k"] = zeros(cfg.encoder_seq)
-                layer["cross_v"] = zeros(cfg.encoder_seq)
-            cache.append(layer)
-        if cfg.family == "encdec":
+        With ``mesh`` (a ``ProcessMesh``; ``batch`` the global rows) each
+        leaf is this rank's block, as ``specs`` (default
+        :meth:`cache_specs`) cut it."""
+        shapes = self.cache_shapes(batch, cache_len)
+        if mesh is not None:
+            specs = specs or self.cache_specs(batch, cache_len, mesh)
+            shapes = [{n: (SH.local_shape(spec[n], shape, mesh), dtype)
+                       for n, (shape, dtype) in layer.items()}
+                      for layer, spec in zip(shapes, specs)]
+        cache = [{n: torch.zeros(shape, dtype=dtype, device=self.device)
+                  for n, (shape, dtype) in layer.items()}
+                 for layer in shapes]
+        if self.cfg.family == "encdec":
             self._sinusoid(cache_len)
         return cache
 
@@ -939,6 +1117,9 @@ class LM(nn.Module):
         """Fill every decoder layer's cross K/V from the encoder's output
         ``[B, S_enc, d]``, in the compute dtype, in place; returns the
         cache."""
+        if self.mesh is not None:
+            raise NotImplementedError(f"the encoder over a mesh comes with "
+                                      f"{MULTI_CARD}")
         for block, layer in zip(self.layers, cache):
             k, v = block.cross.kv(enc_out)
             layer["cross_k"] = k.to(self.dtype)
@@ -954,7 +1135,11 @@ class LM(nn.Module):
         the whole batch) -> fp32 logits ``[B, V_padded]``; the cache is
         updated in place.  ``positions_3d [3, B, 1]`` give qwen2-vl's M-RoPE
         positions (otherwise every stream is ``pos``: 1-D RoPE); whisper
-        adds row ``pos`` of the sinusoidal table."""
+        adds row ``pos`` of the sinusoidal table.  With a ``ctx`` of the
+        serve step over a mesh, :meth:`decode_step_mesh` runs."""
+        if ctx.process_mesh is not None:
+            return self.decode_step_mesh(cache, tokens, pos, gmm,
+                                         positions_3d=positions_3d, ctx=ctx)
         x = ctx.constrain(self._embed(tokens[:, None]), "tokens_bse")
         b = x.shape[0]
         if self.cfg.family == "encdec":
@@ -968,6 +1153,44 @@ class LM(nn.Module):
             x = ctx.constrain(block.decode(x, layer_cache, pos, positions,
                                            gmm, ctx), "tokens_bse")
         return self._head(self.final_norm(x))[:, 0]
+
+    def decode_step_mesh(self, cache: List[Dict[str, torch.Tensor]],
+                         tokens: torch.Tensor, pos: int,
+                         gmm: GroupedMatmul = grouped_matmul, *,
+                         positions_3d: Optional[torch.Tensor] = None,
+                         ctx: ShardingCtx) -> torch.Tensor:
+        """:meth:`decode_step` in the serve step over a mesh (``ctx`` with
+        the ``ProcessMesh`` this model was :meth:`shard`-ed on): tokens
+        ``[B / dp]``, this rank's rows; ``cache`` its blocks
+        (:meth:`init_cache` with the mesh), updated in place.  The
+        embedding looks up the vocab-split table (a masked local lookup,
+        ``psum``-med over ``"model"``), whisper adds its sinusoid row
+        ``pos``, qwen2-vl takes ``positions_3d [3, B / dp, 1]``, every
+        layer runs its ``decode_mesh``, the final norm runs on the whole
+        ``d_model`` and the head gives this rank's block of the vocab:
+        fp32 ``[B / dp, V_padded / tp]``.
+
+        Raises:
+            ValueError: the model was not sharded on ``ctx``'s mesh.
+        """
+        if self.mesh is not ctx.process_mesh:
+            raise ValueError("the model is not sharded on this step's mesh: "
+                             "call LM.shard(mesh) first")
+        x = L.embed_mesh(self.embed, tokens.to(self.device)[:, None], ctx,
+                         scale_embed(self.cfg), self.dtype)
+        x = ctx.constrain(x, "tokens_bse")
+        if self.cfg.family == "encdec":
+            x = x + self._sinusoid(pos + 1)[pos].to(x.dtype)
+        if self.cfg.mrope and positions_3d is not None:
+            positions = positions_3d.to(self.device)
+        else:
+            positions = torch.full((x.shape[0], 1), pos, dtype=torch.int64,
+                                   device=self.device)
+        for block, layer_cache in zip(self.layers, cache):
+            x = ctx.constrain(block.decode_mesh(x, layer_cache, pos,
+                                                positions, gmm, ctx),
+                              "tokens_bse")
+        return self.head_mesh(self.final_norm(x), ctx)[:, 0]
 
     def grouped_launches_per_step(self, train: bool = False,
                                   remat: bool = True) -> int:

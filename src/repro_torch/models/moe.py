@@ -260,7 +260,8 @@ class MoE(nn.Module):
 
     def forward_sharded(self, x: torch.Tensor, mesh: ProcessMesh,
                         gmm: GroupedMatmul = grouped_matmul,
-                        vary: bool = True) -> torch.Tensor:
+                        vary: bool = True,
+                        batch: Optional[int] = None) -> torch.Tensor:
         """The expert-parallel FFN on this rank (the reference's
         ``shard_fn``), after :meth:`shard` on ``mesh``.
 
@@ -273,9 +274,29 @@ class MoE(nn.Module):
         all-gather of its sequence blocks, whose backward sums it.  The
         expert weights' gradients are summed over the axes besides
         ``"model"`` and ``"data"`` (``"pod"``), which replicate them.
+
+        ``batch`` (the serve step's global rows; x its data shard's) must
+        split evenly over every axis but ``"model"``, as the reference's
+        ``shard_map`` (``in_specs`` ``P(batch_axes, None, None)``) needs.
+
+        Raises:
+            ValueError: the layer is not sharded for ``mesh``, or
+                ``batch`` does not split over the axes besides
+                ``"model"``.
         """
         B, S, d = x.shape
         tp = mesh.shape["model"]
+        if batch is not None:
+            axes = tuple(a for a in mesh.axis_names if a != "model")
+            n = 1
+            for a in axes:
+                n *= mesh.shape[a]
+            if batch % n:
+                raise ValueError(
+                    f"the expert-parallel MoE splits its {batch} rows over "
+                    f"the axes {axes} ({n} ranks), which do not divide "
+                    f"them: the reference's shard_map (in_specs "
+                    f"P(batch_axes, None, None)) refuses this batch too")
         if self.e_loc * tp != self.num_experts:
             raise ValueError("the layer is not sharded for this mesh: call "
                              "MoE.shard(mesh) first")

@@ -7,7 +7,8 @@ and ``i`` come from :data:`NUM_GATE_BLOCKS` diagonal blocks
 (:func:`block_diag`).  :func:`rglru_forward` scans chunks of ``chunk``
 timesteps (one chunk where the length is not a multiple of it), folding
 each chunk's carry into its first element, as ``models.ssm`` does;
-:func:`rglru_decode` is the O(1) update.
+:func:`rglru_decode` is the O(1) update, and :func:`rglru_decode_mesh`
+the same on a rank's block of the channels in the serve step over a mesh.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core import comm
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.sharding_ctx import NO_SHARDING, ShardingCtx
@@ -68,9 +70,16 @@ def block_diag(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def gates(p: RGLRU, xb: torch.Tensor):
     """The decay ``a`` and the gated input ``sqrt(1 - a^2) i x``, fp32."""
-    r = torch.sigmoid(block_diag(p.w_r, xb).float())
-    i = torch.sigmoid(block_diag(p.w_i, xb).float())
-    log_a = -_C * F.softplus(p.lam.float()) * r
+    return gates_of(p.w_r, p.w_i, p.lam, xb)
+
+
+def gates_of(w_r: torch.Tensor, w_i: torch.Tensor, lam: torch.Tensor,
+             xb: torch.Tensor):
+    """:func:`gates` on the given gate blocks and ``lam``, which cover
+    ``xb``'s channels."""
+    r = torch.sigmoid(block_diag(w_r, xb).float())
+    i = torch.sigmoid(block_diag(w_i, xb).float())
+    log_a = -_C * F.softplus(lam.float()) * r
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * i \
         * xb.float()
@@ -124,4 +133,48 @@ def rglru_decode(p: RGLRU, cache: Dict[str, torch.Tensor],
     a, gated = gates(p, xb[:, 0])
     h = a * cache["h"] + gated
     out = p.out(h[:, None, :].to(x.dtype) * branch)
+    return out, {"conv": new_conv, "h": h}
+
+
+def gate_blocks(p: RGLRU, ctx: ShardingCtx):
+    """This rank's ``(w_r, w_i)`` blocks: ``NUM_GATE_BLOCKS / tp`` gate
+    blocks each (``P("model", None, None)``), exactly its channels."""
+    return (L.mesh_param(p, "w_r", ctx), L.mesh_param(p, "w_i", ctx))
+
+
+def rglru_decode_mesh(p: RGLRU, cache: Dict[str, torch.Tensor],
+                      x: torch.Tensor, ctx: ShardingCtx
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """:func:`rglru_decode` on this rank's ``rw / tp`` channels, in the
+    serve step over a mesh: ``p`` holds this rank's blocks
+    (``LM.shard``), ``cache`` its ``conv [B, K - 1, rw / tp]`` and ``h [B,
+    rw / tp]`` blocks; x ``[B, 1, d]`` is whole on every rank of
+    ``"model"``, and so is the output.  ``wx`` and ``wy`` are
+    column-parallel (the rank's channels), the conv, ``lam`` and the
+    state are on the channel block, the rank's gate blocks
+    (:func:`gate_blocks`) are exactly its channels, and ``out`` is
+    row-parallel with a ``psum``.
+
+    Raises:
+        NotImplementedError: ``"model"`` splits the channels but not the
+            gate blocks (it does not divide :data:`NUM_GATE_BLOCKS`).
+    """
+    mesh = ctx.process_mesh
+    branch = F.gelu(L.local_dense(x, p.wy, ctx), approximate="tanh")
+    xb_raw = L.local_dense(x, p.wx, ctx)                     # [B,1,rw/tp]
+    xb = S.causal_conv(xb_raw, L.mesh_param(p, "conv_w", ctx),
+                       L.mesh_param(p, "conv_b", ctx), state=cache["conv"])
+    new_conv = torch.cat([cache["conv"][:, 1:],
+                          xb_raw.to(cache["conv"].dtype)], dim=1)
+    if L.splits(p, "conv_w", -1, ctx) != L.splits(p, "w_r", 0, ctx):
+        raise NotImplementedError(
+            f"a model axis of {mesh.shape['model']} splits the RG-LRU's "
+            f"{p.conv_w.shape[-1] * mesh.shape['model']} channels but not "
+            f"its {NUM_GATE_BLOCKS} gate blocks")
+    a, gated = gates_of(*gate_blocks(p, ctx), L.mesh_param(p, "lam", ctx),
+                        xb[:, 0])
+    h = a * cache["h"] + gated
+    out = L.local_dense(h[:, None, :].to(x.dtype) * branch, p.out, ctx)
+    if L.splits(p.out, "kernel", 0, ctx):
+        out = comm.psum(out, "model", mesh=mesh)
     return out, {"conv": new_conv, "h": h}

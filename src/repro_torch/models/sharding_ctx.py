@@ -12,13 +12,13 @@ partitioner that could move it.
   and the dry run's counter (``core.step_cost``) reads the rule of each
   kind from there.
 * With a ``launch.mesh.ProcessMesh`` and the step's global ``dims``
-  (:func:`step_dims`), the context describes a partitioned step (the train
-  and prefill steps of ``train.train_step`` over a mesh): the layers
-  change layouts themselves, at the Megatron points of ``models.layers``
-  and ``models.model``, and ``constrain`` checks that ``x``'s local shape
-  is the global shape split by the rule of its kind, so a layout error
-  fails where it happens.  :meth:`ShardingCtx.parts` tells the layers how
-  many blocks the rule cuts a dim into.
+  (:func:`step_dims`), the context describes a partitioned step (the
+  train, prefill and serve steps of ``train.train_step`` over a mesh):
+  the layers change layouts themselves, at the Megatron points of
+  ``models.layers`` and ``models.model``, and ``constrain`` checks that
+  ``x``'s local shape is the global shape split by the rule of its kind,
+  so a layout error fails where it happens.  :meth:`ShardingCtx.parts`
+  tells the layers how many blocks the rule cuts a dim into.
 
 The default context has no rules, no mesh and no observer.
 """
@@ -66,20 +66,28 @@ class ShardingCtx:
             return self.mesh
         return None
 
-    def parts(self, kind: str, dim: int) -> int:
+    def parts(self, kind: str, dim: int,
+              full: Optional[tuple] = None) -> int:
         """How many blocks the rule of ``kind`` cuts dim ``dim`` into: 1
         without a rule, or where its axes do not divide the dim's global
-        size (the reference's constraint drops such a split)."""
+        size (the reference's constraint drops such a split).  The global
+        size is ``full[dim]``, or the step's (:data:`CHECKED`)."""
         from repro_torch.launch.sharding import axes_of, axes_size
         spec = self.rules.get(kind)
         if spec is None or dim >= len(spec) or spec[dim] is None:
             return 1
         n = axes_size(self.mesh, axes_of(spec[dim]))
-        return n if self.dims[CHECKED[kind][dim]] % n == 0 else 1
+        size = full[dim] if full is not None else \
+            self.dims[CHECKED[kind][dim]]
+        return n if size % n == 0 else 1
 
-    def constrain(self, x: torch.Tensor, kind: str) -> torch.Tensor:
+    def constrain(self, x: torch.Tensor, kind: str,
+                  full: Optional[tuple] = None) -> torch.Tensor:
         """``x`` itself, after telling the observer (if any) its kind and,
-        in a partitioned step, checking its local shape.
+        in a partitioned step, checking its local shape against its global
+        shape: ``full``, or for the kinds of :data:`CHECKED` the step's
+        dims (a decode cache's global length is the layer's own: a local
+        layer's ring, whisper's cross K/V, so its layer passes ``full``).
 
         Raises:
             RuntimeError: in a partitioned step, ``x``'s shape is not its
@@ -87,10 +95,13 @@ class ShardingCtx:
         """
         if self.observer is not None:
             self.observer(x, kind)
-        if self.process_mesh is not None and kind in self.rules and \
-                kind in CHECKED and x.ndim == len(CHECKED[kind]):
+        if full is None and kind in CHECKED and \
+                x.ndim == len(CHECKED[kind]) and self.dims is not None:
             full = tuple(self.dims[c] for c in CHECKED[kind])
-            want = tuple(n // self.parts(kind, i)
+        if self.process_mesh is not None and kind in self.rules and \
+                full is not None:
+            full = tuple(full)
+            want = tuple(n // self.parts(kind, i, full)
                          for i, n in enumerate(full))
             if tuple(x.shape) != want:
                 raise RuntimeError(

@@ -11,7 +11,9 @@ The counterpart of the reference's ``repro.models.ssm``.  The recurrence
   :func:`ssm_combine`, a few large kernels per step instead of one per
   timestep;
 * :func:`mamba_decode` is the O(1) update of one token against a cache of
-  the last ``K - 1`` raw conv inputs and the fp32 state.
+  the last ``K - 1`` raw conv inputs and the fp32 state;
+  :func:`mamba_decode_mesh` is the same on a rank's block of the
+  channels, in the serve step over a mesh.
 
 :func:`causal_conv` and :func:`ssm_combine` are shared with
 ``models.rglru``.
@@ -24,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core import comm
 from repro_torch.models import layers as L
 from repro_torch.models.sharding_ctx import NO_SHARDING, ShardingCtx
 
@@ -187,3 +190,69 @@ def mamba_decode(p: Mamba, cache: Dict[str, torch.Tensor],
     y = y + u_act * p.D.to(x.dtype)
     y = y * F.silu(z)
     return p.out_proj(y), {"conv": new_conv, "h": h}
+
+
+def channel_block(y: torch.Tensor, module: nn.Module, name: str,
+                  ctx: ShardingCtx) -> torch.Tensor:
+    """This rank's block of the last dim of ``y`` (every channel) where
+    weight ``name`` of ``module`` splits the channels over ``"model"``
+    (its last dim), else ``y``."""
+    if not L.splits(module, name, -1, ctx):
+        return y
+    c = getattr(module, name).shape[-1]
+    lo = ctx.process_mesh.axis_index("model") * c
+    return y[..., lo:lo + c]
+
+
+def in_proj_channels(p: Mamba, x: torch.Tensor, ctx: ShardingCtx):
+    """``u`` and ``z`` of ``x`` on this rank's channels: ``in_proj``'s
+    block of columns is contiguous (at ``tp = 2`` one rank holds all of
+    ``u``, the other all of ``z``), so its output is all-gathered over
+    ``"model"`` and the rank takes its channels of each half."""
+    u, z = torch.chunk(L.column_gather(x, p.in_proj, ctx), 2, dim=-1)
+    return (channel_block(u, p, "conv_w", ctx),
+            channel_block(z, p, "conv_w", ctx))
+
+
+def mamba_decode_mesh(p: Mamba, cache: Dict[str, torch.Tensor],
+                      x: torch.Tensor, ctx: ShardingCtx
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """:func:`mamba_decode` on this rank's ``d_in / tp`` channels, in the
+    serve step over a mesh: ``p`` holds this rank's blocks
+    (``LM.shard``), ``cache`` its ``conv [B, K - 1, d_in / tp]`` and ``h
+    [B, d_in / tp, N]`` blocks; x ``[B, 1, d]`` is whole on every rank of
+    ``"model"``, and so is the output.
+
+    ``u`` and ``z`` come from :func:`in_proj_channels`.  ``x_proj`` is
+    row-parallel (its
+    partial sums ``psum``-med, so ``dt_r``, B and C are whole),
+    ``dt_proj`` column-parallel (the rank's channels of ``dt``), and
+    ``out_proj`` row-parallel with a ``psum``.  Where ``"model"`` does not
+    split the channels, every rank computes all of them."""
+    mesh = ctx.process_mesh
+    u, z = in_proj_channels(p, x, ctx)
+    conv_in = cache["conv"]
+    u_act = F.silu(causal_conv(u, L.mesh_param(p, "conv_w", ctx),
+                               L.mesh_param(p, "conv_b", ctx),
+                               state=conv_in))
+    new_conv = torch.cat([conv_in[:, 1:], u.to(conv_in.dtype)], dim=1)
+    state = p.A_log.shape[1]
+    xdbc = L.local_dense(u_act[:, 0], p.x_proj, ctx)
+    if L.splits(p.x_proj, "kernel", 0, ctx):
+        xdbc = comm.psum(xdbc, "model", mesh=mesh)
+    dt_rank = xdbc.shape[-1] - 2 * state
+    dt_r = xdbc[..., :dt_rank]
+    bc = xdbc[..., dt_rank:dt_rank + state].float()
+    cc = xdbc[..., dt_rank + state:].float()
+    dt = F.softplus(L.local_dense(dt_r, p.dt_proj, ctx).float())
+    a = -torch.exp(L.mesh_param(p, "A_log", ctx).float())
+    da = torch.exp(dt[..., None] * a)
+    dbu = (dt * u_act[:, 0].float())[..., None] * bc[..., None, :]
+    h = da * cache["h"] + dbu
+    y = torch.einsum("bdn,bn->bd", h, cc)[:, None, :].to(x.dtype)
+    y = y + u_act * L.mesh_param(p, "D", ctx).to(x.dtype)
+    y = y * F.silu(z)
+    out = L.local_dense(y, p.out_proj, ctx)
+    if L.splits(p.out_proj, "kernel", 0, ctx):
+        out = comm.psum(out, "model", mesh=mesh)
+    return out, {"conv": new_conv, "h": h}

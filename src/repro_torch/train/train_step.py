@@ -3,11 +3,12 @@ over the padded vocab, backward, AdamW (the reference's
 ``repro.train.train_step.make_train_step``), and the prefill and serve
 steps (``make_prefill_step``, ``make_serve_step``).
 
-Over a mesh (a ``launch.mesh.ProcessMesh``; the ``dense`` and ``moe``
-archs of global attention) the train and prefill steps are the per-rank
-programs that XLA's partitioner derives from the reference's policy
-(``launch.sharding``): every rank holds its block of each parameter
-(``LM.shard``) and of the optimiser state, and its data shard of the batch
+Over a mesh (a ``launch.mesh.ProcessMesh``; the train and prefill steps
+for the ``dense`` and ``moe`` archs of global attention, the serve step
+for all ten archs) the steps are the per-rank programs that XLA's
+partitioner derives from the reference's policy (``launch.sharding``):
+every rank holds its block of each parameter (``LM.shard``) and of the
+optimiser state, and its data shard of the batch
 (``launch.sharding.batch_shard``); the layers change layouts at the
 Megatron points (``models.layers``, ``models.model``) with
 ``core.comm``'s collectives, whose transposes give the backward.  The
@@ -17,7 +18,12 @@ maximum, a ``psum`` of the sums of exponentials and of the gold logit
 the mean over the global token count.  Each rank differentiates its share
 of it (its tokens' losses over the global count, divided by the ranks
 that hold the same tokens), so that the shares of every rank sum to the
-loss.  The serve step over a mesh comes with ``core.device.MULTI_CARD``.
+loss.  The serve step decodes one token per row against the decode cache
+split along its sequence (``launch.sharding.cache_pspecs``): each
+attention layer's softmax is combined over the cache's blocks
+(``models.attention.combine``), and a recurrent layer's state is split
+by its channels.  The train and prefill steps of the other families over
+a mesh come with ``core.device.MULTI_CARD``.
 
 Microbatch gradient accumulation (``grad_accum``) sums the fp32
 micro-gradients and scales them, as the reference does.  The step updates
@@ -36,7 +42,6 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import comm
-from repro_torch.core.device import MULTI_CARD
 from repro_torch.launch import sharding as SH
 from repro_torch.launch.mesh import ProcessMesh
 from repro_torch.models.sharding_ctx import (NO_SHARDING, ShardingCtx,
@@ -123,7 +128,11 @@ def make_ctx(cfg: ModelConfig, mesh, shape: ShapeConfig,
     if mesh is None:
         return NO_SHARDING
     dims = None
-    if isinstance(mesh, ProcessMesh):
+    if isinstance(mesh, ProcessMesh) and shape.kind == "decode":
+        # One token per row; "c" is the cache's length.
+        dims = {**step_dims(cfg, shape.global_batch, 1),
+                "c": shape.seq_len}
+    elif isinstance(mesh, ProcessMesh):
         dims = step_dims(cfg, shape.global_batch // grad_accum,
                          shape.seq_len)
     return ShardingCtx(SH.activation_rules(cfg, mesh, shape), mesh,
@@ -141,9 +150,9 @@ def step_specs(cfg: ModelConfig, shape: ShapeConfig, mesh) -> Dict:
             "batch": SH.batch_pspecs(cfg, mesh, shape)}
 
 
-def _check_mesh(cfg: ModelConfig, mesh, what: str) -> None:
+def _check_mesh(cfg: ModelConfig, mesh, what: str, kind: str) -> None:
     from repro_torch.models.model import check_mesh_supported
-    check_mesh_supported(cfg)
+    check_mesh_supported(cfg, kind)
     if not isinstance(mesh, ProcessMesh):
         raise TypeError(f"{what} over a mesh runs on a launch.mesh."
                         f"ProcessMesh (one rank per process), not "
@@ -276,7 +285,7 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
     ctx = NO_SHARDING
     specs = None
     if mesh is not None:
-        _check_mesh(cfg, mesh, "make_train_step")
+        _check_mesh(cfg, mesh, "make_train_step", "train")
         ctx = make_ctx(cfg, mesh, shape, grad_accum)
         specs = step_specs(cfg, shape, mesh)
     sched = functools.partial(cosine_with_warmup, **(schedule_kwargs or {}))
@@ -315,7 +324,7 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
     """
     default, specs = NO_SHARDING, None
     if mesh is not None:
-        _check_mesh(cfg, mesh, "make_prefill_step")
+        _check_mesh(cfg, mesh, "make_prefill_step", "prefill")
         default = make_ctx(cfg, mesh, shape)
         full = step_specs(cfg, shape, mesh)
         dp, _ = SH.dp_axes_for_batch(mesh, shape.global_batch)
@@ -331,23 +340,42 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
 
 
 def make_serve_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
-    """One decode step against a ``shape.seq_len`` cache: ``(fn, None)``
-    with ``fn(model, cache, tokens, pos, ctx=NO_SHARDING) -> logits [B,
-    V_padded]``, the cache updated in place; M-RoPE configs get
-    ``positions_3d`` = ``pos`` on all three streams, as the reference
-    broadcasts it.
+    """One decode step against a ``shape.seq_len`` cache: ``(fn, specs)``
+    with ``fn(model, cache, tokens, pos, ctx=) -> logits``, the cache
+    updated in place; M-RoPE configs get ``positions_3d`` = ``pos`` on all
+    three streams, as the reference broadcasts it.
+
+    Without a mesh ``specs`` is None, ``ctx`` defaults to
+    :data:`NO_SHARDING` and the logits are ``[B, V_padded]``.  Over a
+    ``ProcessMesh`` (every arch; ``shape`` a decode shape of the global
+    batch) the model is this rank's shard (``LM.shard``), ``cache`` its
+    blocks (``LM.init_cache(..., mesh=)`` or
+    ``interop.cache_from_numpy(..., mesh=)``), ``tokens`` its rows
+    ``[B / dp]`` (``launch.sharding.batch_shard``) and ``pos`` the same on
+    every rank; ``fn`` returns this rank's block of the logits, ``[B /
+    dp, V_padded / tp]``, and ``specs`` holds ``params``, ``cache``
+    (``launch.sharding.cache_pspecs``) and ``logits`` (the reference's
+    ``P(dp, "model")``).
 
     Raises:
-        NotImplementedError: for a ``mesh``: the sequence-sharded decode
-            cache and its distributed softmax come with ``MULTI_CARD``.
+        TypeError: a mesh that is not a ``ProcessMesh``.
+        ValueError: a mesh with a shape that is not a decode shape.
     """
+    default, specs = NO_SHARDING, None
     if mesh is not None:
-        raise NotImplementedError(f"make_serve_step over a mesh (the "
-                                  f"sequence-sharded KV cache) comes with "
-                                  f"{MULTI_CARD}")
-    del shape
+        _check_mesh(cfg, mesh, "make_serve_step", "decode")
+        if shape.kind != "decode":
+            raise ValueError(f"the serve step over a mesh takes a decode "
+                             f"shape, not {shape.kind!r}")
+        from repro_torch.models.model import LM
+        default = make_ctx(cfg, mesh, shape)
+        dp, _ = SH.dp_axes_for_batch(mesh, shape.global_batch)
+        specs = {"params": step_specs(cfg, shape, mesh)["params"],
+                 "cache": LM(cfg, device="meta").cache_specs(
+                     shape.global_batch, shape.seq_len, mesh),
+                 "logits": (SH.canonical(dp), "model")}
 
-    def serve(model, cache, tokens, pos, ctx: ShardingCtx = NO_SHARDING):
+    def serve(model, cache, tokens, pos, ctx: ShardingCtx = default):
         kw = {}
         if cfg.mrope:
             kw["positions_3d"] = torch.full((3, tokens.shape[0], 1), int(pos),
@@ -356,4 +384,4 @@ def make_serve_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
         with torch.no_grad():
             return model.decode_step(cache, tokens, int(pos), ctx=ctx, **kw)
 
-    return serve, None
+    return serve, specs

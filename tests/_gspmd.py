@@ -37,7 +37,7 @@ from repro.configs.base import get_config as ref_config
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 B, S = 4, 32
 
-_REF_SCRIPT = r"""
+_REF_HEAD = r"""
 import dataclasses, json, sys
 import numpy as np
 import jax, jax.numpy as jnp
@@ -50,7 +50,6 @@ from repro.train import train_step as TS
 M.COMPUTE_DTYPE = jnp.float32
 cases = json.load(open(sys.argv[1]))
 data = np.load(sys.argv[2])
-LR, SCHEDULE = json.loads(sys.argv[5])
 
 
 def nest(prefix):
@@ -88,8 +87,10 @@ def where(arr, mesh):
             [s.start or 0, arr.shape[i] if s.stop is None else s.stop]
             for i, s in enumerate(sl)]
     return {"spec": spec_of(arr.sharding.spec, arr.ndim), "index": out}
+"""
 
-
+_REF_SCRIPT = _REF_HEAD + r"""
+LR, SCHEDULE = json.loads(sys.argv[5])
 out, info = {}, {}
 for case in cases:
     name = case["name"]
@@ -138,6 +139,49 @@ print("REF-GSPMD-OK", len(out))
 """
 
 
+#: The serve step's reference run: per case, each step's logits, the
+#: final cache, the specs and every device's shard index of the logits,
+#: the cache and the parameters; a case whose step raises ``ValueError``
+#: records the message instead.  whisper's cross K/V are taken from the
+#: inputs (``{name}/cross_k``, ``{name}/cross_v``), not left zero.
+_SERVE_SCRIPT = _REF_HEAD + r"""
+out, info = {}, {}
+for case in cases:
+    name = case["name"]
+    cfg = dataclasses.replace(get_config(case["arch"]).reduced(),
+                              **case.get("overrides", {}))
+    axes = tuple(case["axes"])
+    mesh = jax.make_mesh(tuple(case["shape"]), axes,
+                         axis_types=(AxisType.Auto,) * len(axes))
+    shape = ShapeConfig("d", case["cache_len"], case["batch"], "decode")
+    try:
+        fn, sh = TS.make_serve_step(cfg, shape, mesh)
+        params = jax.device_put(nest(name + "/w/"), sh["params"])
+        cache = M.init_cache(cfg, case["batch"], case["cache_len"])
+        if cfg.family == "encdec":
+            cache["p0"]["cross_k"] = jnp.asarray(data[name + "/cross_k"])
+            cache["p0"]["cross_v"] = jnp.asarray(data[name + "/cross_v"])
+        cache = jax.device_put(cache, sh["cache"])
+        tokens = data[name + "/tokens"]
+        for t in range(case["steps"]):
+            logits, cache = fn(params, cache, jnp.asarray(tokens[t]),
+                               jnp.int32(t))
+            out[f"{name}/logits{t}"] = np.asarray(logits)
+    except ValueError as e:
+        info[name] = {"error": str(e)}
+        continue
+    for k, v in flat(cache).items():
+        out[f"{name}/cache/{k}"] = np.asarray(v)
+    info[name] = {"logits": where(logits, mesh),
+                  "cache": {k: where(v, mesh) for k, v in flat(cache).items()},
+                  "params": {k: where(v, mesh)
+                             for k, v in flat(params).items()}}
+np.savez(sys.argv[3], **out)
+json.dump(info, open(sys.argv[4], "w"))
+print("REF-GSPMD-OK", len(out))
+"""
+
+
 def case(name: str, arch: str, shape, axes=("data", "model"), *,
          kind: str = "train", steps: int = 3, batch: int = B,
          **extra) -> dict:
@@ -175,14 +219,51 @@ def inputs(cases: list) -> tuple:
         if c["kind"] == "train":
             batches[c["name"]] = [batch(cfg, s, c["batch"])
                                   for s in range(c["steps"])]
+        elif c["kind"] == "decode":
+            batches[c["name"]] = serve_inputs(cfg, c)
         else:
             batches[c["name"]] = batch(cfg, 0, c["batch"])["tokens"]
     return weights, batches
 
 
+#: The serve cases' cache length and steps: 24 steps from an empty
+#: 32-slot cache fill its blocks in order, so a block with no valid slot
+#: is met.
+CACHE_LEN, SERVE_STEPS = 32, 24
+
+
+def serve_case(name: str, arch: str, shape, axes=("data", "model"), *,
+               batch: int = B, **extra) -> dict:
+    """One serve case: :data:`SERVE_STEPS` decode steps of an arch's
+    reduced config (``overrides``) on a mesh, from an empty
+    :data:`CACHE_LEN`-slot cache."""
+    return case(name, arch, shape, axes, kind="decode", steps=SERVE_STEPS,
+                batch=batch, cache_len=CACHE_LEN, **extra)
+
+
+def serve_inputs(cfg, c: dict) -> dict:
+    """A serve case's inputs from a seed: each step's tokens ``[steps,
+    B]``, and for ``encdec`` the cross K/V ``[layers, B, encoder_seq, Hkv,
+    D]`` drawn from N(0, 1) (zeros would leave the cross-attention
+    unchecked)."""
+    rng = np.random.default_rng(7)
+    out = {"tokens": rng.integers(2, cfg.vocab_size - 1,
+                                  size=(c["steps"], c["batch"]))
+           .astype(np.int32)}
+    if cfg.family == "encdec":
+        shape = (cfg.num_layers, c["batch"], cfg.encoder_seq,
+                 cfg.num_kv_heads, cfg.head_dim)
+        out["cross_k"] = rng.normal(size=shape).astype(np.float32)
+        out["cross_v"] = rng.normal(size=shape).astype(np.float32)
+    return out
+
+
 def start_reference(cases: list, weights: dict, batches: dict,
-                    tmp: pathlib.Path) -> subprocess.Popen:
-    """Start the reference's subprocess on four host devices."""
+                    tmp: pathlib.Path,
+                    script: str = _REF_SCRIPT) -> subprocess.Popen:
+    """Start the reference's subprocess on four host devices: ``script``
+    on the cases, their weights and their batches (the train steps'
+    batches, the prefill tokens, or the serve step's inputs by key)."""
     arrays = {}
     for c in cases:
         name = c["name"]
@@ -192,6 +273,9 @@ def start_reference(cases: list, weights: dict, batches: dict,
             for s, b in enumerate(batches[name]):
                 for k, v in b.items():
                     arrays[f"{name}/b{s}/{k}"] = v
+        elif c["kind"] == "decode":
+            for k, v in batches[name].items():
+                arrays[f"{name}/{k}"] = v
         else:
             arrays[f"{name}/tokens"] = batches[name]
     np.savez(tmp / "in.npz", **arrays)
@@ -200,7 +284,7 @@ def start_reference(cases: list, weights: dict, batches: dict,
            "JAX_PLATFORMS": "cpu", "HOME": str(tmp),
            "XLA_FLAGS": "--xla_force_host_platform_device_count=4"}
     return subprocess.Popen(
-        [sys.executable, "-c", _REF_SCRIPT, str(tmp / "cases.json"),
+        [sys.executable, "-c", script, str(tmp / "cases.json"),
          str(tmp / "in.npz"), str(tmp / "out.npz"), str(tmp / "info.json"),
          json.dumps([LR, SCHEDULE])],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
@@ -226,7 +310,8 @@ def run_module(cases: list, rank_fn, tmp: pathlib.Path) -> dict:
     from repro_torch.launch.spawn import run_world
     weights, batches = inputs(cases)
     t0 = time.perf_counter()
-    proc = start_reference(cases, weights, batches, tmp)
+    script = _SERVE_SCRIPT if cases[0]["kind"] == "decode" else _REF_SCRIPT
+    proc = start_reference(cases, weights, batches, tmp, script)
     try:
         ranks = run_world(rank_fn, 4, cases, weights, batches, threads=1,
                           timeout=300)
@@ -237,7 +322,7 @@ def run_module(cases: list, rank_fn, tmp: pathlib.Path) -> dict:
     arrays, info = finish_reference(proc, tmp)
     return {"ranks": ranks, "ref": arrays, "info": info,
             "world_s": world_s, "seconds": time.perf_counter() - t0,
-            "cases": {c["name"]: c for c in cases}}
+            "cases": {c["name"]: c for c in cases}, "weights": weights}
 
 
 def position(c: dict, coords: dict) -> str:

@@ -160,6 +160,54 @@ def prefill_case(case: dict, weights: dict, tokens: np.ndarray) -> dict:
             "spec": specs["logits"], "margin": margins.worst}
 
 
+def serve_case(case: dict, weights: dict, inputs: dict) -> dict:
+    """The serve step over a case's mesh: every step's block of the
+    logits, the final cache blocks (the reference's layout, this rank's
+    blocks) and the whole final cache (``interop.cache_to_numpy``), the
+    parameter blocks, the specs and the router's worst margin; or the
+    ``ValueError`` a step raised."""
+    port_model.COMPUTE_DTYPE = torch.float32
+    mesh = _mesh(case)
+    cfg = case_config(case)
+    shape = ShapeConfig("d", case["cache_len"], case["batch"], "decode")
+    model = interop.params_from_numpy(cfg, unflatten(weights), mesh=mesh)
+    fn, specs = TS.make_serve_step(cfg, shape, mesh)
+    if cfg.family == "encdec":
+        whole = model.cache_shapes(case["batch"], case["cache_len"])
+        tree = {"p0": {"kv": {n: np.zeros((cfg.num_layers,) + whole[0][n][0],
+                                          np.float32) for n in ("k", "v")},
+                       "cross_k": inputs["cross_k"],
+                       "cross_v": inputs["cross_v"]}}
+        cache = interop.cache_from_numpy(cfg, tree, mesh=mesh,
+                                         specs=specs["cache"])
+    else:
+        cache = model.init_cache(case["batch"], case["cache_len"], mesh=mesh,
+                                 specs=specs["cache"])
+    out = {"coords": dict(mesh.coords), "specs": specs, "logits": []}
+    with Margins() as margins:
+        try:
+            for t, tokens in enumerate(inputs["tokens"]):
+                local = SH.batch_shard(
+                    {"tokens": torch.from_numpy(tokens)[:, None]}, cfg, mesh,
+                    shape)["tokens"][:, 0]
+                out["logits"].append(fn(model, cache, local, t).numpy())
+        except ValueError as e:
+            return {"coords": dict(mesh.coords), "error": str(e)}
+    out["margin"] = margins.worst
+    out["cache"] = flat(interop.cache_tree(cfg, cache))
+    out["whole_cache"] = flat(interop.cache_to_numpy(model, cache,
+                                                     specs["cache"]))
+    out["params"] = _blocks(cfg, dict(model.named_parameters()))
+    return out
+
+
+def serve_rank(rank: int, world: int, cases: list, weights: dict,
+               inputs: dict) -> dict:
+    """Every serve case of a test module, in this rank."""
+    return {c["name"]: serve_case(c, weights[c["name"]], inputs[c["name"]])
+            for c in cases}
+
+
 def train_rank(rank: int, world: int, cases: list, weights: dict,
                batches: dict) -> dict:
     """Every train case of a test module, in this rank."""
@@ -214,17 +262,127 @@ def _norm(mesh, grads: dict, specs: dict, fault=None) -> float:
     return float(adamw.global_norm(blocks, used, mesh))
 
 
+#: The last valid slot of the combine units' 16-slot cache: over four
+#: blocks of 4, two blocks are all valid, one has two valid slots and one
+#: none.
+COMBINE_POS = 9
+
+#: The sequence axes the combine units split the cache over.
+COMBINE_AXES = (("model",), ("data", "model"))
+
+
+def combine_inputs():
+    """q ``[2, 1, 4, 8]``, k and v ``[2, 16, 2, 8]`` (from a seed) and the
+    ``[2, 16]`` mask of the slots ``<= COMBINE_POS``."""
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((2, 1, 4, 8))
+                         .astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((2, 16, 2, 8))
+                         .astype(np.float32) * 3)
+    v = torch.from_numpy(rng.standard_normal((2, 16, 2, 8))
+                         .astype(np.float32))
+    mask = (torch.arange(16) <= COMBINE_POS)[None].expand(2, 16)
+    return q, k, v, mask
+
+
+def _combine(mesh, axes, fault=None) -> np.ndarray:
+    """This rank's block of the cache, its partial attention and the
+    combine over ``axes``; ``fault`` "no rescale" sums ``l`` and ``acc``
+    without ``e^{m - m*}``."""
+    from repro_torch.core import comm
+    from repro_torch.models import attention as A
+    q, k, v, mask = combine_inputs()
+    blk = k.shape[1] // SH.axes_size(mesh, axes)
+    i = SH.axes_index(mesh, axes)
+    mine = slice(i * blk, (i + 1) * blk)
+    acc, m, l = A.decode_attention_partial(q, k[:, mine], v[:, mine],
+                                           mask[:, mine])
+    if fault == "no rescale":
+        l = comm.psum(l, axes, mesh=mesh)
+        return (comm.psum(acc, axes, mesh=mesh) / l[..., None]).numpy()
+    return A.combine(acc, m, l, mesh, axes, q.dtype).numpy()
+
+
+#: The serve units' decode: batch, cache length and steps (the last four
+#: steps write the second block of the sequence over ``"model"``).
+SERVE_UNIT = {"batch": 4, "cache_len": 16, "steps": 12}
+
+#: Planted faults of the serve units: the new K/V written on every rank,
+#: not only the owner of its slot (llama3.2-1b), and mamba's ``u`` and
+#: ``z`` taken from the contiguous block of ``in_proj`` (falcon-mamba-7b).
+SERVE_FAULTS = {"every rank writes": "llama3.2-1b",
+                "contiguous u and z": "falcon-mamba-7b"}
+
+
+def _serve_unit(mesh, arch: str, fault=None) -> dict:
+    """The partitioned decode of reduced ``arch`` (fp32, weights from
+    seed 0) against one process's on the same tokens: the worst error of
+    the logits blocks over the largest |logit| and of the final recurrent
+    state blocks over their largest, with ``fault`` planted."""
+    from repro_torch.models import layers as port_layers
+    from repro_torch.models import ssm as port_ssm
+    port_model.COMPUTE_DTYPE = torch.float32
+    cfg = get_config(arch).reduced()
+    b, cl = SERVE_UNIT["batch"], SERVE_UNIT["cache_len"]
+    shape = ShapeConfig("d", cl, b, "decode")
+
+    def seeded():
+        return port_model.init_params(
+            cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    one, part = seeded(), seeded().shard(mesh)
+    serve1, _ = TS.make_serve_step(cfg, shape)
+    serve, specs = TS.make_serve_step(cfg, shape, mesh)
+    c1, cp = one.init_cache(b, cl), part.init_cache(b, cl, mesh=mesh)
+    real = SH.slot_owner, port_ssm.in_proj_channels
+    if fault == "every rank writes":
+        SH.slot_owner = lambda slot, s_c, axes, m: (
+            SH.axes_index(m, SH.axes_of(axes)), real[0](slot, s_c, axes,
+                                                        m)[1])
+    if fault == "contiguous u and z":
+        port_ssm.in_proj_channels = lambda p, x, ctx: torch.chunk(
+            port_layers.local_dense(x, p.in_proj, ctx), 2, dim=-1)
+    rng = np.random.default_rng(5)
+    err = 0.0
+    try:
+        for t in range(SERVE_UNIT["steps"]):
+            tokens = torch.from_numpy(rng.integers(2, cfg.vocab_size - 1,
+                                                   size=b))
+            want = serve1(one, c1, tokens, t)
+            local = SH.batch_shard({"tokens": tokens[:, None]}, cfg, mesh,
+                                   shape)["tokens"][:, 0]
+            got = serve(part, cp, local, t)
+            block = SH.local_block(want, specs["logits"], mesh)
+            err = max(err, float((got - block).abs().max()
+                                 / want.abs().max()))
+    finally:
+        SH.slot_owner, port_ssm.in_proj_channels = real
+    state = 0.0
+    for l1, lp, spec in zip(c1, cp, specs["cache"]):
+        if "h" in l1:
+            state = max(state, float(
+                (SH.local_block(l1["h"], spec["h"], mesh) - lp["h"]).abs()
+                .max() / l1["h"].abs().max()))
+    return {"logits": err, "state": state}
+
+
 def units_rank(rank: int, world: int, logits: np.ndarray,
                labels: np.ndarray, vocab: int, grads: dict,
                specs: dict) -> dict:
     mesh = make_process_mesh((2, 2), ("data", "model"), device="cpu")
     out = {"coords": dict(mesh.coords), "xent": _xent(mesh, logits, labels,
                                                       vocab),
-           "norm": _norm(mesh, grads, specs)}
+           "norm": _norm(mesh, grads, specs),
+           "combine": {axes: _combine(mesh, axes) for axes in COMBINE_AXES},
+           "serve": {arch: _serve_unit(mesh, arch)
+                     for arch in SERVE_FAULTS.values()}}
     out["faults"] = {"no psum": _xent(mesh, logits, labels, vocab,
                                       "no psum"),
                      "replicated counted twice": _norm(
-                         mesh, grads, specs, "replicated counted twice")}
+                         mesh, grads, specs, "replicated counted twice"),
+                     "no rescale": {axes: _combine(mesh, axes, "no rescale")
+                                    for axes in COMBINE_AXES},
+                     **{f: _serve_unit(mesh, arch, f)
+                        for f, arch in SERVE_FAULTS.items()}}
     return out
 
 

@@ -11,7 +11,7 @@
 * ``python -m repro_torch.launch.train --arch olmoe-1b-7b --reduced
   --mesh 2,2 --device cpu`` trains 2 steps in a subprocess; with an arch
   outside the global-attention ``dense`` / ``moe`` ones it refuses,
-  naming part 3 of the multi-card item.
+  naming part 4 of the multi-card item.
 * The fresh-interpreter import guard of ``tests/test_torch_formats.py``
   covers the modules this slice added to or changed.
 """
@@ -119,9 +119,9 @@ def test_launcher_mesh_refuses_the_other_families(tmp_path):
     args = train_cli.parser().parse_args(
         ["--arch", "gemma3-12b", "--reduced", "--mesh", "2,2", "--device",
          "cpu", "--ckpt-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="part 3"):
+    with pytest.raises(NotImplementedError, match="part 4"):
         train_cli.make_trainer(args)
-    with pytest.raises(NotImplementedError, match="part 3"):
+    with pytest.raises(NotImplementedError, match="part 4"):
         train_cli.train(args)
     with pytest.raises(ValueError, match="data,model"):
         train_cli.parse_mesh("2,2,2")

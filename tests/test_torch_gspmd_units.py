@@ -13,9 +13,21 @@
   reshaped into micro-batches as its ``make_train_step`` does and
   constrained as ``"tokens_bse"`` (one subprocess on four host devices).
 * The shape check of ``ShardingCtx.constrain`` in a partitioned step, the
-  refusals (``make_serve_step`` over a mesh, the families outside the
+  refusals (the train and prefill steps of the families outside the
   global-attention ``dense`` / ``moe`` archs), ``local_block`` /
   ``local_shape``.
+* The serve step over a mesh, in the same world: the distributed softmax
+  (``attention.decode_attention_partial`` and ``combine``) over two and
+  four blocks of a cache of which one block has no valid slot, against
+  one-process ``decode_attention`` within ``RTOL`` of the largest output
+  (no NaN), and a combine without the ``e^{m - m*}`` rescale rejected;
+  ``launch.sharding.slot_owner`` across both block boundaries and the
+  ring's wrap; reduced llama3.2-1b and falcon-mamba-7b decoding 12 steps
+  against one process within ``RTOL32`` (logits and the mamba state's
+  channel blocks), with two planted faults rejected: the new K/V written
+  on every rank, not only the slot's owner, and mamba's ``u`` and ``z``
+  taken from the contiguous ``in_proj`` block; the interop cache round
+  trip, reference -> port -> reference, exact for every family.
 """
 from __future__ import annotations
 
@@ -29,7 +41,8 @@ import numpy as np
 import pytest
 import torch
 
-from _gspmd_ranks import UNIT_FAULTS, units_rank
+from _gspmd_ranks import (COMBINE_AXES, SERVE_FAULTS, UNIT_FAULTS,
+                          combine_inputs, units_rank)
 from _torch_train_helpers import one_torch_thread  # noqa: F401
 from repro_torch.configs import get_config, list_archs
 from repro_torch.configs.base import ShapeConfig
@@ -44,6 +57,7 @@ from repro_torch.train import train_step as TS
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 RTOL = 1e-5
+RTOL32 = 1e-4
 VOCAB, V_PAD, B, S = 60, 64, 4, 8
 GLOBAL_ARCHS = ("llama3.2-1b", "gemma-2b", "qwen2-72b", "olmoe-1b-7b",
                 "qwen3-moe-235b-a22b")
@@ -234,24 +248,171 @@ def test_constrain_checks_the_local_layout():
     assert ShardingCtx(ctx.rules, mesh).process_mesh is None
 
 
+def test_constrain_checks_a_decode_cache_block():
+    # The serve step's context: one token per row, the cache's sequence
+    # over "model" (B 4 on (2, 2)), or over ("data", "model") at B 1.
+    cfg = get_config("gemma3-12b").reduced()
+    mesh = _fake_mesh({"data": 2, "model": 2}, {"data": 0, "model": 1})
+    ctx = TS.make_ctx(cfg, mesh, ShapeConfig("d", 32, 4, "decode"))
+    assert ctx.dims["s"] == 1 and ctx.dims["c"] == 32
+    hd, kv = cfg.head_dim, cfg.num_kv_heads
+    block = torch.zeros(2, 16, kv, hd)
+    assert ctx.constrain(block, "kv_cache", (4, 32, kv, hd)) is block
+    ring = torch.zeros(2, 4, kv, hd)             # an 8-slot ring's block
+    assert ctx.constrain(ring, "kv_cache", (4, 8, kv, hd)) is ring
+    with pytest.raises(RuntimeError, match="kv_cache"):
+        ctx.constrain(torch.zeros(2, 32, kv, hd), "kv_cache",
+                      (4, 32, kv, hd))
+    with pytest.raises(RuntimeError, match="tokens_bse"):
+        ctx.constrain(torch.zeros(4, 1, cfg.d_model), "tokens_bse")
+    one = TS.make_ctx(cfg, mesh, ShapeConfig("d", 32, 1, "decode"))
+    assert one.rules["kv_cache"][1] == ("data", "model")
+    assert one.parts("kv_cache", 1, (1, 32, kv, hd)) == 4
+    assert one.parts("kv_cache", 1, (1, 6, kv, hd)) == 1
+
+
 @pytest.mark.parametrize("arch", list_archs())
 def test_the_mesh_runs_the_global_archs_and_refuses_the_rest(arch):
+    # The serve step runs every arch over a mesh; the train and prefill
+    # steps of the other families come with part 4.
     cfg = get_config(arch).reduced()
+    port_model.check_mesh_supported(cfg, "decode")
     if arch in GLOBAL_ARCHS:
         port_model.check_mesh_supported(cfg)
         return
-    with pytest.raises(NotImplementedError, match="part 3"):
+    with pytest.raises(NotImplementedError, match="part 4"):
         port_model.check_mesh_supported(cfg)
     mesh = _fake_mesh({"data": 2, "model": 2}, {"data": 0, "model": 0})
     shape = ShapeConfig("t", 16, 4, "train")
     for make in (TS.make_train_step, TS.make_prefill_step):
-        with pytest.raises(NotImplementedError, match="part 3"):
+        with pytest.raises(NotImplementedError, match="part 4"):
             make(cfg, shape, mesh)
 
 
 def test_serve_step_over_a_mesh_names_part_three():
-    cfg = get_config("llama3.2-1b").reduced()
+    # Part 3 brought the serve step over a mesh: it is made for every arch
+    # with the reference's specs; what is left names part 4.
     mesh = _fake_mesh({"data": 2, "model": 2}, {"data": 0, "model": 0})
-    with pytest.raises(NotImplementedError, match="part 3"):
-        TS.make_serve_step(cfg, ShapeConfig("d", 16, 4, "decode"), mesh)
-    assert "part 3" in MULTI_CARD
+    for arch in list_archs():
+        cfg = get_config(arch).reduced()
+        fn, specs = TS.make_serve_step(cfg, ShapeConfig("d", 16, 4,
+                                                        "decode"), mesh)
+        assert callable(fn) and specs["logits"] == ("data", "model")
+        first = specs["cache"][0]
+        if "k" in first:
+            assert first["k"] == ("data", "model", None, None)
+        else:
+            assert first["conv"] == ("data", None, "model")
+    _, one = TS.make_serve_step(get_config("llama3.2-1b").reduced(),
+                                ShapeConfig("d", 16, 1, "decode"), mesh)
+    assert one["cache"][0]["k"] == (None, ("data", "model"), None, None)
+    assert one["logits"] == (None, "model")
+    with pytest.raises(ValueError, match="decode shape"):
+        TS.make_serve_step(get_config("llama3.2-1b").reduced(),
+                           ShapeConfig("t", 16, 4, "train"), mesh)
+    assert "part 4" in MULTI_CARD and "part 3" not in MULTI_CARD
+
+
+# --------------------------------------------------------------------- #
+# The serve step over a mesh.
+# --------------------------------------------------------------------- #
+
+def _combine_errors(world, key=None):
+    """Worst |combined - one process| over the largest |output|, per
+    sequence axes, and whether every output is finite."""
+    from repro_torch.models.attention import decode_attention
+    q, k, v, mask = combine_inputs()
+    want = decode_attention(q, k, v, mask).numpy()
+    out = {}
+    for axes in COMBINE_AXES:
+        got = [r["faults"]["no rescale"][axes] if key else r["combine"][axes]
+               for r in world]
+        out[axes] = (max(float(np.abs(g - want).max()) for g in got)
+                     / float(np.abs(want).max()),
+                     all(np.isfinite(g).all() for g in got))
+    return out
+
+
+@pytest.mark.parametrize("axes", COMBINE_AXES, ids="x".join)
+def test_combine_matches_one_process_with_an_empty_block(world, axes):
+    err, finite = _combine_errors(world)[axes]
+    assert finite and err <= RTOL, err
+
+
+@pytest.mark.parametrize("axes", COMBINE_AXES, ids="x".join)
+def test_combine_without_the_rescale_is_rejected(world, axes):
+    err, _ = _combine_errors(world, "no rescale")[axes]
+    assert err > RTOL, err
+
+
+def test_slot_owner_across_the_block_boundaries_and_the_ring_wrap():
+    mesh = _fake_mesh({"data": 2, "model": 2}, {"data": 1, "model": 0})
+    seq = ("data", "model")
+    # 16 slots over four blocks of 4: both boundaries of block 1.
+    assert [SH.slot_owner(s, 16, seq, mesh) for s in (3, 4, 7, 8, 15)] == \
+        [(0, 3), (1, 0), (1, 3), (2, 0), (3, 3)]
+    assert SH.slot_owner(5, 16, "model", mesh) == (0, 5)
+    assert SH.slot_owner(9, 16, "model", mesh) == (1, 1)
+    assert SH.slot_owner(6, 16, None, mesh) == (0, 6)
+    assert SH.axes_index(mesh, seq) == 2 and \
+        SH.axes_index(mesh, ("model",)) == 0
+    # An 8-slot ring over "model": pos 7 ends block 1, pos 8 wraps to 0.
+    ring = [SH.slot_owner(port_model.cache_slot("local", p, 8), 8, "model",
+                          mesh) for p in (3, 4, 7, 8, 12)]
+    assert ring == [(0, 3), (1, 0), (1, 3), (0, 0), (1, 0)]
+    # A global layer's last slot keeps taking the tokens past the cache.
+    assert SH.slot_owner(port_model.cache_slot("global", 40, 16), 16, seq,
+                         mesh) == (3, 3)
+    with pytest.raises(ValueError, match="does not split"):
+        SH.slot_owner(0, 10, seq, mesh)
+
+
+@pytest.mark.parametrize("arch", sorted(SERVE_FAULTS.values()))
+def test_partitioned_decode_matches_one_process(world, arch):
+    for r in world:
+        got = r["serve"][arch]
+        assert got["logits"] <= RTOL32 and got["state"] <= RTOL32, got
+
+
+@pytest.mark.parametrize("fault", sorted(SERVE_FAULTS))
+def test_planted_serve_faults_are_rejected(world, fault):
+    worst = max(r["faults"][fault]["logits"] for r in world)
+    assert worst > RTOL32, (fault, worst)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma3-12b",
+                                  "whisper-base", "falcon-mamba-7b",
+                                  "recurrentgemma-9b"])
+def test_cache_round_trip_reference_port_reference(arch):
+    import jax
+    import jax.numpy as jnp
+    from repro.configs.base import get_config as ref_config
+    from repro.models import model as ref_model
+    from repro_torch import interop
+    rcfg = ref_config(arch).reduced()
+    cache = ref_model.init_cache(rcfg, 2, 8)
+    rng = np.random.default_rng(0)
+    cache = jax.tree.map(lambda a: jnp.asarray(
+        rng.standard_normal(a.shape), a.dtype), cache)
+    tree = jax.tree.map(np.asarray, cache)
+    port = interop.cache_from_numpy(get_config(arch).reduced(), tree)
+    model = port_model.LM(get_config(arch).reduced(), device="meta")
+    assert [{n: (tuple(t.shape), t.dtype) for n, t in layer.items()}
+            for layer in port] == [
+        {n: (s, d) for n, (s, d) in layer.items()}
+        for layer in model.cache_shapes(2, 8)]
+    back = interop.cache_to_numpy(model, port)
+    flat_back = dict(jax.tree_util.tree_flatten_with_path(back)[0])
+    flat_ref = dict(jax.tree_util.tree_flatten_with_path(tree)[0])
+    assert flat_back.keys() == flat_ref.keys()
+    for k, want in flat_ref.items():
+        assert np.array_equal(flat_back[k], np.asarray(want, np.float32)), k
+
+
+def test_import_guard_lists_the_serve_modules():
+    text = (ROOT / "tests" / "test_torch_formats.py").read_text()
+    for mod in ("repro_torch.models.model", "repro_torch.models.ssm",
+                "repro_torch.models.rglru", "repro_torch.models.attention",
+                "repro_torch.train.train_step", "repro_torch.interop",
+                "repro_torch.launch.sharding", "repro_torch.core.device"):
+        assert mod in text, mod

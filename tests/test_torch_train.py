@@ -322,7 +322,7 @@ def test_grouped_launch_plan_counts():
 def test_mesh_is_not_ported():
     # The partitioned step runs the global-attention dense and MoE archs
     # on a ProcessMesh (tests/test_torch_gspmd_train*.py); the other
-    # families come with part 3 of the multi-card item.
+    # families come with part 4 of the multi-card item.
     with pytest.raises(NotImplementedError, match="multi-card"):
         train_step.make_train_step(
             port_config("recurrentgemma-9b").reduced(),

@@ -169,12 +169,10 @@ def test_step_factories_refuse_a_mesh():
     cfg = port_config(ARCH).reduced()
     mesh = MS.abstract_mesh((2, 2), ("data", "model"))
     shape = ShapeConfig("p", 32, 4, "prefill")
-    # The serve step over any mesh comes with part 3 of the multi-card
-    # item; the train and prefill steps run on a process mesh only (one
+    # The train, prefill and serve steps run on a process mesh only (one
     # rank per process), not on the dry run's abstract mesh.
-    with pytest.raises(NotImplementedError, match="multi-card item"):
-        port_ts.make_serve_step(cfg, shape, mesh)
-    for make in (port_ts.make_prefill_step, port_ts.make_train_step):
+    for make in (port_ts.make_prefill_step, port_ts.make_train_step,
+                 port_ts.make_serve_step):
         with pytest.raises(TypeError, match="ProcessMesh"):
             make(cfg, shape, mesh)
     assert "Multi-card item" in MULTI_CARD

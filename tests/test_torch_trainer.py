@@ -306,7 +306,7 @@ def test_trainer_defaults_to_the_card(tmp_path):
 def test_trainer_mesh_is_not_ported(tmp_path):
     # Over a mesh the trainer runs the global-attention dense and MoE
     # archs (tests/test_torch_gspmd_trainer.py); the other families come
-    # with part 3 of the multi-card item, and a mesh is a ProcessMesh.
+    # with part 4 of the multi-card item, and a mesh is a ProcessMesh.
     with pytest.raises(NotImplementedError, match="multi-card"):
         Trainer(port_config("gemma3-12b").reduced(), SMALL_SHAPE,
                 TrainerConfig(ckpt_dir=str(tmp_path)), mesh=object(),
