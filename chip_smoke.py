@@ -70,13 +70,13 @@ The run reads and writes calibrations only in a fresh temporary
    freed before the next phase.
 6. **families** (the ``local``, ``vlm`` and ``encdec`` families, no
    port kernel on the path): counters are zeroed first and must all read
-   0 after.  gemma3-12b at full width, 24 of its 48 layers (five local to
+   0 after.  gemma3-12b at full width, 12 of its 48 layers (five local to
    one global; one period of 6 under ``--quick``) through ``serve
    --arch``, as in ``lm`` (parameters, ``max_memory_allocated``, tok/s,
    the step median and max beside the byte bound: every weight the step
    uses and the KV cache once over 3.35 TB/s), with a ``torch.profiler``
-   pass over two steps.  The ring check at full width on one period (5
-   local + 1 global layers, ``models.decode_check``): one ``forward`` of
+   pass over two steps.  The ring check at full width on a local and a
+   global layer (``RING_PATTERN``, ``models.decode_check``): one ``forward`` of
    1 x 1536 tokens, whose local layers take ``local_attention`` over three
    q blocks of 512, against 1536 teacher-forced ``decode_step`` calls,
    whose 1024-slot rings wrap at step 1024; the logits and every
@@ -103,7 +103,7 @@ The run reads and writes calibrations only in a fresh temporary
    the path): counters are zeroed first and must all read 0 after.
    falcon-mamba-7b (64 mamba layers, d 4096, d_in 8192, state 16) and
    recurrentgemma-9b (26 RG-LRU and 12 local layers, d 4096) at full
-   width, 32 and 19 layers (2 and 19 under ``--quick``), through ``serve
+   width, 16 and 19 layers (2 and 19 under ``--quick``), through ``serve
    --arch``, as in ``families`` (parameters, their bytes,
    ``max_memory_allocated``, tok/s, the step median and max beside the
    byte bound, which counts each recurrent layer's conv inputs and fp32
@@ -277,7 +277,27 @@ The run reads and writes calibrations only in a fresh temporary
    bounds.  (e2) the partitioned prefill on ``(data=2, model=1)`` (FSDP,
    1 layer, bf16 weights): each rank's logits equal to the one-process
    forward on its rows bit for bit; the FSDP blocks gathered in reversed
-   order must differ.  (f) the serve step over a mesh (``make_serve_step``
+   order must differ.  (e3)-(e6) the partitioned train steps of the other
+   families on ``(data=1, model=2)`` at full width, fp32 masters and bf16
+   compute, steps 1 and 2 against the one-process port (which each rank
+   runs in turn, keeping its blocks on the host, before the partitioned
+   model is built; step 2 starts from its step-1 parameters): (e3)
+   recurrentgemma-9b (rglru, rglru, local) at 1 x 4096, past its
+   2048-token window; (e4) falcon-mamba-7b, 2 of 64 layers, 2 x 512 (two
+   scan chunks); (e5) whisper-base whole at 4 x 448 with its 1,500
+   frames, then its cross cache primed over the mesh (``LM.encode``,
+   ``LM.prime_cross_cache``) and 4 serve steps; (e6) qwen2-vl-7b, 2 of 28
+   layers, 2 x 512 on the pipeline's ``mm_embeds`` and ``positions_3d``
+   (``mc_family_case``): the logits block and loss, each step's loss,
+   ``grad_norm``, gradient and parameter blocks within their rounding
+   bounds (``mc_roundings`` counts each rank's partial sums per layer
+   kind); one planted fault each must break its bound (``mc_fault``:
+   the RG-LRU conv's channel block from the other rank, ``x_proj``'s
+   partial sums left unsummed, the encoder output's cotangent left
+   unsummed over ``model`` (held at fp32), 1-D RoPE for M-RoPE); no port
+   kernel launches; bytes beside ``step_collectives``, step ms, peak
+   memory and seconds per rank.  (f) the serve step over a mesh
+   (``make_serve_step``
    over a ``ProcessMesh``, the decode cache split along its sequence, the
    recurrent states by channels) on ``(data=1, model=2)``, bf16, batch 4,
    8 steps from a cache filled below the start from a seed
@@ -297,8 +317,8 @@ The run reads and writes calibrations only in a fresh temporary
    card, a world of two ranks on ``cuda:0`` under NCCL must be refused
    (its message is printed).  Every kernel of the path must have launched
    on every rank (``multicard_launches``, per rank, in the record).
-   ``--quick``: 2 x 128 tokens, 2 layers ((e1): 1), n = 2**12, (f)'s
-   cache 256.
+   ``--quick``: 2 x 128 tokens, 2 layers ((e1): 1), n = 2**12, (e3)-(e6)
+   at 1 layer and 256 tokens, (f)'s cache 256.
 
 Each phase prints its seconds.
 
@@ -425,20 +445,23 @@ LM_QUICK_LAYERS = 2
 LM_CHECK_STEPS = 4
 
 #: The families phase: gemma3-12b, whisper-base and qwen2-vl-7b through
-#: ``serve --arch`` at full width, gemma3-12b at 24 of its 48 layers and
+#: ``serve --arch`` at full width, gemma3-12b at 12 of its 48 layers and
 #: qwen2-vl-7b at 14 of 28 (``FAMILIES_LAYERS``, the depth cut that keeps
-#: the whole run near 950 s; whisper-base whole; ``--quick``: gemma3's
-#: one pattern period, qwen2-vl's first 2 layers); the ring check on one
-#: period of gemma3 at full width over 1536 tokens (3 q blocks of 512; the
-#: 1024-slot rings wrap at step 1024), its planted decode faults over the
-#: first 64 steps; whisper's decode-vs-forward check over 48 steps of
+#: the whole run near 950 s; whisper-base whole;
+#: ``--quick``: gemma3's one pattern period, qwen2-vl's first 2 layers);
+#: the ring check at full width over 1536 tokens (3 q blocks of 512; the
+#: 1024-slot rings wrap at step 1024) on gemma3's two kinds of layer, one
+#: local and the global (``RING_PATTERN``: a window and the rings behave
+#: alike in each local layer of the period), its planted decode faults
+#: over the first 64 steps; whisper's decode-vs-forward check over 48 steps of
 #: batch 4; qwen2-vl's over 256 steps of batch 4 on ``VLM_CHECK_LAYERS``
 #: layers (the pipeline's stubs put 64 patch tokens on an 8 x 8 grid,
 #: whose first 64 steps the M-RoPE fault runs); qwen2-vl's forward of the
 #: pipeline's stubs at 1 x 1024 (256 patch tokens on a 16 x 16 grid).
-FAMILIES_LAYERS = {"gemma3-12b": 24, "qwen2-vl-7b": 14}
+FAMILIES_LAYERS = {"gemma3-12b": 12, "qwen2-vl-7b": 14}
 FAMILIES_QUICK_LAYERS = {"gemma3-12b": 6, "qwen2-vl-7b": 2}
 RING_TOKENS, RING_FAULT_STEPS = 1536, 64
+RING_PATTERN = ("local", "global")
 WHISPER_STEPS, VLM_CHECK_STEPS = 48, 256
 #: qwen2-vl-7b's decode-vs-forward check runs on its first 4 layers of
 #: 28 (2 under ``--quick``), the depth cut to keep the whole run near 900
@@ -447,7 +470,7 @@ VLM_CHECK_LAYERS, VLM_CHECK_LAYERS_QUICK = 4, 2
 VLM_FORWARD = (1, 1024)
 
 #: The recurrent phase: falcon-mamba-7b and recurrentgemma-9b through
-#: ``serve --arch`` at full width, 32 of 64 and 19 of 38 layers (one
+#: ``serve --arch`` at full width, 16 of 64 and 19 of 38 layers (one
 #: pattern period; ``RECURRENT_LAYERS``, the depth cut that keeps the
 #: whole run near 950 s; ``--quick``: 2 layers, one pattern period); the decode-vs-forward check at full width on a
 #: cut depth, (layer pattern or None for the config's, layers, tokens):
@@ -456,7 +479,7 @@ VLM_FORWARD = (1, 1024)
 #: chunks of 512; its 2048-slot ring does not wrap); decode faults over
 #: the first 64 steps.
 RECURRENT_ARCHS = ("falcon-mamba-7b", "recurrentgemma-9b")
-RECURRENT_LAYERS = {"falcon-mamba-7b": 32, "recurrentgemma-9b": 19}
+RECURRENT_LAYERS = {"falcon-mamba-7b": 16, "recurrentgemma-9b": 19}
 RECURRENT_QUICK_LAYERS = {"falcon-mamba-7b": 2, "recurrentgemma-9b": 19}
 RECURRENT_CHECKS = {"falcon-mamba-7b": (None, 4, 512),
                     "recurrentgemma-9b": (("rglru", "rglru", "local"), 3,
@@ -1736,17 +1759,17 @@ def free(dev) -> None:
 
 
 def families_phase(quick: bool, dev) -> dict:
-    """The ``local``, ``vlm`` and ``encdec`` families on the card, through
-    the port's LM path, with no port kernel launched (the counters are
-    zeroed first and must read 0 after).  gemma3-12b at full width and
-    depth (one period under ``--quick``): ``serve --arch`` and a profile of
-    two steps; the ring check at full width on one period (5 local + 1
-    global layers); whisper-base: serve, then the encoder and primed cross
-    cache against ``forward``; qwen2-vl-7b (2 layers under ``--quick``):
-    serve, decode against ``forward`` with the pipeline's distinct
-    ``positions_3d`` streams, and one forward of the pipeline's patch
-    stubs.  Each check must reject its planted faults.  Each model is freed before the
-    next."""
+    """The ``local``, ``vlm`` and ``encdec`` families on the card, through the
+    port's LM path, with no port kernel launched (the counters are zeroed
+    first and must read 0 after). gemma3-12b at full width and
+    ``FAMILIES_LAYERS`` depth (one period under ``--quick``): ``serve
+    --arch`` and a profile of two steps; the ring check at full width on a
+    local and a global layer (``RING_PATTERN``); whisper-base: serve, then
+    the encoder and primed cross cache against ``forward``; qwen2-vl-7b (2
+    layers under ``--quick``): serve, decode against ``forward`` with the
+    pipeline's distinct ``positions_3d`` streams, and one forward of the
+    pipeline's patch stubs. Each check must reject its planted faults.
+    Each model is freed before the next."""
     import dataclasses
     import torch
     from repro_torch import kernels
@@ -1770,10 +1793,11 @@ def families_phase(quick: bool, dev) -> dict:
     result["gemma3-12b"] = g
     free(dev)
 
-    # The ring at full width: one period, RING_TOKENS tokens.
+    # The ring at full width: a local and the global layer, RING_TOKENS
+    # tokens.
     cfg = dataclasses.replace(get_config("gemma3-12b"),
-                              num_layers=len(get_config("gemma3-12b")
-                                             .layer_pattern))
+                              layer_pattern=RING_PATTERN,
+                              num_layers=len(RING_PATTERN))
     model = M.init_params(cfg, device=dev,
                           generator=torch.Generator(dev).manual_seed(0))
     toks = pipeline_batch(cfg, RING_TOKENS, 1, dev)["tokens"]
@@ -3456,13 +3480,19 @@ class ReplayRouting:
 
 
 def mc_roundings(cfg, tp: int) -> int:
-    """Roundings to bf16 between the embedding and the logits of the
+    """Roundings to bf16 between the inputs and the logits of the
     partitioned forward against one process's: the model's own
-    (``models.model.roundings``) and, at each of a layer's two
-    row-parallel exits, each rank's partial sum rounded before the sum
-    (``tp`` more)."""
-    from repro_torch.models.model import roundings
-    return roundings(cfg) + 2 * cfg.num_layers * tp
+    (``models.model.roundings``) and, at each row-parallel exit, each
+    rank's partial sum rounded before the sum (``tp`` more).  The exits
+    per layer of each kind are its sublayers
+    (``core.collectives.SUBLAYERS``), plus mamba's ``x_proj``, whisper's
+    cross-attention in each decoder layer and two per encoder layer."""
+    from repro_torch.core.collectives import SUBLAYERS
+    from repro_torch.models.model import layer_kinds, roundings
+    exits = sum(SUBLAYERS[k] + (k == "ssm") for k in layer_kinds(cfg))
+    if cfg.family == "encdec":
+        exits += cfg.num_layers + 2 * cfg.encoder_layers
+    return roundings(cfg) + exits * tp
 
 
 def mc_gspmd_train(dev, backend, quick: bool, lines: list) -> dict:
@@ -3797,6 +3827,430 @@ def mc_gspmd_prefill(dev, backend, quick: bool, lines: list) -> dict:
     return out
 
 
+#: (e3)-(e6) the partitioned train steps of the other families on
+#: ``(data=1, model=2)``, fp32 masters and bf16 compute, steps 1 and 2 of
+#: ``[train]``'s schedule: each case's key, arch, depth (the widths stay
+#: full), batch x sequence and planted fault.  (e3): recurrentgemma-9b's
+#: first three layers, whose 2048-slot window is narrower than the 4096
+#: tokens; (e4): falcon-mamba-7b at 2 of 64 layers, two 256-step chunks;
+#: (e5): whisper-base whole (6 + 6 layers, 1,500 frames), then its cross
+#: cache primed over the mesh and ``MC_FAMILY_SERVE_STEPS`` serve steps;
+#: (e6): qwen2-vl-7b at 2 of 28 layers, on the pipeline's ``mm_embeds``
+#: and ``positions_3d``.  ``--quick``: 1 layer (whisper: 1 + 1;
+#: recurrentgemma: an RG-LRU layer) and 256 tokens.
+MC_FAMILY_CASES = (
+    ("e3", "recurrentgemma-9b",
+     {"num_layers": 3, "layer_pattern": ("rglru", "rglru", "local")},
+     (1, 4096), "conv block from the other rank"),
+    ("e4", "falcon-mamba-7b", {"num_layers": 2}, (2, 512),
+     "x_proj unsummed"),
+    ("e5", "whisper-base", {}, (4, 448), "encoder cotangent unsummed"),
+    ("e6", "qwen2-vl-7b", {"num_layers": 2}, (2, 512),
+     "1-D RoPE for M-RoPE"),
+)
+MC_FAMILY_SERVE_STEPS = 4
+
+
+def mc_fault(name: str):
+    """The planted fault ``name`` of (e3)-(e6): ``(module, attribute,
+    replacement, where)``; ``where`` is ``"forward"`` where the fault
+    moves the logits, ``"backward"`` where only the gradients."""
+    import torch
+    from repro_torch.core import comm
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models import rglru as R
+    if name == "conv block from the other rank":
+        real = L.mesh_param
+
+        def other_rank(module, attr, ctx, dtype=None, keep=("model",)):
+            w = real(module, attr, ctx, dtype, keep)
+            if attr != "conv_w" or not isinstance(module, R.RGLRU):
+                return w
+            n = ctx.process_mesh.shape["model"]
+            return comm.ppermute(w, "model",
+                                 [(i, (i + 1) % n) for i in range(n)],
+                                 mesh=ctx.process_mesh)
+        return L, "mesh_param", other_rank, "forward"
+    if name == "x_proj unsummed":
+        # In a forward whose exits are reduce-scatters, x_proj's partial
+        # sums are the only psum.
+        return comm, "psum", lambda x, axis, *, mesh=None: x, "forward"
+    if name == "1-D RoPE for M-RoPE":
+        rope = L.apply_rope
+        return L, "apply_mrope", (lambda x, pos, theta:
+                                  rope(x, pos[0], theta)), "forward"
+
+    class Unsummed(torch.autograd.Function):
+        """The gather of the encoder's output whose backward keeps this
+        rank's own share of its block (no sum over ``"model"``)."""
+
+        @staticmethod
+        def forward(ctx_, h, mesh):
+            ctx_.mesh, ctx_.n = mesh, h.shape[1]
+            with torch.no_grad():
+                return comm.all_gather(h, "model", dim=1, tiled=True,
+                                       mesh=mesh)
+
+        @staticmethod
+        def backward(ctx_, g):
+            i = ctx_.mesh.axis_index("model")
+            return g[:, i * ctx_.n:(i + 1) * ctx_.n], None
+
+    def unsummed(h, ctx):
+        return Unsummed.apply(h, ctx.process_mesh)
+    return M, "gather_encoder_output", unsummed, "backward"
+
+
+def mc_family_case(key: str, arch: str, overrides: dict, tokens: tuple,
+                   fault: str, dev, backend, quick: bool,
+                   lines: list) -> dict:
+    """One of (e3)-(e6): ``arch``'s partitioned train step on ``(data=1,
+    model=2)`` against the one-process port on the same card from the
+    same seed, as (e1) (``mc_gspmd_train``) holds olmoe-1b-7b's.  The two
+    ranks run the one-process model in turn (rank 0, then rank 1; the
+    other waits), each keeping its blocks of the logits, the gradients
+    and the parameters after steps 1 and 2 on the host, and free it
+    before the partitioned model is built.  Bounds
+    (``models.model.rounding_tolerance`` over ``mc_roundings`` stages):
+    the forward's logits block at each row's scale and the loss at the
+    largest row rms (twice a logit's bound); at each step the loss, the
+    gradient blocks over twice the stages at each matrix's scale,
+    ``grad_norm`` at its own, the parameter blocks within two AdamW
+    moves.  Step 2 starts from the one-process model's parameters after
+    step 1, so that its gradients too differ only by roundings (AdamW
+    moves an element whose gradient is near 0 by ``lr`` either way, and
+    a recurrent layer carries such a move into every later gradient).
+    The planted fault (``mc_fault``) must break the logits' bound; a
+    fault of the backward alone (whisper's encoder cotangent) is held at
+    fp32, where the bound is tight: the one-process and partitioned
+    gradients of step 1 at fp32 within it, the fault's beyond.  (e5) then
+    primes whisper's cross cache over the mesh (``LM.encode`` and
+    ``LM.prime_cross_cache`` on the sharded bf16 model) and runs
+    ``MC_FAMILY_SERVE_STEPS`` serve steps, against one process: the cross
+    K/V blocks and each step's logits block.  No port kernel is on these
+    paths: every counter must stay 0."""
+    import dataclasses
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import comm
+    from repro_torch.core.collectives import step_collectives
+    from repro_torch.core.device import synchronize
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import abstract_mesh, make_process_mesh
+    from repro_torch.models.model import (LM, init_params, layer_kinds,
+                                          rounding_tolerance)
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as TS
+
+    t_case = time.perf_counter()
+    if quick:
+        overrides = {**overrides, "num_layers": 1}
+        if "layer_pattern" in overrides:
+            overrides["layer_pattern"] = overrides["layer_pattern"][:1]
+        if arch == "whisper-base":
+            overrides["encoder_layers"] = 1
+        tokens = (tokens[0], 256)
+    cfg = dataclasses.replace(get_config(arch), **overrides)
+    B, S = tokens
+    shape = ShapeConfig(f"mc-{key}", S, B, "train")
+    dshape = ShapeConfig(f"mc-{key}-serve", S, B, "decode")
+    mesh = make_process_mesh((1, 2), ("data", "model"), device=dev,
+                             backend=backend)
+    tp, mi = 2, mesh.axis_index("model")
+    tag = f"[multicard] ({key}) rank {mesh.rank}"
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR)
+    pipe = Pipeline(cfg, shape, DataConfig(seed=0))
+    batches = {s: {k: torch.from_numpy(v).to(dev) for k, v in
+                   pipe.batch_for_step(s).items()} for s in MC_GSPMD_STEPS}
+    first = batches[MC_GSPMD_STEPS[0]]
+    stages = mc_roundings(cfg, tp)
+    specs = TS.step_specs(cfg, shape, mesh)["params"]
+    head = "embed.table" if cfg.tie_embeddings else "lm_head.kernel"
+    vsplit = "model" in SH.spec_axes(specs[head])
+    encdec = cfg.family == "encdec"
+    if encdec:
+        _, sspecs = TS.make_serve_step(cfg, dshape, mesh)
+    eps32 = float(torch.finfo(torch.float32).eps)
+
+    def seeded(masters=True, dtype=None):
+        g = torch.Generator(device=dev).manual_seed(0)
+        return init_params(cfg, device=dev, generator=g, masters=masters,
+                           dtype=dtype)
+
+    def host_blocks(named):
+        return {n: SH.local_block(t.detach(), specs[n], mesh).to(
+            "cpu", copy=True) for n, t in named.items()}
+
+    def extras(batch):
+        return {k: batch[k] for k in TS.MODALITY_KEYS if k in batch}
+
+    grads = {}
+    apply = adamw.apply_updates
+
+    def recording(params, g, state, cfg_, lr_scale=1.0, **kw):
+        grads["last"] = {n: t.detach() for n, t in g.items()}
+        return apply(params, g, state, cfg_, lr_scale, **kw)
+
+    # The one-process model, one rank at a time.
+    ref = {}
+    kernels.reset_launch_counts()
+    for turn in range(tp):
+        dist.barrier()
+        if turn != mi:
+            continue
+        one = seeded()
+        step_one = TS.make_train_step(cfg, shape, opt_cfg=opt_cfg,
+                                      schedule_kwargs=TRAIN_SCHEDULE)
+        opt_one = adamw.init_state(dict(one.named_parameters()), opt_cfg)
+        with torch.no_grad():
+            logits = one(first["tokens"], **extras(first))
+        v = logits.shape[-1] // tp
+        ref["logits"] = (logits[..., mi * v:(mi + 1) * v] if vsplit
+                         else logits).to("cpu", copy=True)
+        ref["rms"] = float(logits.pow(2).mean(dim=-1).sqrt().max())
+        ref["loss"] = float(TS.softmax_xent(logits, first["labels"],
+                                            cfg.vocab_size))
+        del logits
+        ref["steps"] = []
+        adamw.apply_updates = recording
+        try:
+            for s in MC_GSPMD_STEPS:
+                m = step_one(one, opt_one, batches[s], s)
+                ref["steps"].append({
+                    "loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"]),
+                    "lr_scale": float(m["lr_scale"]),
+                    "grads": host_blocks(grads.pop("last")),
+                    "params": host_blocks(dict(one.named_parameters()))})
+        finally:
+            adamw.apply_updates = apply
+        del one, opt_one
+        if encdec:
+            one = seeded(masters=False)
+            serve1, _ = TS.make_serve_step(cfg, dshape)
+            with torch.no_grad():
+                cache = one.prime_cross_cache(one.init_cache(B, S),
+                                              one.encode(first["frames"]))
+                ref["cross"] = [
+                    {n: SH.local_block(layer[n], spec[n], mesh).to(
+                        "cpu", copy=True) for n in ("cross_k", "cross_v")}
+                    for layer, spec in zip(cache, sspecs["cache"])]
+                ref["serve"] = [SH.local_block(
+                    serve1(one, cache, first["tokens"][:, t], t),
+                    sspecs["logits"], mesh).to("cpu", copy=True)
+                    for t in range(MC_FAMILY_SERVE_STEPS)]
+            del one, cache
+        gc.collect()
+        empty_cache(dev)
+    dist.barrier()
+    ref_s = time.perf_counter() - t_case
+
+    # The partitioned model: the forward, the fault, the steps.
+    part = seeded().shard(mesh)
+    ctx = TS.make_ctx(cfg, mesh, shape)
+    local = SH.batch_shard(first, cfg, mesh, shape)
+    want_logits = ref.pop("logits").to(dev)
+
+    def forward():
+        with torch.no_grad():
+            return part(local["tokens"], ctx=ctx, remat=False,
+                        **extras(local))
+
+    logits = forward()
+    with torch.no_grad():
+        share = TS._mesh_loss(cfg, logits, local["labels"], ctx)
+        loss = float(comm.psum(share, mesh.axis_names, mesh=mesh))
+    logit_ratio = mc_ratio(logits, want_logits, stages)
+    loss_bound = 2 * float(rounding_tolerance(stages, ref["rms"], 1))
+    loss_ratio = abs(loss - ref["loss"]) / loss_bound
+    del logits
+    mod, attr, fn, where = mc_fault(fault)
+    fp32 = {}
+    if where == "forward":
+        with patched(mod, attr, fn):
+            fault_ratio = (mc_ratio(forward(), want_logits, stages),
+                           "logits")
+    else:
+        # A fault in the backward alone is held at fp32, where the
+        # rounding bound is tight: the one-process gradients of step 1
+        # (kept on the host), then the partitioned ones, right and with
+        # the fault.
+        grads_fn = TS.make_grads(cfg, ctx=ctx)
+        for turn in range(tp):
+            dist.barrier()
+            if turn == mi:
+                one = seeded(dtype=torch.float32)
+                _, g1 = TS.make_grads(cfg)(one, first)
+                g1 = host_blocks(g1)
+                del one
+                gc.collect()
+                empty_cache(dev)
+        dist.barrier()
+        part32 = seeded(dtype=torch.float32).shard(mesh)
+
+        def worst(grads_):
+            return max((mc_ratio(g, g1[n].to(dev), 2 * stages,
+                                 torch.float32, dims=(-2, -1)), n)
+                       for n, g in grads_.items())
+        fp32["right"] = worst(grads_fn(part32, local)[1])
+        with patched(mod, attr, fn):
+            fault_ratio = worst(grads_fn(part32, local)[1])
+        del part32, g1
+        gc.collect()
+        empty_cache(dev)
+        if fp32["right"][0] > 1:
+            raise SmokeFailure(f"{tag}: fp32 gradients against one process: "
+                               f"{fp32['right']}")
+    del want_logits
+    if logit_ratio > 1 or loss_ratio > 1:
+        raise SmokeFailure(f"{tag}: forward against one process: logits "
+                           f"err / bound {logit_ratio:.3f}, loss "
+                           f"{loss_ratio:.3f}")
+    if fault_ratio[0] <= 1:
+        raise SmokeFailure(f"{tag}: the planted fault ({fault}) passed: "
+                           f"{fault_ratio}")
+
+    step_part, _ = TS.make_train_step(cfg, shape, mesh, opt_cfg=opt_cfg,
+                                      schedule_kwargs=TRAIN_SCHEDULE)
+    opt_part = adamw.init_state(dict(part.named_parameters()), opt_cfg)
+    rows, step_ms, lr_sum = [], [], 0.0
+    log_ = mesh.reset_log()
+    adamw.apply_updates = recording
+    try:
+        for s, want in zip(MC_GSPMD_STEPS, ref["steps"]):
+            synchronize(dev)
+            t0 = time.perf_counter()
+            m = step_part(part, opt_part,
+                          SH.batch_shard(batches[s], cfg, mesh, shape), s)
+            loss = float(m["loss"])
+            synchronize(dev)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            got = grads.pop("last")
+            worst_g = max((mc_ratio(g, want["grads"][n].to(dev),
+                                    2 * stages, dims=(-2, -1)), n)
+                          for n, g in got.items())
+            del got
+            lr_sum += want["lr_scale"]
+            moved = 2 * TRAIN_LR * lr_sum
+            worst_p = 0.0
+            for n, p in part.named_parameters():
+                w = want["params"][n].to(dev)
+                allowed = moved * (1 + opt_cfg.weight_decay * w.abs()) \
+                    + 8 * eps32 * w.abs()
+                worst_p = max(worst_p, float(((p.detach() - w).abs() /
+                                              allowed).max()))
+            gn = float(m["grad_norm"])
+            row = {"step": s, "loss": (want["loss"], loss),
+                   "loss_ratio": abs(loss - want["loss"]) / loss_bound,
+                   "grad_norm": (want["grad_norm"], gn),
+                   "grad_norm_ratio": abs(gn - want["grad_norm"]) / float(
+                       rounding_tolerance(2 * stages, want["grad_norm"],
+                                          1)),
+                   "grads": worst_g, "params": worst_p}
+            rows.append(row)
+            if max(row["loss_ratio"], row["grad_norm_ratio"],
+                   row["grads"][0], row["params"]) > 1:
+                raise SmokeFailure(f"{tag}: step {s} against one process: "
+                                   f"{row}")
+            # The next step starts from the one-process model's blocks.
+            with torch.no_grad():
+                for n, p in part.named_parameters():
+                    p.copy_(want["params"][n])
+    finally:
+        adamw.apply_updates = apply
+    counted = {k: int(v) for k, v in log_.bytes.items() if v}
+    del part, opt_part, ref["steps"]
+    gc.collect()
+    empty_cache(dev)
+
+    serve = {}
+    if encdec:
+        partb = seeded(masters=False).shard(mesh)
+        serve_fn, _ = TS.make_serve_step(cfg, dshape, mesh)
+        dlocal = SH.batch_shard({"frames": first["frames"],
+                                 "tokens": first["tokens"]}, cfg, mesh,
+                                dshape)
+        with torch.no_grad():
+            enc = partb.encode(dlocal["frames"],
+                               ctx=TS.make_ctx(cfg, mesh, dshape))
+            cache = partb.init_cache(B, S, mesh=mesh, specs=sspecs["cache"])
+            partb.prime_cross_cache(cache, enc, sspecs["cache"])
+        serve["cross"] = max(mc_ratio(layer[n], want[n].to(dev), stages)
+                             for layer, want in zip(cache, ref["cross"])
+                             for n in want)
+        serve["logits"] = max(
+            mc_ratio(serve_fn(partb, cache, dlocal["tokens"][:, t], t),
+                     ref["serve"][t].to(dev), stages)
+            for t in range(MC_FAMILY_SERVE_STEPS))
+        del partb, cache, enc
+        gc.collect()
+        empty_cache(dev)
+        if max(serve.values()) > 1:
+            raise SmokeFailure(f"{tag}: the cross cache and serve steps "
+                               f"against one process: {serve}")
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    if launches:
+        raise SmokeFailure(f"{tag}: a port kernel launched on a path "
+                           f"that has none: {launches}")
+    named = dict(LM(cfg, device="meta", masters=True).named_parameters())
+    am = abstract_mesh((1, 2), ("data", "model"))
+    modelled = step_collectives(
+        cfg, shape, am, params={n: (tuple(p.shape), 4)
+                                for n, p in named.items()},
+        specs=SH.param_pspecs(cfg, named, am),
+        constraints=[("tokens_bse", (B, S, cfg.d_model), "bfloat16",
+                      ("data", "model")),
+                     ("logits_bsv", (B, S, cfg.padded_vocab), "float32",
+                      ("data", "model") if vsplit else ("data",))],
+        kinds=layer_kinds(cfg), compute_itemsize=2).summary()[0]
+    modelled = {k: int(v * len(MC_GSPMD_STEPS)) for k, v in modelled.items()
+                if v}
+    ratio = sum(counted.values()) / max(modelled.get("total", 0), 1)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 \
+        if dev.type == "cuda" else 0.0
+    seconds = time.perf_counter() - t_case
+    lines.append(
+        f"{tag}: {arch} {cfg.num_layers} layers "
+        f"({', '.join(layer_kinds(cfg))}"
+        + (f"; encoder {cfg.encoder_layers}" if encdec else "")
+        + f") at full width, batch {B} x {S}, fp32 masters, bf16; forward "
+        f"logits err / bound {logit_ratio:.3f}, loss {loss_ratio:.3f} "
+        f"(bound {loss_bound:.3e}); "
+        + (f"fp32 gradients of step 1 err / fp32 bound {fp32['right'][0]:.3f}"
+           f" ({fp32['right'][1]}); " if fp32 else "")
+        + f"fault ({fault}) err / bound {fault_ratio[0]:.1f} "
+        f"({fault_ratio[1]}{', fp32' if fp32 else ''}); steps " + "; ".join(
+            f"{r['step']}: loss {r['loss'][1]:.6f} vs {r['loss'][0]:.6f} "
+            f"({r['loss_ratio']:.3f}), grad_norm {r['grad_norm'][1]:.5f} vs "
+            f"{r['grad_norm'][0]:.5f} ({r['grad_norm_ratio']:.3f}), grads "
+            f"{r['grads'][0]:.3f} ({r['grads'][1]}), params "
+            f"{r['params']:.3f}" for r in rows)
+        + ("; cross cache primed over the mesh err / bound "
+           f"{serve['cross']:.3f}, {MC_FAMILY_SERVE_STEPS} serve steps' "
+           f"logits {serve['logits']:.3f}" if serve else "")
+        + f"; port kernel launches 0; step ms "
+        f"{', '.join(f'{t:.1f}' for t in step_ms)} ({mesh.backend}"
+        + (", host staging: not a link rate" if mesh.stages_through_host
+           else "")
+        + f"); collective bytes per kind {counted} vs step_collectives "
+        f"{modelled}, ratio {ratio:.3f}; peak {peak:.2f} GB allocated; "
+        f"one-process turns {ref_s:.1f} s, case {seconds:.1f} s")
+    return {"launches": 0, "steps": rows, "logit_ratio": logit_ratio,
+            "loss_ratio": loss_ratio, "fault": fault_ratio,
+            "fp32_grads": fp32.get("right"),
+            "serve": serve, "step_ms": step_ms, "bytes": counted,
+            "modelled_bytes": modelled, "bytes_ratio": ratio,
+            "peak_gb": peak, "seconds": seconds}
+
+
 #: (f) the serve step over a mesh: batch, steps, cache length (half of it
 #: under ``--quick``) and the layers of each arch.  The steps start 4
 #: before olmoe's cache boundary (its middle: ranks on ``(1, 2)`` hold one
@@ -4077,7 +4531,8 @@ def mc_gspmd_serve(dev, backend, quick: bool, lines: list) -> dict:
 
 def multicard_rank(rank: int, world: int, quick: bool,
                    distinct: bool) -> dict:
-    """One rank of the ``[multicard]`` world: (a)-(f) in order."""
+    """One rank of the ``[multicard]`` world: (a)-(f) in order, (e3)-(e6)
+    after (e1) and (e2)."""
     import importlib
     import threading
     import torch
@@ -4119,6 +4574,13 @@ def multicard_rank(rank: int, world: int, quick: bool,
                                                 lines)}
     out["seconds"]["e"] = time.perf_counter() - t0
     out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["families"] = {}
+    for key, arch, overrides, tokens, fault in MC_FAMILY_CASES:
+        t0 = time.perf_counter()
+        out["families"][key] = mc_family_case(key, arch, overrides, tokens,
+                                              fault, dev, backend, quick,
+                                              lines)
+        out["seconds"][key] = time.perf_counter() - t0
     t0 = time.perf_counter()
     out["serve"] = mc_gspmd_serve(dev, backend, quick, lines)
     out["seconds"]["f"] = time.perf_counter() - t0
@@ -4216,7 +4678,7 @@ def multicard_phase(quick: bool, dev) -> dict:
     t0 = time.perf_counter()
     try:
         results = run_world(multicard_rank, MC_WORLD, quick, distinct,
-                            timeout=600)
+                            timeout=900)
     finally:
         if probe is not None:
             probe.join()
@@ -4264,14 +4726,23 @@ def multicard_phase(quick: bool, dev) -> dict:
         f"planned {results[0]['gspmd']['train']['planned']}, prefill "
         f"{results[0]['gspmd']['prefill']['planned']} per rank); (e) "
         f"seconds per rank {[round(r['seconds']['e'], 1) for r in results]}")
+    for key, *_ in MC_FAMILY_CASES:
+        log(f"[multicard] ({key}) port kernel launches per rank "
+            f"{[r['families'][key]['launches'] for r in results]} (none on "
+            f"the path); seconds per rank "
+            f"{[round(r['seconds'][key], 1) for r in results]}; peak "
+            f"{[round(r['families'][key]['peak_gb'], 2) for r in results]} "
+            f"GB")
     if 0 in serve:
         raise SmokeFailure(f"[multicard] (f) the grouped kernel did not "
                            f"launch on every rank: {serve}")
     log(f"[multicard] (f) grouped launches per rank {serve} (planned "
         f"{results[0]['serve']['olmoe']['planned']} per rank); (f) seconds "
         f"per rank {[round(r['seconds']['f'], 1) for r in results]}")
+    family = [sum(r["families"][key]["launches"]
+                  for key, *_ in MC_FAMILY_CASES) for r in results]
     return {"launches": launches, "gspmd_launches": gspmd,
-            "serve_launches": serve,
+            "serve_launches": serve, "family_launches": family,
             "results": results, "backend": "nccl" if distinct else "gloo",
             "world_seconds": world_s}
 
@@ -4405,6 +4876,8 @@ def run(quick: bool, n: int) -> int:
             if rec["name"] == "grouped_matmul" else [0] * MC_WORLD
         rec["multicard_serve_launches"] = multicard["serve_launches"] \
             if rec["name"] == "grouped_matmul" else [0] * MC_WORLD
+        # (e3)-(e6): no port kernel is on those paths.
+        rec["multicard_family_launches"] = multicard["family_launches"]
     seconds["multicard"] = time.perf_counter() - t0
     log(f"[multicard] phase took {seconds['multicard']:.1f}s "
         f"({multicard['backend']})")

@@ -7,21 +7,6 @@ import torch
 
 DeviceLike = Union[None, str, torch.device]
 
-#: What brings the rest of the multi-card runtime; the port raises
-#: ``NotImplementedError`` naming it.  Ported: the explicit per-shard
-#: programs (``core.comm``, the expert-parallel MoE, the pipeline,
-#: ``compressed_psum``, the sharded tier on a process mesh), the
-#: policy-partitioned train and prefill steps of the ``dense`` and ``moe``
-#: archs of global attention, with ``Trainer(mesh=)`` and ``launch.train
-#: --mesh``, and the serve step over a mesh for all ten archs (the
-#: sequence-split KV cache and its distributed softmax, the channel-split
-#: recurrent states).  Part 4 brings the train and prefill steps of the
-#: ``local``, ``vlm``, ``encdec``, ``ssm`` and ``hybrid`` families over a
-#: mesh.
-MULTI_CARD = ("the multi-card item, part 4 (the train and prefill steps "
-              "of the local, vlm, encdec, ssm and hybrid families over a "
-              "mesh; ROADMAP.md Queue A, \"Multi-card item\")")
-
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """Resolve an entry point's ``device`` argument.

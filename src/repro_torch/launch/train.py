@@ -45,7 +45,6 @@ from repro_torch.configs.base import SHAPES, ShapeConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.kernels import launch_counts
-from repro_torch.models.model import check_mesh_supported
 from repro_torch.optim import adamw
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -114,17 +113,13 @@ def make_trainer(args, mesh=None) -> Trainer:
     ``--mesh``, this rank's on ``mesh`` (its ``ProcessMesh``).
 
     Raises:
-        NotImplementedError: ``--mesh`` with an arch the partitioned step
-            does not run (``core.device.MULTI_CARD``).
         ValueError: ``--mesh`` without this rank's mesh (``train`` spawns
             the world).
     """
     cfg = config_of(args)
-    if args.mesh:
-        check_mesh_supported(cfg)
-        if mesh is None:
-            raise ValueError("--mesh trains in a spawned world: call "
-                             "train(args), which makes each rank's mesh")
+    if args.mesh and mesh is None:
+        raise ValueError("--mesh trains in a spawned world: call "
+                         "train(args), which makes each rank's mesh")
     if args.shape:
         shape = SHAPES[args.shape]
     else:
@@ -193,13 +188,11 @@ def train_world(args) -> dict:
     its blocks (:func:`mesh_rank`), and return rank 0's record.
 
     Raises:
-        NotImplementedError: an arch the partitioned step does not run.
         RuntimeError: a rank failed (its traceback), or no card.
     """
     from repro_torch.launch import train as this
     from repro_torch.launch.spawn import run_world
     shape = parse_mesh(args.mesh)
-    check_mesh_supported(config_of(args))
     dev = resolve_device(args.device)
     world = shape[0] * shape[1]
     distinct = dev.type == "cuda" and torch.cuda.device_count() >= world

@@ -170,15 +170,19 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: int, q_block: int = 512) -> torch.Tensor:
+                    window: int, q_block: int = 512,
+                    q_offset: int = 0) -> torch.Tensor:
     """Sliding-window causal attention: query ``i`` sees keys ``j`` with
     ``i - window < j <= i``.
 
-    q: ``[B,S,Hq,D]``; k/v: ``[B,S,Hkv,D]``.  K and V are padded on the
-    left by ``window``; q block ``i`` (``bq`` rows) takes the band of ``bq +
-    window`` padded rows that starts at ``i * bq``, masks ``q >= k``, ``q -
-    k < window`` and the padded slots, and is normalised once (no online
-    merge: the band is one tile).  Returns ``[B,S,Hq,D]`` in q's dtype.
+    q: ``[B,Sq,Hq,D]``; k/v: ``[B,Skv,Hkv,D]``, query row ``i`` at
+    position ``q_offset + i`` (a context-parallel rank's block of the
+    queries on the gathered K/V; ``Skv >= q_offset + Sq``).  K and V are
+    padded on the left by ``window``; q block ``i`` (``bq`` rows) takes the
+    band of ``bq + window`` padded rows that starts at ``q_offset + i *
+    bq``, masks ``q >= k``, ``q - k < window`` and the padded slots, and is
+    normalised once (no online merge: the band is one tile).  Returns
+    ``[B,Sq,Hq,D]`` in q's dtype.
     """
     b, s, hq, d = q.shape
     hkv = k.shape[2]
@@ -201,8 +205,8 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     blocks = []
     for i in range(s // bq):
-        start = i * bq
-        blocks.append(_remat(q_step, start, qe[:, start:start + bq],
+        start = q_offset + i * bq
+        blocks.append(_remat(q_step, start, qe[:, i * bq:(i + 1) * bq],
                              kp[:, start:start + band],
                              vp[:, start:start + band]))
     return torch.cat(blocks, dim=1)

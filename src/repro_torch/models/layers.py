@@ -121,8 +121,12 @@ class LayerNorm(nn.Module):
         self.bias = weight(torch.zeros(d, device=device), torch.float32,
                            trainable)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layernorm(x, self.scale, self.bias, self.eps)
+    def forward(self, x: torch.Tensor,
+                ctx: ShardingCtx = NO_SHARDING) -> torch.Tensor:
+        if ctx.process_mesh is None:
+            return layernorm(x, self.scale, self.bias, self.eps)
+        return layernorm(x, mesh_param(self, "scale", ctx),
+                         mesh_param(self, "bias", ctx), self.eps)
 
 
 # ---------------------------------------------------------------------------

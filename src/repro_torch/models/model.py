@@ -37,8 +37,12 @@ The public entry points keep the reference's semantics:
   sequence (each attention layer writes the token's K/V only on the rank
   that owns its slot, and the softmax is combined over the blocks,
   ``models.attention.combine``), the recurrent states by channels; the
-  train and prefill steps (:meth:`LM.forward_mesh`) run the ``dense`` and
-  ``moe`` archs of global attention.
+  train and prefill steps (:meth:`LM.forward_mesh`) run every arch too:
+  attention of each kind by heads or by blocks of the queries (a local
+  window across the blocks), whisper's encoder sequence-parallel and its
+  output whole on every rank for the cross-attention, qwen2-vl's
+  ``mm_proj`` and M-RoPE, the mamba and RG-LRU scans on the rank's
+  channels.
 
 For serving, weights are held in the dtype each use casts them to in the
 reference: matrices, expert weights, biases and the embedding table in
@@ -58,7 +62,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import comm
-from repro_torch.core.device import MULTI_CARD, DeviceLike, resolve_device
+from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.launch import sharding as SH
 from repro_torch.kernels.grouped_matmul import grouped_matmul
 from repro_torch.models import attention as A
@@ -66,7 +70,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
 from repro_torch.models.moe import LAUNCHES_PER_LAYER, GroupedMatmul, MoE
-from repro_torch.models.sharding_ctx import NO_SHARDING, ShardingCtx
+from repro_torch.models.sharding_ctx import (NO_SHARDING, ShardingCtx,
+                                             step_dims)
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -227,22 +232,22 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{FAMILIES}, layer kinds {LAYER_KINDS})")
 
 
-def check_mesh_supported(cfg: ModelConfig, kind: str = "train") -> None:
-    """Raise ``NotImplementedError`` unless a partitioned step of ``kind``
-    runs ``cfg`` over a mesh: the serve step (``"decode"``) runs every arch
-    the port knows; the train and prefill steps (``"train"``,
-    ``"prefill"``) a ``dense`` or ``moe`` arch whose layers are all
-    ``"global"`` (llama3.2-1b, gemma-2b, qwen2-72b, olmoe-1b-7b,
-    qwen3-moe-235b-a22b).  The train and prefill steps of the other
-    families come with :data:`~repro_torch.core.device.MULTI_CARD`."""
+def check_mesh_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` unless the partitioned steps run
+    ``cfg`` over a mesh: the train, prefill and serve steps run every arch
+    the port knows (:func:`check_supported`)."""
     check_supported(cfg)
-    if kind == "decode":
-        return
-    if cfg.family not in ("dense", "moe") or \
-            tuple(cfg.layer_pattern) != ("global",):
-        raise NotImplementedError(
-            f"the {kind} step of {cfg.name} ({cfg.family}, layers "
-            f"{cfg.layer_pattern}) over a mesh comes with {MULTI_CARD}")
+
+
+def gather_encoder_output(h: torch.Tensor, ctx: ShardingCtx
+                          ) -> torch.Tensor:
+    """The encoder's output in a partitioned step: ``h``, the final norm
+    of this rank's block of the encoder's sequence, all-gathered over
+    ``"model"`` (``models.layers.sp_enter`` on the encoder's context), so
+    every rank holds it whole.  Each rank's cross-attention heads give a
+    share of its cotangent; the gather's backward sums the shares once and
+    keeps the rank's block (nothing ``pvary``-s it again)."""
+    return L.sp_enter(h, ctx)
 
 
 def layer_kinds(cfg: ModelConfig) -> List[str]:
@@ -364,11 +369,12 @@ class Attention(nn.Module):
                        bias)
 
     def _qkv_mesh(self, x: torch.Tensor, ctx: ShardingCtx, q_keep: tuple,
-                  kv_keep: tuple):
-        """q, k and v of ``x`` (no RoPE) on this rank's kernels: ``keep``
-        ``("model",)`` gives the rank's heads, ``()`` all of them.  The
-        fused kernel is gathered whole (its blocks would cut q's columns
-        from k's); the caller picks the heads it needs."""
+                  kv_keep: tuple, kv_x: Optional[torch.Tensor] = None):
+        """q of ``x`` and k, v of ``kv_x`` (default ``x``; the encoder's
+        output for cross-attention), no RoPE, on this rank's kernels:
+        ``keep`` ``("model",)`` gives the rank's heads, ``()`` all of them.
+        The fused kernel is gathered whole (its blocks would cut q's
+        columns from k's); the caller picks the heads it needs."""
         cfg = self.cfg
         if hasattr(self, "wqkv"):
             nq = cfg.num_heads * cfg.head_dim
@@ -377,19 +383,58 @@ class Attention(nn.Module):
             return (self._heads(y[..., :nq], cfg.num_heads),
                     self._heads(y[..., nq:nq + nkv], cfg.num_kv_heads),
                     self._heads(y[..., nq + nkv:], cfg.num_kv_heads))
+        kv_x = x if kv_x is None else kv_x
         out = []
-        for name, keep in (("wq", q_keep), ("wk", kv_keep),
-                           ("wv", kv_keep)):
-            y = self._proj(x, name, ctx, keep)
+        for name, src, keep in (("wq", x, q_keep), ("wk", kv_x, kv_keep),
+                                ("wv", kv_x, kv_keep)):
+            y = self._proj(src, name, ctx, keep)
             out.append(y.reshape(y.shape[0], y.shape[1], -1,
                                  cfg.head_dim))
         return tuple(out)
 
-    def forward_mesh(self, x: torch.Tensor, ctx: ShardingCtx
+    def _rope_mesh(self, q: torch.Tensor, k: torch.Tensor,
+                   positions: Optional[torch.Tensor], s0: int):
+        """RoPE of q and k, whose rows are the sequence's ``[s0, s0 + S)``:
+        M-RoPE on those columns of ``positions`` (``[3, B, S_global]``,
+        the data shard's) where the config has it and they are given,
+        1-D RoPE otherwise, none for ``encdec`` (and for the encoder's and
+        cross-attention's kinds)."""
+        cfg = self.cfg
+        if cfg.family == "encdec" or self.kind in ("encoder", "cross"):
+            return q, k
+        b, s = q.shape[:2]
+        if cfg.mrope and positions is not None and positions.dim() == 3:
+            pos = positions[:, :, s0:s0 + s].to(q.device)
+            return (L.apply_mrope(q, pos, cfg.rope_theta),
+                    L.apply_mrope(k, pos, cfg.rope_theta))
+        pos = (s0 + torch.arange(s, device=q.device))[None].expand(b, s)
+        return (L.apply_rope(q, pos, cfg.rope_theta),
+                L.apply_rope(k, pos, cfg.rope_theta))
+
+    def _attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                ctx: ShardingCtx, q_offset: int) -> torch.Tensor:
+        """The mask of this kind, q's rows at ``q_offset`` of K/V's: a
+        sliding window where the step's global sequence exceeds it (a
+        ``"local"`` layer; the reference tests the global shape), causal
+        for ``"global"``, none for ``"encoder"`` and ``"cross"``."""
+        if self.kind == "local" and ctx.dims["s"] > self.cfg.window_size:
+            return A.local_attention(q, k, v, window=self.cfg.window_size,
+                                     q_offset=q_offset)
+        return A.chunked_attention(q, k, v,
+                                   causal=self.kind in ATTENTION_KINDS,
+                                   q_offset=q_offset)
+
+    def forward_mesh(self, x: torch.Tensor, ctx: ShardingCtx,
+                     positions: Optional[torch.Tensor] = None,
+                     enc_out: Optional[torch.Tensor] = None
                      ) -> torch.Tensor:
-        """Causal attention in a partitioned step on ``x``, ln1 of this
-        rank's block of the residual stream; returns the sublayer's output
-        in the same layout.
+        """The attention of this kind in a partitioned step on ``x``, the
+        norm of this rank's block of the residual stream; returns the
+        sublayer's output in the same layout.  ``positions`` are
+        qwen2-vl's M-RoPE streams ``[3, B / dp, S]`` (None: 1-D RoPE);
+        ``enc_out`` is the encoder's output, whole over ``"model"``, for a
+        ``"cross"`` layer (its K/V; no RoPE, no mask).  The mask is the
+        kind's (:meth:`_attend`).
 
         * Heads over ``"model"`` (the rule of ``"heads_bshd"`` splits them,
           ``num_heads % tp == 0``): the sequence is gathered, q is
@@ -400,20 +445,23 @@ class Attention(nn.Module):
           reduce-scattered along the sequence.
         * Otherwise the context-parallel fallback: every rank computes all
           heads of its block of the queries on the whole kernels, K and V
-          of its block are gathered along the sequence, and the causal mask
-          and RoPE positions are offset by the block's first row; its
-          output is already the rank's block.  Where ``"model"`` does not
-          divide the sequence either, every rank computes the whole layer.
+          of its block are gathered along the sequence (a cross layer's
+          are whole already), and the mask and RoPE positions are offset
+          by the block's first row (a local window reads the keys of the
+          block before); its output is already the rank's block.  Where
+          ``"model"`` does not divide the sequence either, every rank
+          computes the whole layer.
         """
         cfg, mesh = self.cfg, ctx.process_mesh
         tp, mi = mesh.shape["model"], mesh.axis_index("model")
+        cross = self.kind == "cross"
         if ctx.parts("heads_bshd", 2) > 1:
             h = L.sp_enter(x, ctx)
             b, s, _ = h.shape
             hl, h0 = cfg.num_heads // tp, mi * (cfg.num_heads // tp)
             kv_split = ctx.parts("kv_bskd", 2) > 1
             q, k, v = self._qkv_mesh(h, ctx, ("model",),
-                                     ("model",) if kv_split else ())
+                                     ("model",) if kv_split else (), enc_out)
             if q.shape[2] != hl:                     # the fused kernel
                 q = q[:, :, h0:h0 + hl]
                 if kv_split:
@@ -423,29 +471,26 @@ class Attention(nn.Module):
             if not kv_split:
                 k, v = kv_for_heads(k, h0, hl, cfg.num_heads), \
                     kv_for_heads(v, h0, hl, cfg.num_heads)
-            pos = torch.arange(s, device=x.device)[None].expand(b, s)
-            q = L.apply_rope(q, pos, cfg.rope_theta)
-            k = L.apply_rope(k, pos, cfg.rope_theta)
+            q, k = self._rope_mesh(q, k, positions, 0)
             q = ctx.constrain(q, "heads_bshd")
             if kv_split:
-                k, v = ctx.constrain(k, "kv_bskd"), ctx.constrain(v, "kv_bskd")
-            o = ctx.constrain(A.chunked_attention(q, k, v, causal=True),
-                              "heads_bshd")
+                full = (ctx.dims["b"], k.shape[1], cfg.num_kv_heads,
+                        cfg.head_dim)
+                k = ctx.constrain(k, "kv_bskd", full)
+                v = ctx.constrain(v, "kv_bskd", full)
+            o = ctx.constrain(self._attend(q, k, v, ctx, 0), "heads_bshd")
             wo = L.mesh_param(self.wo, "kernel", ctx, o.dtype)
             return L.sp_exit(o.reshape(b, s, -1) @ wo, ctx, partial=True)
         cp = ctx.parts("heads_bshd", 1) > 1
         b, sl, _ = x.shape
         s0 = mi * sl if cp else 0
-        q, k, v = self._qkv_mesh(x, ctx, (), ())
-        pos = (s0 + torch.arange(sl, device=x.device))[None].expand(b, sl)
-        q = ctx.constrain(L.apply_rope(q, pos, cfg.rope_theta),
-                          "heads_bshd")
-        k = L.apply_rope(k, pos, cfg.rope_theta)
-        if cp:
+        q, k, v = self._qkv_mesh(x, ctx, (), (), enc_out)
+        q, k = self._rope_mesh(q, k, positions, s0)
+        q = ctx.constrain(q, "heads_bshd")
+        if cp and not cross:
             k = comm.all_gather(k, "model", dim=1, tiled=True, mesh=mesh)
             v = comm.all_gather(v, "model", dim=1, tiled=True, mesh=mesh)
-        o = ctx.constrain(A.chunked_attention(q, k, v, causal=True,
-                                              q_offset=s0), "heads_bshd")
+        o = ctx.constrain(self._attend(q, k, v, ctx, s0), "heads_bshd")
         return o.reshape(b, sl, -1) @ L.mesh_param(self.wo, "kernel", ctx,
                                                    o.dtype, keep=())
 
@@ -627,7 +672,7 @@ class Block(nn.Module):
                 enc_out: Optional[torch.Tensor] = None,
                 ctx: ShardingCtx = NO_SHARDING) -> torch.Tensor:
         if ctx.process_mesh is not None:
-            return self.forward_mesh(x, gmm, ctx)
+            return self.forward_mesh(x, positions, gmm, enc_out, ctx)
         # whisper's encoder constrains only its MLP, as the reference's.
         x = x + self.attn(self.ln1(x), positions,
                           NO_SHARDING if self.attn.kind == "encoder" else ctx)
@@ -635,14 +680,21 @@ class Block(nn.Module):
             x = x + self.cross.cross(self.ln_cross(x), enc_out)
         return self.ffn(x, gmm, ctx)
 
-    def forward_mesh(self, x: torch.Tensor, gmm: GroupedMatmul,
+    def forward_mesh(self, x: torch.Tensor,
+                     positions: Optional[torch.Tensor], gmm: GroupedMatmul,
+                     enc_out: Optional[torch.Tensor],
                      ctx: ShardingCtx) -> torch.Tensor:
         """The layer in a partitioned step, on this rank's block ``x`` of
-        the residual stream: attention (:meth:`Attention.forward_mesh`),
-        then the dense FFN (``MLP.forward_mesh``) or the expert-parallel
-        MoE on the gathered tokens of the data shard, whose
-        ``psum_scatter`` (or ``psum``) is the sublayer's exit."""
-        x = x + self.attn.forward_mesh(self.ln1(x, ctx), ctx)
+        the residual stream: attention of its kind
+        (:meth:`Attention.forward_mesh`, with qwen2-vl's ``positions``),
+        whisper's cross-attention on ``enc_out`` in a decoder layer, then
+        the dense FFN (``MLP.forward_mesh``) or the expert-parallel MoE on
+        the gathered tokens of the data shard, whose ``psum_scatter`` (or
+        ``psum``) is the sublayer's exit."""
+        x = x + self.attn.forward_mesh(self.ln1(x, ctx), ctx, positions)
+        if hasattr(self, "cross"):
+            x = x + self.cross.forward_mesh(self.ln_cross(x, ctx), ctx,
+                                            enc_out=enc_out)
         h = self.ln2(x, ctx)
         if hasattr(self, "moe"):
             return x + self.moe.forward_sharded(
@@ -697,7 +749,10 @@ class MambaBlock(nn.Module):
     def forward(self, x: torch.Tensor, positions=None, gmm=None,
                 enc_out=None, ctx: ShardingCtx = NO_SHARDING
                 ) -> torch.Tensor:
-        return x + S.mamba_forward(self.mamba, self.ln(x), ctx=ctx)
+        """In a partitioned step ``x`` is this rank's block of the
+        residual stream and the scan runs on the rank's channels
+        (``models.ssm.mamba_forward``)."""
+        return x + S.mamba_forward(self.mamba, self.ln(x, ctx), ctx=ctx)
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                pos: int, positions, gmm, ctx=NO_SHARDING) -> torch.Tensor:
@@ -735,8 +790,11 @@ class RGLRUBlock(nn.Module):
     def forward(self, x: torch.Tensor, positions=None, gmm=None,
                 enc_out=None, ctx: ShardingCtx = NO_SHARDING
                 ) -> torch.Tensor:
-        x = x + R.rglru_forward(self.rglru, self.ln1(x), ctx=ctx)
-        return x + self.mlp(self.ln2(x), ctx)
+        """In a partitioned step ``x`` is this rank's block of the
+        residual stream: the RG-LRU runs on the rank's channels
+        (``models.rglru.rglru_forward``), the MLP column/row-parallel."""
+        x = x + R.rglru_forward(self.rglru, self.ln1(x, ctx), ctx=ctx)
+        return x + self.mlp(self.ln2(x, ctx), ctx)
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                pos: int, positions, gmm, ctx=NO_SHARDING) -> torch.Tensor:
@@ -878,9 +936,8 @@ class LM(nn.Module):
         ``models.layers.mesh_param`` reads; the model keeps the mesh and
         the specs (:attr:`mesh`, :attr:`param_specs`).
 
-        Every arch shards (the serve step runs all of them); the train and
-        prefill steps refuse the families they do not run
-        (:func:`check_mesh_supported`).
+        Every arch shards: the train, prefill and serve steps run all of
+        them.
 
         Raises:
             ValueError: a model already sharded, or an MoE block that the
@@ -930,14 +987,82 @@ class LM(nn.Module):
         """whisper's encoder on ``frames [B, S_enc, d]`` (the stubbed
         front end's embeddings): the frames in the compute dtype plus the
         sinusoidal table, the bidirectional layers (checkpointed under
-        ``remat`` where gradients are recorded), the final norm."""
+        ``remat`` where gradients are recorded), the final norm.  With a
+        partitioned step's ``ctx`` (train, prefill or serve, on the mesh
+        this model was :meth:`shard`-ed on), :meth:`encode_mesh` runs.
+
+        Raises:
+            ValueError: a config without an encoder.
+        """
         if self.cfg.family != "encdec":
             raise ValueError(f"{self.cfg.name} has no encoder")
+        if ctx.process_mesh is not None:
+            return self.encode_mesh(frames, remat, ctx)
         x = frames.to(self.device).to(self.dtype)
         x = x + self._sinusoid(x.shape[1]).to(x.dtype)
         for block in self.encoder.layers:
             x = self._layer(block, remat, x, None, None, None, ctx)
         return self.encoder.norm(x)
+
+    def encoder_ctx(self, ctx: ShardingCtx) -> ShardingCtx:
+        """The context of whisper's encoder in a partitioned step on
+        ``ctx``'s mesh: the policy's rules and dims of a prefill of the
+        step's global batch at ``encoder_seq`` tokens, whatever the step
+        (a serve step's context has only decode rules)."""
+        cfg, b = self.cfg, ctx.dims["b"]
+        shape = ShapeConfig("encoder", cfg.encoder_seq, b, "prefill")
+        return ShardingCtx(SH.activation_rules(cfg, ctx.process_mesh, shape),
+                           ctx.process_mesh,
+                           dims=step_dims(cfg, b, cfg.encoder_seq))
+
+    def encode_mesh(self, frames: torch.Tensor, remat: bool,
+                    ctx: ShardingCtx) -> torch.Tensor:
+        """:meth:`encode` in a partitioned step: ``frames [B / dp, S_enc,
+        d]``, this rank's data shard, -> the encoder's output ``[B / dp,
+        S_enc, d]``, whole on every rank of ``"model"``.  The encoder's
+        stream is sequence-parallel as the decoder's
+        (:meth:`encoder_ctx`): the rank keeps its block of the frames plus
+        the sinusoidal table, each bidirectional layer takes and returns
+        its block (heads over ``"model"``, the MLP column/row-parallel),
+        the final norm runs on the block, and
+        :func:`gather_encoder_output` gathers it.
+
+        Raises:
+            ValueError: the model was not sharded on ``ctx``'s mesh.
+        """
+        if self.mesh is not ctx.process_mesh:
+            raise ValueError("the model is not sharded on this step's mesh: "
+                             "call LM.shard(mesh) first")
+        ectx = self.encoder_ctx(ctx)
+        x = frames.to(self.device).to(self.dtype)
+        x = x + self._sinusoid(x.shape[1]).to(x.dtype)
+        x = ectx.constrain(L.sp_exit(x, ectx, partial=False), "tokens_bse")
+        for block in self.encoder.layers:
+            x = ectx.constrain(self._layer(block, remat, x, None, None, None,
+                                           ectx), "tokens_bse")
+        return gather_encoder_output(self.encoder.norm(x, ectx), ectx)
+
+    def _front_mesh(self, x: torch.Tensor,
+                    mm_embeds: Optional[torch.Tensor],
+                    ctx: ShardingCtx) -> torch.Tensor:
+        """:meth:`_embed_tokens`' qwen2-vl and whisper terms on this rank's
+        block ``x`` of the embedded stream (rows ``[s0, s0 + S_blk)``):
+        ``mm_proj(mm_embeds)`` (column-parallel, its output all-gathered
+        over ``"model"`` on every rank) replaces the rows below ``n_mm``,
+        and whisper adds the sinusoidal table's rows of the block."""
+        sl = x.shape[1]
+        s0 = ctx.process_mesh.axis_index("model") * sl \
+            if L.sequence_parallel(ctx) else 0
+        if self.cfg.family == "vlm" and mm_embeds is not None:
+            mm = L.column_gather(mm_embeds.to(self.device).to(x.dtype),
+                                 self.mm_proj, ctx)
+            # Every rank uses its slice, empty or not, so that every rank
+            # runs the gather's backward.
+            rows = mm[:, s0:s0 + sl]
+            x = torch.cat([rows, x[:, rows.shape[1]:]], dim=1)
+        if self.cfg.family == "encdec":
+            x = x + self._sinusoid(s0 + sl)[s0:s0 + sl].to(x.dtype)
+        return x
 
     def _embed_tokens(self, tokens: torch.Tensor,
                       mm_embeds: Optional[torch.Tensor],
@@ -979,7 +1104,9 @@ class LM(nn.Module):
         """
         cfg = self.cfg
         if ctx.process_mesh is not None:
-            return self.forward_mesh(tokens, gmm, remat=remat,
+            return self.forward_mesh(tokens, gmm, frames=frames,
+                                     mm_embeds=mm_embeds,
+                                     positions_3d=positions_3d, remat=remat,
                                      return_pre_logits=return_pre_logits,
                                      ctx=ctx)
         if cfg.family == "encdec" and frames is None:
@@ -1004,35 +1131,48 @@ class LM(nn.Module):
 
     def forward_mesh(self, tokens: torch.Tensor,
                      gmm: GroupedMatmul = grouped_matmul, *,
+                     frames: Optional[torch.Tensor] = None,
+                     mm_embeds: Optional[torch.Tensor] = None,
+                     positions_3d: Optional[torch.Tensor] = None,
                      remat: bool = True, return_pre_logits: bool = False,
                      ctx: ShardingCtx) -> torch.Tensor:
         """:meth:`forward` in a partitioned step (``ctx`` with the
         ``ProcessMesh`` this model was :meth:`shard`-ed on): ``tokens [B /
-        dp, S]``, this rank's data shard (``launch.sharding.batch_shard``)
-        -> fp32 logits ``[B / dp, S, V_padded / tp]`` of its vocab block,
-        or the gathered final-norm hidden states ``[B / dp, S, d]`` when
-        ``return_pre_logits``.  The embedding (:func:`models.layers.
-        embed_mesh`) leaves the residual stream split along the sequence;
-        each layer (checkpointed under ``remat`` where gradients are
-        recorded: its collectives run again in the recompute, in the same
-        order on every rank) takes and returns its block; the final norm
-        runs on the block, whose gather feeds the head
-        (:meth:`head_mesh`).
+        dp, S]``, this rank's data shard (``launch.sharding.batch_shard``,
+        as are ``frames``, ``mm_embeds`` and ``positions_3d [3, B / dp,
+        S]``) -> fp32 logits ``[B / dp, S, V_padded / tp]`` of its vocab
+        block, or the gathered final-norm hidden states ``[B / dp, S, d]``
+        when ``return_pre_logits``.  The embedding (:func:`models.layers.
+        embed_mesh`, then :meth:`_front_mesh`) leaves the residual stream
+        split along the sequence; whisper's encoder runs over the mesh
+        (:meth:`encode_mesh`) and its output feeds every decoder layer's
+        cross-attention; each layer (checkpointed under ``remat`` where
+        gradients are recorded: its collectives run again in the
+        recompute, in the same order on every rank) takes and returns its
+        block; the final norm runs on the block, whose gather feeds the
+        head (:meth:`head_mesh`).
 
         Raises:
-            ValueError: the model was not sharded on ``ctx``'s mesh.
+            ValueError: the model was not sharded on ``ctx``'s mesh, or an
+                ``encdec`` config without ``frames``.
         """
-        check_mesh_supported(self.cfg, "train" if torch.is_grad_enabled()
-                             else "prefill")
+        cfg = self.cfg
         if self.mesh is not ctx.process_mesh:
             raise ValueError("the model is not sharded on this step's mesh: "
                              "call LM.shard(mesh) first")
-        x = ctx.constrain(L.embed_mesh(self.embed, tokens.to(self.device),
-                                       ctx, scale_embed(self.cfg),
-                                       self.dtype), "tokens_bse")
+        if cfg.family == "encdec" and frames is None:
+            raise ValueError(f"{cfg.name}: forward needs the encoder's "
+                             f"frames")
+        x = L.embed_mesh(self.embed, tokens.to(self.device), ctx,
+                         scale_embed(cfg), self.dtype)
+        x = ctx.constrain(self._front_mesh(x, mm_embeds, ctx), "tokens_bse")
+        positions = positions_3d.to(self.device) \
+            if cfg.mrope and positions_3d is not None else None
+        enc_out = self.encode_mesh(frames, remat, ctx) \
+            if cfg.family == "encdec" else None
         for block in self.layers:
-            x = ctx.constrain(self._layer(block, remat, x, None, gmm, None,
-                                          ctx), "tokens_bse")
+            x = ctx.constrain(self._layer(block, remat, x, positions, gmm,
+                                          enc_out, ctx), "tokens_bse")
         h = L.sp_enter(self.final_norm(x, ctx), ctx)
         if return_pre_logits:
             return h
@@ -1112,18 +1252,46 @@ class LM(nn.Module):
         return cache
 
     def prime_cross_cache(self, cache: List[Dict[str, torch.Tensor]],
-                          enc_out: torch.Tensor
+                          enc_out: torch.Tensor,
+                          specs: Optional[List[Dict[str, tuple]]] = None
                           ) -> List[Dict[str, torch.Tensor]]:
         """Fill every decoder layer's cross K/V from the encoder's output
         ``[B, S_enc, d]``, in the compute dtype, in place; returns the
-        cache."""
-        if self.mesh is not None:
-            raise NotImplementedError(f"the encoder over a mesh comes with "
-                                      f"{MULTI_CARD}")
-        for block, layer in zip(self.layers, cache):
-            k, v = block.cross.kv(enc_out)
-            layer["cross_k"] = k.to(self.dtype)
-            layer["cross_v"] = v.to(self.dtype)
+        cache.
+
+        On a model :meth:`shard`-ed on a mesh, ``enc_out`` is this rank's
+        data shard of the output, whole over ``"model"``
+        (:meth:`encode_mesh`), ``cache`` holds this rank's blocks and
+        ``specs`` are the cache's (``make_serve_step``'s
+        ``specs["cache"]``, :meth:`cache_specs`): the rank writes its
+        block of the sequence (over the leftover data axes and
+        ``"model"``), its rows of ``enc_out`` through ``wk`` and ``wv``
+        gathered whole (every head; the ranks of ``"model"`` hold
+        different rows, so the column-parallel outputs would not line
+        up).
+
+        Raises:
+            ValueError: a sharded model without ``specs``.
+        """
+        if self.mesh is None:
+            for block, layer in zip(self.layers, cache):
+                k, v = block.cross.kv(enc_out)
+                layer["cross_k"] = k.to(self.dtype)
+                layer["cross_v"] = v.to(self.dtype)
+            return cache
+        if specs is None:
+            raise ValueError("a sharded model's cross cache needs the "
+                             "cache's specs")
+        cfg, mesh = self.cfg, self.mesh
+        ctx = ShardingCtx(mesh=mesh, dims={})
+        for block, layer, spec in zip(self.layers, cache, specs):
+            b, blk = layer["cross_k"].shape[:2]
+            s0 = SH.axes_index(mesh, SH.axes_of(spec["cross_k"][1])) * blk
+            rows = enc_out[:, s0:s0 + blk]
+            for name, proj in (("cross_k", "wk"), ("cross_v", "wv")):
+                y = block.cross._proj(rows, proj, ctx, ())
+                layer[name] = y.reshape(b, blk, cfg.num_kv_heads,
+                                        cfg.head_dim).to(self.dtype)
         return cache
 
     def decode_step(self, cache: List[Dict[str, torch.Tensor]],

@@ -6,7 +6,8 @@ exp(-c softplus(lam) r_t)``, one fp32 state per channel.  The gates ``r``
 and ``i`` come from :data:`NUM_GATE_BLOCKS` diagonal blocks
 (:func:`block_diag`).  :func:`rglru_forward` scans chunks of ``chunk``
 timesteps (one chunk where the length is not a multiple of it), folding
-each chunk's carry into its first element, as ``models.ssm`` does;
+each chunk's carry into its first element, as ``models.ssm`` does (in a
+partitioned step on this rank's channels);
 :func:`rglru_decode` is the O(1) update, and :func:`rglru_decode_mesh`
 the same on a rank's block of the channels in the serve step over a mesh.
 """
@@ -90,22 +91,54 @@ def rglru_forward(p: RGLRU, x: torch.Tensor, *, chunk: int = 512,
                   ctx: ShardingCtx = NO_SHARDING) -> torch.Tensor:
     """x: ``[B, S, d]`` -> ``[B, S, d]``; chunks of ``min(chunk, S)``
     timesteps, or one chunk where ``S`` is not a multiple of that.  The
-    conv's output is constrained as ``"ssm_bsdn"``."""
+    conv's output is constrained as ``"ssm_bsdn"``.
+
+    In a partitioned step (``ctx`` with a process mesh; ``p`` holds this
+    rank's blocks, ``LM.shard``) ``x`` is this rank's block of the
+    residual stream's norm and so is the output: the sequence is gathered
+    (``models.layers.sp_enter``), ``wx`` and ``wy`` are column-parallel
+    (the rank's channels), the conv, ``lam`` and the scan run on the
+    channel block with the rank's gate blocks (:func:`gate_blocks`), and
+    ``out`` is row-parallel, its partial sums reduce-scattered back along
+    the sequence (``sp_exit``).
+
+    Raises:
+        NotImplementedError: ``"model"`` splits the channels but not the
+            gate blocks (:func:`check_gate_split`).
+    """
+    mesh = ctx.process_mesh
+    if mesh is None:
+        branch = F.gelu(p.wy(x), approximate="tanh")
+        xb = p.wx(x)
+        conv_w, conv_b, full = p.conv_w, p.conv_b, None
+        w_r, w_i, lam = p.w_r, p.w_i, p.lam
+    else:
+        check_gate_split(p, ctx)
+        x = L.sp_enter(x, ctx)
+        branch = F.gelu(L.local_dense(x, p.wy, ctx), approximate="tanh")
+        xb = L.local_dense(x, p.wx, ctx)
+        conv_w, conv_b = (L.mesh_param(p, n, ctx) for n in ("conv_w",
+                                                            "conv_b"))
+        (w_r, w_i), lam = gate_blocks(p, ctx), L.mesh_param(p, "lam", ctx)
+        tp = mesh.shape["model"] if L.splits(p, "conv_w", -1, ctx) else 1
+        full = (ctx.dims["b"], x.shape[1], xb.shape[-1] * tp)
     b, s, _ = x.shape
-    branch = F.gelu(p.wy(x), approximate="tanh")
-    xb = ctx.constrain(S.causal_conv(p.wx(x), p.conv_w, p.conv_b),
-                       "ssm_bsdn")
+    xb = ctx.constrain(S.causal_conv(xb, conv_w, conv_b), "ssm_bsdn", full)
     ch = min(chunk, s)
     if s % ch:
         ch = s
     h = xb.new_zeros((b, xb.shape[-1]), dtype=torch.float32)
     outs = []
     for c in range(s // ch):
-        a, gated = gates(p, xb[:, c * ch:(c + 1) * ch])
+        a, gated = gates_of(w_r, w_i, lam, xb[:, c * ch:(c + 1) * ch])
         _, hs = S.linear_scan(a, S.fold_carry(a, gated, h))
         h = hs[:, -1]
         outs.append(hs.to(x.dtype))
-    return p.out(torch.cat(outs, dim=1) * branch)
+    y = torch.cat(outs, dim=1) * branch
+    if mesh is None:
+        return p.out(y)
+    return L.sp_exit(L.local_dense(y, p.out, ctx), ctx,
+                     partial=L.splits(p.out, "kernel", 0, ctx))
 
 
 def init_rglru_cache(p: RGLRU, batch: int,
@@ -142,6 +175,19 @@ def gate_blocks(p: RGLRU, ctx: ShardingCtx):
     return (L.mesh_param(p, "w_r", ctx), L.mesh_param(p, "w_i", ctx))
 
 
+def check_gate_split(p: RGLRU, ctx: ShardingCtx) -> None:
+    """Raise ``NotImplementedError`` where ``"model"`` splits the
+    RG-LRU's channels but not its gate blocks (it does not divide
+    :data:`NUM_GATE_BLOCKS`): a rank's gate blocks would not be its
+    channels'."""
+    if L.splits(p, "conv_w", -1, ctx) != L.splits(p, "w_r", 0, ctx):
+        tp = ctx.process_mesh.shape["model"]
+        raise NotImplementedError(
+            f"a model axis of {tp} splits the RG-LRU's "
+            f"{p.conv_w.shape[-1] * tp} channels but not its "
+            f"{NUM_GATE_BLOCKS} gate blocks")
+
+
 def rglru_decode_mesh(p: RGLRU, cache: Dict[str, torch.Tensor],
                       x: torch.Tensor, ctx: ShardingCtx
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -157,7 +203,7 @@ def rglru_decode_mesh(p: RGLRU, cache: Dict[str, torch.Tensor],
 
     Raises:
         NotImplementedError: ``"model"`` splits the channels but not the
-            gate blocks (it does not divide :data:`NUM_GATE_BLOCKS`).
+            gate blocks (:func:`check_gate_split`).
     """
     mesh = ctx.process_mesh
     branch = F.gelu(L.local_dense(x, p.wy, ctx), approximate="tanh")
@@ -166,11 +212,7 @@ def rglru_decode_mesh(p: RGLRU, cache: Dict[str, torch.Tensor],
                        L.mesh_param(p, "conv_b", ctx), state=cache["conv"])
     new_conv = torch.cat([cache["conv"][:, 1:],
                           xb_raw.to(cache["conv"].dtype)], dim=1)
-    if L.splits(p, "conv_w", -1, ctx) != L.splits(p, "w_r", 0, ctx):
-        raise NotImplementedError(
-            f"a model axis of {mesh.shape['model']} splits the RG-LRU's "
-            f"{p.conv_w.shape[-1] * mesh.shape['model']} channels but not "
-            f"its {NUM_GATE_BLOCKS} gate blocks")
+    check_gate_split(p, ctx)
     a, gated = gates_of(*gate_blocks(p, ctx), L.mesh_param(p, "lam", ctx),
                         xb[:, 0])
     h = a * cache["h"] + gated

@@ -3,7 +3,8 @@
 The counterpart of the reference's ``repro.models.ssm``.  The recurrence
 ``h_t = exp(dt_t A) h_{t-1} + dt_t B_t u_t`` runs in fp32:
 
-* :func:`mamba_forward` (training and prefill) cuts the sequence into
+* :func:`mamba_forward` (training and prefill; in a partitioned step on
+  this rank's channels) cuts the sequence into
   chunks of ``chunk`` timesteps, materialises the ``[B, ch, d_in, N]``
   discretised tensors of one chunk at a time, folds the previous chunk's
   last state into the chunk's first element and runs :func:`linear_scan`
@@ -121,18 +122,33 @@ class Mamba(nn.Module):
         self.out_proj = L.Dense(d_in, d, **kw)
 
 
-def discretize(p: Mamba, u: torch.Tensor):
+def discretize(p: Mamba, u: torch.Tensor,
+               ctx: ShardingCtx = NO_SHARDING):
     """u: ``[..., d_in]`` -> ``(dA, dBu, C)`` in fp32, the state dim
     appended: ``dt = softplus(dt_proj(x_proj(u)[:dt_rank]))``, ``dA =
-    exp(dt A)`` with ``A = -exp(A_log)``, ``dBu = dt u B``."""
-    dt_rank = p.dt_proj.kernel.shape[0]
+    exp(dt A)`` with ``A = -exp(A_log)``, ``dBu = dt u B``.
+
+    In a partitioned step (``ctx`` with a process mesh) ``u`` holds this
+    rank's channels: ``x_proj`` is row-parallel (its partial sums
+    ``psum``-med over ``"model"``, so ``dt_r``, B and C are whole),
+    ``dt_proj``, ``A_log`` and the outputs are on the channel block."""
     state = p.A_log.shape[1]
-    xdbc = p.x_proj(u)
+    if ctx.process_mesh is None:
+        xdbc = p.x_proj(u)
+        a_log = p.A_log
+    else:
+        xdbc = L.local_dense(u, p.x_proj, ctx)
+        if L.splits(p.x_proj, "kernel", 0, ctx):
+            xdbc = comm.psum(xdbc, "model", mesh=ctx.process_mesh)
+        a_log = L.mesh_param(p, "A_log", ctx)
+    dt_rank = xdbc.shape[-1] - 2 * state
     dt_r = xdbc[..., :dt_rank]
     bc = xdbc[..., dt_rank:dt_rank + state].float()
     cc = xdbc[..., dt_rank + state:].float()
-    dt = F.softplus(p.dt_proj(dt_r).float())                 # [..., d_in]
-    a = -torch.exp(p.A_log.float())                          # [d_in, N]
+    dt_lin = p.dt_proj(dt_r) if ctx.process_mesh is None else \
+        L.local_dense(dt_r, p.dt_proj, ctx)
+    dt = F.softplus(dt_lin.float())                          # [..., d_in]
+    a = -torch.exp(a_log.float())                            # [d_in, N]
     da = torch.exp(dt[..., None] * a)                        # [..., d_in, N]
     dbu = (dt * u.float())[..., None] * bc[..., None, :]
     return da, dbu, cc
@@ -142,24 +158,47 @@ def mamba_forward(p: Mamba, x: torch.Tensor, *, chunk: int = 256,
                   ctx: ShardingCtx = NO_SHARDING) -> torch.Tensor:
     """x: ``[B, S, d]`` -> ``[B, S, d]``.  ``S`` must be a multiple of
     ``min(chunk, S)``.  The conv's output is constrained as
-    ``"ssm_bsdn"``."""
+    ``"ssm_bsdn"``.
+
+    In a partitioned step (``ctx`` with a process mesh; ``p`` holds this
+    rank's blocks, ``LM.shard``) ``x`` is this rank's block of the
+    residual stream's norm and so is the output: the sequence is gathered
+    (``models.layers.sp_enter``), ``u`` and ``z`` are the rank's channels
+    (:func:`in_proj_channels`), the conv, :func:`discretize`, the scan and
+    ``D`` run on them, and ``out_proj`` is row-parallel, its partial sums
+    reduce-scattered back along the sequence (``sp_exit``).  Where
+    ``"model"`` does not split the channels, every rank computes all of
+    them and keeps its block."""
+    mesh = ctx.process_mesh
+    if mesh is None:
+        u, z = torch.chunk(p.in_proj(x), 2, dim=-1)
+        conv_w, conv_b, d_skip, full = p.conv_w, p.conv_b, p.D, None
+    else:
+        x = L.sp_enter(x, ctx)
+        u, z = in_proj_channels(p, x, ctx)
+        conv_w, conv_b, d_skip = (L.mesh_param(p, n, ctx)
+                                  for n in ("conv_w", "conv_b", "D"))
+        tp = mesh.shape["model"] if L.splits(p, "conv_w", -1, ctx) else 1
+        full = (ctx.dims["b"], x.shape[1], u.shape[-1] * tp)
     B, S, _ = x.shape
     ch = min(chunk, S)
     assert S % ch == 0
-    u, z = torch.chunk(p.in_proj(x), 2, dim=-1)
-    u = ctx.constrain(F.silu(causal_conv(u, p.conv_w, p.conv_b)),
-                      "ssm_bsdn")
+    u = ctx.constrain(F.silu(causal_conv(u, conv_w, conv_b)), "ssm_bsdn",
+                      full)
     h = u.new_zeros((B, u.shape[-1], p.A_log.shape[1]), dtype=torch.float32)
     ys = []
     for c in range(S // ch):
-        da, dbu, cc = discretize(p, u[:, c * ch:(c + 1) * ch])
+        da, dbu, cc = discretize(p, u[:, c * ch:(c + 1) * ch], ctx)
         _, hs = linear_scan(da, fold_carry(da, dbu, h))
         h = hs[:, -1]
         ys.append(torch.einsum("bsdn,bsn->bsd", hs, cc).to(x.dtype))
     y = torch.cat(ys, dim=1)
-    y = y + u * p.D.to(x.dtype)
+    y = y + u * d_skip.to(x.dtype)
     y = y * F.silu(z)
-    return p.out_proj(y)
+    if mesh is None:
+        return p.out_proj(y)
+    return L.sp_exit(L.local_dense(y, p.out_proj, ctx), ctx,
+                     partial=L.splits(p.out_proj, "kernel", 0, ctx))
 
 
 def init_mamba_cache(p: Mamba, batch: int,
@@ -223,11 +262,9 @@ def mamba_decode_mesh(p: Mamba, cache: Dict[str, torch.Tensor],
     [B, d_in / tp, N]`` blocks; x ``[B, 1, d]`` is whole on every rank of
     ``"model"``, and so is the output.
 
-    ``u`` and ``z`` come from :func:`in_proj_channels`.  ``x_proj`` is
-    row-parallel (its
-    partial sums ``psum``-med, so ``dt_r``, B and C are whole),
-    ``dt_proj`` column-parallel (the rank's channels of ``dt``), and
-    ``out_proj`` row-parallel with a ``psum``.  Where ``"model"`` does not
+    ``u`` and ``z`` come from :func:`in_proj_channels`, ``dt``, B and C
+    from :func:`discretize` on the mesh, and ``out_proj`` is row-parallel
+    with a ``psum``.  Where ``"model"`` does not
     split the channels, every rank computes all of them."""
     mesh = ctx.process_mesh
     u, z = in_proj_channels(p, x, ctx)
@@ -236,18 +273,7 @@ def mamba_decode_mesh(p: Mamba, cache: Dict[str, torch.Tensor],
                                L.mesh_param(p, "conv_b", ctx),
                                state=conv_in))
     new_conv = torch.cat([conv_in[:, 1:], u.to(conv_in.dtype)], dim=1)
-    state = p.A_log.shape[1]
-    xdbc = L.local_dense(u_act[:, 0], p.x_proj, ctx)
-    if L.splits(p.x_proj, "kernel", 0, ctx):
-        xdbc = comm.psum(xdbc, "model", mesh=mesh)
-    dt_rank = xdbc.shape[-1] - 2 * state
-    dt_r = xdbc[..., :dt_rank]
-    bc = xdbc[..., dt_rank:dt_rank + state].float()
-    cc = xdbc[..., dt_rank + state:].float()
-    dt = F.softplus(L.local_dense(dt_r, p.dt_proj, ctx).float())
-    a = -torch.exp(L.mesh_param(p, "A_log", ctx).float())
-    da = torch.exp(dt[..., None] * a)
-    dbu = (dt * u_act[:, 0].float())[..., None] * bc[..., None, :]
+    da, dbu, cc = discretize(p, u_act[:, 0], ctx)
     h = da * cache["h"] + dbu
     y = torch.einsum("bdn,bn->bd", h, cc)[:, None, :].to(x.dtype)
     y = y + u_act * L.mesh_param(p, "D", ctx).to(x.dtype)

@@ -3,9 +3,8 @@ over the padded vocab, backward, AdamW (the reference's
 ``repro.train.train_step.make_train_step``), and the prefill and serve
 steps (``make_prefill_step``, ``make_serve_step``).
 
-Over a mesh (a ``launch.mesh.ProcessMesh``; the train and prefill steps
-for the ``dense`` and ``moe`` archs of global attention, the serve step
-for all ten archs) the steps are the per-rank programs that XLA's
+Over a mesh (a ``launch.mesh.ProcessMesh``; the train, prefill and serve
+steps of all ten archs) the steps are the per-rank programs that XLA's
 partitioner derives from the reference's policy (``launch.sharding``):
 every rank holds its block of each parameter (``LM.shard``) and of the
 optimiser state, and its data shard of the batch
@@ -22,8 +21,7 @@ loss.  The serve step decodes one token per row against the decode cache
 split along its sequence (``launch.sharding.cache_pspecs``): each
 attention layer's softmax is combined over the cache's blocks
 (``models.attention.combine``), and a recurrent layer's state is split
-by its channels.  The train and prefill steps of the other families over
-a mesh come with ``core.device.MULTI_CARD``.
+by its channels.
 
 Microbatch gradient accumulation (``grad_accum``) sums the fp32
 micro-gradients and scales them, as the reference does.  The step updates
@@ -150,9 +148,9 @@ def step_specs(cfg: ModelConfig, shape: ShapeConfig, mesh) -> Dict:
             "batch": SH.batch_pspecs(cfg, mesh, shape)}
 
 
-def _check_mesh(cfg: ModelConfig, mesh, what: str, kind: str) -> None:
+def _check_mesh(cfg: ModelConfig, mesh, what: str) -> None:
     from repro_torch.models.model import check_mesh_supported
-    check_mesh_supported(cfg, kind)
+    check_mesh_supported(cfg)
     if not isinstance(mesh, ProcessMesh):
         raise TypeError(f"{what} over a mesh runs on a launch.mesh."
                         f"ProcessMesh (one rank per process), not "
@@ -210,7 +208,12 @@ def make_grads(cfg: ModelConfig, *, remat: bool = True,
     (``launch.sharding.batch_shard`` with the same ``grad_accum``, so that
     its micro-batch ``i`` is its rows of the reference's micro-batch
     ``i``); the gradients are of the blocks, and the loss is the global
-    mean on every rank."""
+    mean on every rank.
+
+    ``grads_fn`` raises ``ValueError`` for a batch with ``positions_3d``
+    at ``grad_accum`` > 1: the micro-batches split every entry along its
+    first axis, and M-RoPE's positions are ``[3, B, S]`` (the reference's
+    step cannot split them either)."""
     mesh = ctx.process_mesh
 
     def loss_fn(model, batch):
@@ -238,6 +241,11 @@ def make_grads(cfg: ModelConfig, *, remat: bool = True,
             loss = loss_fn(model, batch)
             grads = torch.autograd.grad(loss, leaves)
             return metric(loss), dict(zip(names, grads))
+        if "positions_3d" in batch:
+            raise ValueError(
+                f"grad_accum {grad_accum} splits every batch entry along "
+                f"its first axis, and positions_3d is [3, B, S]: a batch "
+                f"with M-RoPE positions takes grad_accum 1")
         micro = {k: v.reshape((grad_accum, v.shape[0] // grad_accum)
                               + tuple(v.shape[1:])) for k, v in batch.items()}
         loss_acc = torch.zeros((), dtype=torch.float32, device=model.device)
@@ -278,14 +286,14 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *,
     and ``batch``.
 
     Raises:
-        NotImplementedError: a mesh with an arch other than the ``dense``
-            and ``moe`` ones of global attention (``MULTI_CARD``).
         TypeError: a mesh that is not a ``ProcessMesh``.
+        ValueError: a step on a batch with ``positions_3d`` at
+            ``grad_accum`` > 1 (:func:`make_grads`).
     """
     ctx = NO_SHARDING
     specs = None
     if mesh is not None:
-        _check_mesh(cfg, mesh, "make_train_step", "train")
+        _check_mesh(cfg, mesh, "make_train_step")
         ctx = make_ctx(cfg, mesh, shape, grad_accum)
         specs = step_specs(cfg, shape, mesh)
     sched = functools.partial(cosine_with_warmup, **(schedule_kwargs or {}))
@@ -318,13 +326,11 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
     ``logits`` (the reference's ``P(dp, None, "model")``).
 
     Raises:
-        NotImplementedError: a mesh with an arch other than the ``dense``
-            and ``moe`` ones of global attention (``MULTI_CARD``).
         TypeError: a mesh that is not a ``ProcessMesh``.
     """
     default, specs = NO_SHARDING, None
     if mesh is not None:
-        _check_mesh(cfg, mesh, "make_prefill_step", "prefill")
+        _check_mesh(cfg, mesh, "make_prefill_step")
         default = make_ctx(cfg, mesh, shape)
         full = step_specs(cfg, shape, mesh)
         dp, _ = SH.dp_axes_for_batch(mesh, shape.global_batch)
@@ -363,7 +369,7 @@ def make_serve_step(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
     """
     default, specs = NO_SHARDING, None
     if mesh is not None:
-        _check_mesh(cfg, mesh, "make_serve_step", "decode")
+        _check_mesh(cfg, mesh, "make_serve_step")
         if shape.kind != "decode":
             raise ValueError(f"the serve step over a mesh takes a decode "
                              f"shape, not {shape.kind!r}")

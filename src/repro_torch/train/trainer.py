@@ -59,14 +59,11 @@ class Trainer:
     Args:
         cfg, shape, tcfg, opt_cfg, data_cfg: as the reference's.
         mesh: None, or this rank's ``launch.mesh.ProcessMesh`` (a
-            partitioned step; ``cfg`` a ``dense`` or ``moe`` arch of
-            global attention).
+            partitioned step; any arch).
         device: where the model and the state live (None: the card; the
             mesh's device over a mesh).
 
     Raises:
-        NotImplementedError: a mesh with another arch
-            (``core.device.MULTI_CARD``).
         TypeError: a mesh that is not a ``ProcessMesh``.
     """
 

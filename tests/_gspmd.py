@@ -24,6 +24,7 @@ from __future__ import annotations
 import json
 import os
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -106,9 +107,29 @@ for case in cases:
     if kind == "prefill":
         fn, sh = TS.make_prefill_step(cfg, shape, mesh)
         params = jax.device_put(tree, sh["params"])
-        logits = fn(params, {"tokens": jnp.asarray(data[name + "/tokens"])})
+        logits = fn(params, {k: jnp.asarray(data[f"{name}/{k}"])
+                             for k in sh["batch"]})
         out[name + "/logits"] = np.asarray(logits)
         info[name] = {"logits": where(logits, mesh)}
+        continue
+    if kind == "prime":
+        # whisper's cross cache: the encoder and prime_cross_cache on the
+        # whole arrays, the cache's specs and each device's shard index.
+        from repro.launch import sharding as SH
+        dshape = ShapeConfig("d", case["cache_len"], case["batch"], "decode")
+        enc = jax.jit(lambda p, f: M._run_encoder(cfg, p, f, TS.NO_SHARDING,
+                                                   remat=False))(
+            tree, jnp.asarray(data[name + "/frames"]))
+        cache = jax.jit(lambda p, e: M.prime_cross_cache(
+            cfg, p, M.init_cache(cfg, case["batch"], case["cache_len"]),
+            e))(tree, enc)
+        cspecs = SH.cache_pspecs(cfg, mesh, dshape, cache)
+        cache = jax.device_put(cache, SH.named(mesh, cspecs))
+        out[name + "/enc_out"] = np.asarray(enc)
+        info[name] = {}
+        for k in ("cross_k", "cross_v"):
+            out[f"{name}/{k}"] = np.asarray(cache["p0"][k])
+            info[name][k] = where(cache["p0"][k], mesh)
         continue
     fn, sh = TS.make_train_step(cfg, shape, mesh,
                                 opt_cfg=adamw.AdamWConfig(lr=LR),
@@ -120,7 +141,7 @@ for case in cases:
                          sh["opt"])
     metrics = []
     for s in range(case["steps"]):
-        batch = {k: data[f"{name}/b{s}/{k}"] for k in ("tokens", "labels")}
+        batch = {k: data[f"{name}/b{s}/{k}"] for k in sh["batch"]}
         batch = jax.device_put(batch, {k: sh["batch"][k] for k in batch})
         params, opt, m = fn(params, opt, batch, jnp.int32(s + 1))
         metrics.append({k: float(v) for k, v in m.items()})
@@ -198,15 +219,48 @@ def ref_cfg(c: dict):
                                **c.get("overrides", {}))
 
 
-def batch(cfg, seed: int, rows: int = B) -> dict:
+def batch(cfg, seed: int, rows: int = B, seq: int = S) -> dict:
+    """Tokens and labels from ``seed``, and the modality stubs of
+    ``cfg``'s family (:func:`modality_stubs`)."""
     seqs = np.random.default_rng(seed).integers(
-        2, cfg.vocab_size - 1, size=(rows, S + 1)).astype(np.int32)
-    return {"tokens": seqs[:, :-1], "labels": seqs[:, 1:]}
+        2, cfg.vocab_size - 1, size=(rows, seq + 1)).astype(np.int32)
+    return {"tokens": seqs[:, :-1], "labels": seqs[:, 1:],
+            **modality_stubs(cfg, seed, rows, seq)}
+
+
+#: qwen2-vl's patch embeddings per row in the partitioned-step tests: more
+#: than a quarter of the sequence (the pipeline's count), so that at S = 32
+#: on ``model=4`` (blocks of 8 rows) they cross a block boundary.
+N_MM = 12
+
+
+def modality_stubs(cfg, seed: int, rows: int, seq: int) -> dict:
+    """whisper's frames ``[rows, encoder_seq, d]``; qwen2-vl's
+    ``mm_embeds [rows, N_MM, d]`` and M-RoPE positions ``[3, rows, seq]``
+    (temporal ``arange``; height and width on an ``N_MM``-patch grid, as
+    ``data.pipeline`` lays them out); N(0, 1) from ``seed``."""
+    rng = np.random.default_rng(1000 + seed)
+    out = {}
+    if cfg.family == "encdec":
+        out["frames"] = rng.normal(size=(rows, cfg.encoder_seq,
+                                         cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        n_mm = min(N_MM, seq)
+        out["mm_embeds"] = rng.normal(size=(rows, n_mm,
+                                            cfg.d_model)).astype(np.float32)
+        t = np.tile(np.arange(seq, dtype=np.int32), (rows, 1))
+        h, w = t.copy(), t.copy()
+        grid = int(np.sqrt(n_mm))
+        h[:, :n_mm] = np.arange(n_mm) // grid
+        w[:, :n_mm] = np.arange(n_mm) % grid
+        out["positions_3d"] = np.stack([t, h, w])
+    return out
 
 
 def inputs(cases: list) -> tuple:
     """Per case: the weights (flat, the reference's layout; fused where the
-    case says so) and the batches (or prefill tokens)."""
+    case says so) and the batches (the prefill's without labels; the
+    cross cache's frames)."""
     from repro.models import model as ref_model
     weights, batches = {}, {}
     for c in cases:
@@ -217,12 +271,17 @@ def inputs(cases: list) -> tuple:
         finally:
             ref_model.set_fused_projections(False)
         if c["kind"] == "train":
-            batches[c["name"]] = [batch(cfg, s, c["batch"])
+            batches[c["name"]] = [batch(cfg, s, c["batch"], c["seq"])
                                   for s in range(c["steps"])]
         elif c["kind"] == "decode":
             batches[c["name"]] = serve_inputs(cfg, c)
+        elif c["kind"] == "prime":
+            batches[c["name"]] = {"frames": batch(cfg, 0, c["batch"],
+                                                  c["seq"])["frames"]}
         else:
-            batches[c["name"]] = batch(cfg, 0, c["batch"])["tokens"]
+            whole = batch(cfg, 0, c["batch"], c["seq"])
+            del whole["labels"]
+            batches[c["name"]] = whole
     return weights, batches
 
 
@@ -263,7 +322,8 @@ def start_reference(cases: list, weights: dict, batches: dict,
                     script: str = _REF_SCRIPT) -> subprocess.Popen:
     """Start the reference's subprocess on four host devices: ``script``
     on the cases, their weights and their batches (the train steps'
-    batches, the prefill tokens, or the serve step's inputs by key)."""
+    batches, or the prefill's, the cross cache's or the serve step's
+    inputs by key)."""
     arrays = {}
     for c in cases:
         name = c["name"]
@@ -273,11 +333,9 @@ def start_reference(cases: list, weights: dict, batches: dict,
             for s, b in enumerate(batches[name]):
                 for k, v in b.items():
                     arrays[f"{name}/b{s}/{k}"] = v
-        elif c["kind"] == "decode":
+        else:
             for k, v in batches[name].items():
                 arrays[f"{name}/{k}"] = v
-        else:
-            arrays[f"{name}/tokens"] = batches[name]
     np.savez(tmp / "in.npz", **arrays)
     (tmp / "cases.json").write_text(json.dumps(cases))
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": os.environ["PATH"],
@@ -347,13 +405,18 @@ _LEAF_OF = {"moe/w_gate": "moe.w_gate_up", "moe/w_up": "moe.w_gate_up",
             "moe/router/kernel": "moe.router"}
 
 
-def port_name(leaf: str, layer: int = 0) -> str:
-    """The port's parameter name of a reference leaf (layer ``layer`` of
-    a stacked one)."""
-    if leaf.startswith("layers/p0/"):
-        rest = leaf[len("layers/p0/"):]
-        return f"layers.{layer}." + _LEAF_OF.get(rest, rest.replace("/",
-                                                                    "."))
+def port_name(leaf: str) -> str:
+    """The port's parameter name of a reference leaf (of a stacked one,
+    its first group's layer: kind ``j`` of the pattern is layer ``j``, an
+    encoder leaf is encoder layer 0)."""
+    m = re.match(r"layers/p(\d+)/(.*)", leaf)
+    if m:
+        rest = m.group(2)
+        return f"layers.{m.group(1)}." + _LEAF_OF.get(
+            rest, rest.replace("/", "."))
+    if leaf.startswith("encoder/layers/"):
+        return "encoder.layers.0." + \
+            leaf[len("encoder/layers/"):].replace("/", ".")
     return leaf.replace("/", ".")
 
 

@@ -143,21 +143,47 @@ def train_case(case: dict, weights: dict, batches: list) -> dict:
     return out
 
 
-def prefill_case(case: dict, weights: dict, tokens: np.ndarray) -> dict:
-    """The partitioned prefill of a case: this rank's block of the logits
-    and its spec."""
+def prefill_case(case: dict, weights: dict, batch: dict) -> dict:
+    """The partitioned prefill of a case on its batch (tokens and the
+    modality keys): this rank's block of the logits and its spec."""
     port_model.COMPUTE_DTYPE = torch.float32
     mesh = _mesh(case)
     cfg = case_config(case)
     shape = ShapeConfig("p", case["seq"], case["batch"], "prefill")
     model = interop.params_from_numpy(cfg, unflatten(weights), mesh=mesh)
     fn, specs = TS.make_prefill_step(cfg, shape, mesh)
-    local = SH.batch_shard({"tokens": torch.from_numpy(tokens)}, cfg, mesh,
-                           shape)
+    local = SH.batch_shard({k: torch.from_numpy(v) for k, v in batch.items()},
+                           cfg, mesh, shape)
     with Margins() as margins:
         logits = fn(model, local)
     return {"coords": dict(mesh.coords), "logits": logits.numpy(),
             "spec": specs["logits"], "margin": margins.worst}
+
+
+def prime_case(case: dict, weights: dict, inputs: dict) -> dict:
+    """whisper's cross cache over a case's mesh: the encoder over the mesh
+    (``LM.encode`` with the serve step's context) on this rank's frames,
+    then ``LM.prime_cross_cache`` into the rank's blocks of an empty
+    cache.  Returns the encoder's output, each layer's ``cross_k`` /
+    ``cross_v`` blocks and their specs."""
+    port_model.COMPUTE_DTYPE = torch.float32
+    mesh = _mesh(case)
+    cfg = case_config(case)
+    shape = ShapeConfig("d", case["cache_len"], case["batch"], "decode")
+    model = interop.params_from_numpy(cfg, unflatten(weights), mesh=mesh)
+    _, specs = TS.make_serve_step(cfg, shape, mesh)
+    local = SH.batch_shard({"frames": torch.from_numpy(inputs["frames"])},
+                           cfg, mesh, shape)
+    with torch.no_grad():
+        enc = model.encode(local["frames"],
+                           ctx=TS.make_ctx(cfg, mesh, shape))
+        cache = model.init_cache(case["batch"], case["cache_len"], mesh=mesh,
+                                 specs=specs["cache"])
+        model.prime_cross_cache(cache, enc, specs["cache"])
+    return {"coords": dict(mesh.coords), "enc_out": enc.numpy(),
+            "cache": [{k: layer[k].numpy() for k in ("cross_k", "cross_v")}
+                      for layer in cache],
+            "specs": [layer["cross_k"] for layer in specs["cache"]]}
 
 
 def serve_case(case: dict, weights: dict, inputs: dict) -> dict:
@@ -208,18 +234,25 @@ def serve_rank(rank: int, world: int, cases: list, weights: dict,
             for c in cases}
 
 
+#: The rank's function of each case kind of a train or prefill module.
+CASE_KINDS = {"train": train_case, "prefill": prefill_case,
+              "prime": prime_case}
+
+
 def train_rank(rank: int, world: int, cases: list, weights: dict,
                batches: dict) -> dict:
-    """Every train case of a test module, in this rank."""
-    return {c["name"]: train_case(c, weights[c["name"]], batches[c["name"]])
+    """Every case of a test module (train, prefill or cross cache), in
+    this rank."""
+    return {c["name"]: CASE_KINDS[c["kind"]](c, weights[c["name"]],
+                                             batches[c["name"]])
             for c in cases}
 
 
 def prefill_rank(rank: int, world: int, cases: list, weights: dict,
-                 tokens: dict) -> dict:
+                 batches: dict) -> dict:
     """Every prefill case of a test module, in this rank."""
     return {c["name"]: prefill_case(c, weights[c["name"]],
-                                    tokens[c["name"]]) for c in cases}
+                                    batches[c["name"]]) for c in cases}
 
 
 # --------------------------------------------------------------------- #

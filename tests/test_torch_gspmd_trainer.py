@@ -9,9 +9,11 @@
   no mesh) and in the reference's ``Checkpointer`` to the same leaves,
   each rank's blocks the port's ``local_block`` of them.
 * ``python -m repro_torch.launch.train --arch olmoe-1b-7b --reduced
-  --mesh 2,2 --device cpu`` trains 2 steps in a subprocess; with an arch
-  outside the global-attention ``dense`` / ``moe`` ones it refuses,
-  naming part 4 of the multi-card item.
+  --mesh 2,2 --device cpu`` trains 2 steps in a subprocess, and so does
+  ``--arch qwen2-vl-7b`` (its patch embeddings and M-RoPE positions split
+  by each rank's rows); gemma3-12b's trainer is made on a rank's mesh
+  with the policy's specs, and ``--mesh`` without the rank's mesh is
+  refused.
 * The fresh-interpreter import guard of ``tests/test_torch_formats.py``
   covers the modules this slice added to or changed.
 """
@@ -116,15 +118,43 @@ def test_launcher_trains_over_a_spawned_mesh(tmp_path):
 
 
 def test_launcher_mesh_refuses_the_other_families(tmp_path):
+    # Every family trains over --mesh now: gemma3-12b's trainer is made
+    # on this rank's mesh with the policy's specs; what is still refused
+    # is a trainer without the rank's mesh and a mesh of another form.
     args = train_cli.parser().parse_args(
         ["--arch", "gemma3-12b", "--reduced", "--mesh", "2,2", "--device",
          "cpu", "--ckpt-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="part 4"):
+    with pytest.raises(ValueError, match="spawned world"):
         train_cli.make_trainer(args)
-    with pytest.raises(NotImplementedError, match="part 4"):
-        train_cli.train(args)
+    trainer = train_cli.make_trainer(args, _fake_mesh({"data": 1,
+                                                       "model": 0}))
+    named = dict(LM(trainer.cfg, device="meta",
+                    masters=True).named_parameters())
+    assert trainer.specs["params"] == SH.param_pspecs(
+        trainer.cfg, named, trainer.mesh)
+    assert trainer.specs["params"]["layers.0.attn.wq.kernel"] == \
+        ("data", "model")
     with pytest.raises(ValueError, match="data,model"):
         train_cli.parse_mesh("2,2,2")
+
+
+def test_launcher_trains_qwen2_vl_over_a_spawned_mesh(tmp_path):
+    # A family with modality inputs: each rank keeps its rows of the
+    # pipeline's mm_embeds and of positions_3d (split along dim 1).
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "qwen2-vl-7b", "--reduced", "--mesh", "2,2", "--device", "cpu",
+         "--steps", "2", "--ckpt-dir", str(tmp_path)],
+        capture_output=True, text=True, env=env, timeout=300,
+        cwd=str(ROOT))
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "mesh={'data': 2, 'model': 2} backend=gloo" in r.stdout
+    losses = [float(line.split("loss ")[1].split(",")[0])
+              for line in r.stdout.splitlines()
+              if line.startswith("step ")]
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    assert Checkpointer(str(tmp_path)).latest_step() == 1
 
 
 def test_import_guard_lists_the_new_modules():

@@ -13,9 +13,9 @@
   reshaped into micro-batches as its ``make_train_step`` does and
   constrained as ``"tokens_bse"`` (one subprocess on four host devices).
 * The shape check of ``ShardingCtx.constrain`` in a partitioned step, the
-  refusals (the train and prefill steps of the families outside the
-  global-attention ``dense`` / ``moe`` archs), ``local_block`` /
-  ``local_shape``.
+  train and prefill steps of every arch made over a mesh with the
+  reference's batch specs (a mesh that is not a ``ProcessMesh`` refused),
+  ``local_block`` / ``local_shape``.
 * The serve step over a mesh, in the same world: the distributed softmax
   (``attention.decode_attention_partial`` and ``combine``) over two and
   four blocks of a cache of which one block has no valid slot, against
@@ -46,7 +46,6 @@ from _gspmd_ranks import (COMBINE_AXES, SERVE_FAULTS, UNIT_FAULTS,
 from _torch_train_helpers import one_torch_thread  # noqa: F401
 from repro_torch.configs import get_config, list_archs
 from repro_torch.configs.base import ShapeConfig
-from repro_torch.core.device import MULTI_CARD
 from repro_torch.launch import sharding as SH
 from repro_torch.launch.mesh import ProcessMesh
 from repro_torch.launch.spawn import run_world
@@ -273,25 +272,39 @@ def test_constrain_checks_a_decode_cache_block():
 
 @pytest.mark.parametrize("arch", list_archs())
 def test_the_mesh_runs_the_global_archs_and_refuses_the_rest(arch):
-    # The serve step runs every arch over a mesh; the train and prefill
-    # steps of the other families come with part 4.
+    # Every arch's train and prefill steps are made over a mesh, with the
+    # reference's batch specs (the modality keys among them) and the
+    # policy's parameter and logits specs; only a mesh that is not a
+    # ProcessMesh is refused.
+    from repro.configs.base import ShapeConfig as RefShape
+    from repro.configs.base import get_config as ref_config
+    from repro.launch import sharding as ref_sharding
+    from repro_torch.launch.mesh import abstract_mesh
     cfg = get_config(arch).reduced()
-    port_model.check_mesh_supported(cfg, "decode")
-    if arch in GLOBAL_ARCHS:
-        port_model.check_mesh_supported(cfg)
-        return
-    with pytest.raises(NotImplementedError, match="part 4"):
-        port_model.check_mesh_supported(cfg)
+    port_model.check_mesh_supported(cfg)
     mesh = _fake_mesh({"data": 2, "model": 2}, {"data": 0, "model": 0})
-    shape = ShapeConfig("t", 16, 4, "train")
-    for make in (TS.make_train_step, TS.make_prefill_step):
-        with pytest.raises(NotImplementedError, match="part 4"):
-            make(cfg, shape, mesh)
+    named = dict(port_model.LM(cfg, device="meta",
+                               masters=True).named_parameters())
+    for kind, make in (("train", TS.make_train_step),
+                       ("prefill", TS.make_prefill_step)):
+        shape = ShapeConfig("t", 16, 4, kind)
+        fn, specs = make(cfg, shape, mesh)
+        assert callable(fn)
+        assert specs["params"] == SH.param_pspecs(cfg, named, mesh)
+        want = ref_sharding.batch_pspecs(
+            ref_config(arch).reduced(),
+            abstract_mesh((2, 2), ("data", "model")),
+            RefShape("t", 16, 4, kind))
+        assert specs["batch"] == {k: tuple(v) for k, v in want.items()}
+        if kind == "prefill":
+            assert specs["logits"] == ("data", None, "model")
+        with pytest.raises(TypeError, match="ProcessMesh"):
+            make(cfg, shape, object())
 
 
 def test_serve_step_over_a_mesh_names_part_three():
     # Part 3 brought the serve step over a mesh: it is made for every arch
-    # with the reference's specs; what is left names part 4.
+    # with the reference's specs.
     mesh = _fake_mesh({"data": 2, "model": 2}, {"data": 0, "model": 0})
     for arch in list_archs():
         cfg = get_config(arch).reduced()
@@ -310,7 +323,6 @@ def test_serve_step_over_a_mesh_names_part_three():
     with pytest.raises(ValueError, match="decode shape"):
         TS.make_serve_step(get_config("llama3.2-1b").reduced(),
                            ShapeConfig("t", 16, 4, "train"), mesh)
-    assert "part 4" in MULTI_CARD and "part 3" not in MULTI_CARD
 
 
 # --------------------------------------------------------------------- #

@@ -320,14 +320,27 @@ def test_grouped_launch_plan_counts():
 
 
 def test_mesh_is_not_ported():
-    # The partitioned step runs the global-attention dense and MoE archs
-    # on a ProcessMesh (tests/test_torch_gspmd_train*.py); the other
-    # families come with part 4 of the multi-card item.
-    with pytest.raises(NotImplementedError, match="multi-card"):
-        train_step.make_train_step(
-            port_config("recurrentgemma-9b").reduced(),
-            PortShape("t", 8, 2, "train"), mesh=object())
-    with pytest.raises(TypeError, match="ProcessMesh"):
-        train_step.make_train_step(port_config("llama3.2-1b").reduced(),
-                                   PortShape("t", 8, 2, "train"),
-                                   mesh=object())
+    # The partitioned step runs every arch on a ProcessMesh
+    # (tests/test_torch_gspmd_train*.py): on recurrentgemma-9b it is made
+    # with the policy's specs; a mesh that is not a ProcessMesh is refused.
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import ProcessMesh
+    cfg = port_config("recurrentgemma-9b").reduced()
+    shape = PortShape("t", 8, 2, "train")
+    mesh = ProcessMesh(axis_names=("data", "model"),
+                       shape={"data": 2, "model": 2},
+                       coords={"data": 0, "model": 1}, rank=1,
+                       device=torch.device("cpu"), backend="gloo",
+                       groups={}, group_ranks={}, log=None)
+    step, specs = train_step.make_train_step(cfg, shape, mesh)
+    named = dict(port_model.LM(cfg, device="meta",
+                               masters=True).named_parameters())
+    assert callable(step)
+    assert specs["params"] == SH.param_pspecs(cfg, named, mesh)
+    assert specs["params"]["layers.0.rglru.w_r"] == ("model", None, None)
+    assert specs["batch"] == {"tokens": ("data", None),
+                              "labels": ("data", None)}
+    for arch in ("recurrentgemma-9b", "llama3.2-1b"):
+        with pytest.raises(TypeError, match="ProcessMesh"):
+            train_step.make_train_step(port_config(arch).reduced(), shape,
+                                       mesh=object())

@@ -26,7 +26,6 @@ from repro.train import train_step as ref_ts
 from repro_torch import interop
 from repro_torch.configs import get_config as port_config
 from repro_torch.configs.base import ShapeConfig
-from repro_torch.core.device import MULTI_CARD
 from repro_torch.launch import mesh as MS
 from repro_torch.models import attention as port_att
 from repro_torch.models import model as port_model
@@ -175,7 +174,18 @@ def test_step_factories_refuse_a_mesh():
                  port_ts.make_serve_step):
         with pytest.raises(TypeError, match="ProcessMesh"):
             make(cfg, shape, mesh)
-    assert "Multi-card item" in MULTI_CARD
+    # On a process mesh (one rank per process) each is made, with the
+    # policy's specs; here rank (0, 1) of (2, 2).
+    rank = MS.ProcessMesh(axis_names=("data", "model"),
+                          shape={"data": 2, "model": 2},
+                          coords={"data": 0, "model": 1}, rank=1,
+                          device=torch.device("cpu"), backend="gloo",
+                          groups={}, group_ranks={}, log=None)
+    _, specs = port_ts.make_prefill_step(cfg, shape, rank)
+    assert specs["logits"] == ("data", None, "model")
+    _, specs = port_ts.make_train_step(cfg, ShapeConfig("t", 32, 4, "train"),
+                                       rank)
+    assert specs["batch"]["labels"] == ("data", None)
     assert port_ts.make_ctx(cfg, None, shape) is NO_SHARDING
     ctx = port_ts.make_ctx(cfg, mesh, shape)
     assert ctx.rules["tokens_bse"] == ("data", "model", None)

@@ -304,17 +304,29 @@ def test_trainer_defaults_to_the_card(tmp_path):
 
 
 def test_trainer_mesh_is_not_ported(tmp_path):
-    # Over a mesh the trainer runs the global-attention dense and MoE
-    # archs (tests/test_torch_gspmd_trainer.py); the other families come
-    # with part 4 of the multi-card item, and a mesh is a ProcessMesh.
-    with pytest.raises(NotImplementedError, match="multi-card"):
-        Trainer(port_config("gemma3-12b").reduced(), SMALL_SHAPE,
-                TrainerConfig(ckpt_dir=str(tmp_path)), mesh=object(),
-                device="cpu")
-    with pytest.raises(TypeError, match="ProcessMesh"):
-        Trainer(port_config("llama3.2-1b").reduced(), SMALL_SHAPE,
-                TrainerConfig(ckpt_dir=str(tmp_path)), mesh=object(),
-                device="cpu")
+    # Over a mesh the trainer runs every arch
+    # (tests/test_torch_gspmd_trainer.py): on gemma3-12b it is made with
+    # the policy's specs, whisper's frames among the batch's; a mesh that
+    # is not a ProcessMesh is refused.
+    from repro_torch.launch.mesh import ProcessMesh
+    mesh = ProcessMesh(axis_names=("data", "model"),
+                       shape={"data": 2, "model": 2},
+                       coords={"data": 1, "model": 0}, rank=2,
+                       device=torch.device("cpu"), backend="gloo",
+                       groups={}, group_ranks={}, log=None)
+    for arch, extra in (("gemma3-12b", {}),
+                        ("whisper-base", {"frames": ("data", None, None)})):
+        t = Trainer(port_config(arch).reduced(), SMALL_SHAPE,
+                    TrainerConfig(ckpt_dir=str(tmp_path / arch)), mesh=mesh)
+        assert t.mesh is mesh and t.device == torch.device("cpu")
+        assert t.specs["batch"] == {"tokens": ("data", None),
+                                    "labels": ("data", None), **extra}
+        assert t.specs["opt"]["mu"] == t.specs["params"]
+    for arch in ("gemma3-12b", "llama3.2-1b"):
+        with pytest.raises(TypeError, match="ProcessMesh"):
+            Trainer(port_config(arch).reduced(), SMALL_SHAPE,
+                    TrainerConfig(ckpt_dir=str(tmp_path)), mesh=object(),
+                    device="cpu")
 
 
 def test_train_launcher_on_the_cpu(tmp_path, capsys):
@@ -331,11 +343,10 @@ def test_train_launcher_on_the_cpu(tmp_path, capsys):
     assert again["trainer"].start_step == 4
     assert [h["step"] for h in again["trainer"].history] == [4, 5]
     # --mesh spawns a world (tests/test_torch_gspmd_trainer.py); a
-    # trainer made without this rank's mesh refuses, and so does an arch
-    # the partitioned step does not run.
+    # trainer made without this rank's mesh refuses, whatever the arch.
     with pytest.raises(ValueError, match="spawned world"):
         train_cli.make_trainer(train_cli.parser().parse_args(
             argv + ["--mesh", "2,2"]))
-    with pytest.raises(NotImplementedError, match="multi-card"):
+    with pytest.raises(ValueError, match="spawned world"):
         train_cli.make_trainer(train_cli.parser().parse_args(
             ["--arch", "falcon-mamba-7b"] + argv[2:] + ["--mesh", "2,2"]))
