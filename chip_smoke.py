@@ -191,7 +191,31 @@ The run reads and writes calibrations only in a fresh temporary
    ``torch._grouped_mm`` (bf16, where this torch has it) or a per-expert
    ``torch.matmul`` loop as the library time; the check must reject two
    planted faults (a dropped k-slice, +0.1 on one row).
-11. **engine** (the serving-engine path): ``repro_torch.launch.serve``'s
+11. **paper** (the paper's study, ``configs/paper_spmm.py``): the ten
+   matrices of ``paper_suite`` at n = 2**17 (``PAPER_SCALE``, cut from
+   2**18 for the run's time; 2**14 under ``--quick``), f32i32, each
+   packed once through the ``cuda`` specs at ``plan_d`` 64 and run at
+   every ``CONFIG.d_values`` width: the CSR kernel on all ten, BCSR (t =
+   ``CONFIG.bcsr_block``) and the banded kernel where the dispatcher's
+   policy admits them.  Per (matrix, d), every launch is held against the
+   plain CSR version within the SpMM bound below, the kernel's launch
+   counter (BCSR's by variant too) must rise by exactly the calls made,
+   and the kernel and ``torch.sparse.mm`` (A as CSR) are timed, after one
+   untimed call, warm (10 back to back between one event pair) and cold
+   (the least of ``CONFIG.repeats`` single calls, each after a 128 MB
+   device write).  Each launch is placed on ``h100_from_device``'s
+   roofline: CSR through ``csr_kernel_roofline`` under the ``random``,
+   ``diagonal`` and ``scale_free`` models, BCSR through
+   ``bcsr_kernel_roofline``, the banded kernel through
+   ``dia_kernel_roofline``; each model's time (useful FLOPs over its
+   attainable rate) and its share of the cold and warm times are printed,
+   with the matrix's classified regime and the model nearest the cold
+   time (|log ratio|).  A share above 1.0 is printed on an ``above
+   roofline`` line, not failed.  Last, the tallies of the nearest model
+   by regime and of the shares above 1.0; the cells go to
+   ``chiprun_out/paper_suite.json``.  The layouts are freed before the
+   next phase.
+12. **engine** (the serving-engine path): ``repro_torch.launch.serve``'s
    ``serve_spmm_engine`` with the default engine settings (8 MiB staging
    budget, queue 256, policy ``wait``, 2000 requests/s per stream), twice:
    at full width on ``moe-block`` at n = 2**20 with d = 64 and 32, 4 streams
@@ -214,7 +238,7 @@ The run reads and writes calibrations only in a fresh temporary
    the first run; the overlap and the async return are printed, not
    enforced: at that size the device work is too short to outlast the
    host's staging.)
-12. **shard** (the sharded tier): ``ShardMesh(["cuda:0"] * 4)`` over the
+13. **shard** (the sharded tier): ``ShardMesh(["cuda:0"] * 4)`` over the
    four ``serving_suite`` structures at n = 2**18 (cut from 2**20 to keep
    classification and packing of the unsharded and four sharded layouts
    per strategy inside the phase's time; 2**12 under ``--quick``), plus
@@ -224,12 +248,12 @@ The run reads and writes calibrations only in a fresh temporary
    plan's ``summary()``, and a p50 of 8 requests per strategy beside its
    predicted time.  Then one ``serve --spmm-stream --spmm-shards -1`` run
    (one shard per visible card), its C held against the unsharded plan.
-13. **harvest**: ``repro_torch.launch.harvest_dispatch`` on the vendored
+14. **harvest**: ``repro_torch.launch.harvest_dispatch`` on the vendored
    corpus with the ``cuda`` kernels, d = 32 and 128, 3 repeats, the tree
    in a temporary store root of its own; its agreement and never-worse
    results are printed, not enforced (at n <= 256 a call is the launch
    path).  CSVs go to ``chiprun_out/harvest``.
-14. **multicard** (the process mesh, ``launch/mesh.py``, ``core/comm.py``,
+15. **multicard** (the process mesh, ``launch/mesh.py``, ``core/comm.py``,
    and the per-shard programs on it): one world of 2 ranks spawned by
    ``launch.spawn.run_world``: NCCL with a card per rank where two or
    more cards are visible, else both ranks on ``cuda:0`` under gloo, whose
@@ -345,7 +369,8 @@ shared memory (each output tile's x rows and w columns), over kernel ms.
 
 The last lines are the ``{"kernels": [...]}`` record (each kernel with
 its launches per path, ``families_launches`` and ``recurrent_launches``
-0, ``dryrun_launches`` the grouped matmul's in ``[dryrun]``; the grouped
+0, ``dryrun_launches`` the grouped matmul's in ``[dryrun]``,
+``paper_launches`` those of ``[paper]``; the grouped
 matmul's with the ``lm``, ``train`` and ``dryrun`` phases' figures), the
 card's name and power
 limit from ``nvidia-smi``, and ``{"ok": true, "device": ...}``.
@@ -525,6 +550,26 @@ SHARD_N = 2 ** 18
 SHARD_N_QUICK = 2 ** 12
 SHARD_FORCED = ("binned", "rowsplit")
 SHARD_DEVICES = 4
+
+#: The paper phase: ``paper_suite`` at n = 2**17 (the paper's matrices
+#: are 2**22).  2**18 is the least n at which B alone at d = 64 in fp32
+#: (64 MB) exceeds the card's 50 MB L2, the paper's out-of-cache regime,
+#: but generating, planning and packing the ten matrices there took 94 s
+#: of the card host's CPU, which would take the whole run past 950 s; at
+#: 2**17, B and C at d = 64 (32 MB each) exceed the L2 together, each
+#: alone not.  ``paper_phase(..., scale=18)`` runs the suite there alone.
+#: 2**14 under ``--quick``.
+PAPER_SCALE, PAPER_SCALE_QUICK = 17, 14
+#: Format -> the kernel that runs it, in the phase's order.  CSR runs on
+#: every matrix, BCSR and the banded kernel where the policy admits them.
+PAPER_KERNELS = {"csr": "csr_spmm", "bcsr": "bcsr_spmm",
+                 "dia": "banded_spmm"}
+#: The regime models every CSR launch is placed under.
+PAPER_REGIMES = ("random", "diagonal", "scale_free")
+#: Bytes written before each cold launch: over twice the L2.
+FLUSH_BYTES = 128 * 2 ** 20
+#: Back-to-back launches of one warm time.
+PAPER_WARM = 10
 
 
 class SmokeFailure(RuntimeError):
@@ -1127,6 +1172,214 @@ def kernel_phase(served: dict, quick: bool, dev) -> list:
         log(f"[kernel] banded_spmm t={layout.t} n={nn}: max|err| "
             f"{err:.3e} within bound")
     return records
+
+
+def event_ms(fn, launches: int = 1) -> float:
+    """CUDA-event time of ``launches`` back-to-back calls of ``fn``, per
+    call (ms)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def warm_cold_ms(fn, flush, repeats: int) -> tuple:
+    """``(warm, cold)`` ms of ``fn`` after one untimed call: warm is
+    ``PAPER_WARM`` calls between one event pair over their count; cold the
+    least of ``repeats`` single calls, each after ``flush`` (a device
+    buffer over twice the L2) was written, so that the L2 holds none of
+    the call's operands."""
+    fn()
+    warm = event_ms(fn, PAPER_WARM)
+    cold = []
+    for i in range(repeats):
+        flush.fill_(i)
+        cold.append(event_ms(fn))
+    return warm, min(cold)
+
+
+def paper_cell_line(name: str, fmt: str, d: int, cell: dict) -> str:
+    def ms(x) -> str:
+        return "n/a" if x is None else f"{x:.5f}"
+    roofs = " ".join(
+        f"{model} {ms(p['ms'])} ms (share cold {p['share_cold']:.3f} warm "
+        f"{p['share_warm']:.3f})" for model, p in cell["roofline"].items())
+    extra = "" if "variant" not in cell else (
+        f" mxu_utilization {cell['mxu_utilization']:.4f} variant "
+        f"{cell['variant']}")
+    return (f"[paper] {name} {fmt} d={d} nnz={cell['nnz']} cold "
+            f"{ms(cell['cold_ms'])} ms warm {ms(cell['warm_ms'])} ms lib "
+            f"cold {ms(cell['lib_cold_ms'])} warm {ms(cell['lib_warm_ms'])}"
+            f" ms max|err| {cell['max_abs_err']:.3e} | {roofs}{extra} | "
+            f"regime={cell['regime']} nearest={cell['nearest']}")
+
+
+def paper_phase(quick: bool, dev, scale: Optional[int] = None) -> dict:
+    """The paper's matrix suite through the port's kernels, every launch
+    placed on the kernel rooflines (see the module docstring), at n =
+    2**scale (default ``PAPER_SCALE``, or ``PAPER_SCALE_QUICK`` under
+    ``quick``).  Returns the launches per kernel."""
+    import gc
+    import math
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.paper_spmm import CONFIG
+    from repro_torch.core.hardware import h100_from_device
+    from repro_torch.core.patterns import paper_suite
+    from repro_torch.core.precision import as_precision
+    from repro_torch.kernels import bcsr_spmm as bcsr_module
+    from repro_torch.kernels import registry
+    from repro_torch.sparse.dispatch import Dispatcher
+
+    if CONFIG.dtype != "float32":
+        raise SmokeFailure(f"[paper] no precision for {CONFIG.dtype}")
+    if scale is None:
+        scale = PAPER_SCALE_QUICK if quick else PAPER_SCALE
+    plan_d = max(CONFIG.d_values)
+    hw = h100_from_device(dev)
+    ctx = registry.KernelContext(hardware=hw, bcsr_block=CONFIG.bcsr_block,
+                                 plan_d=plan_d,
+                                 precision=as_precision("f32i32"),
+                                 device=dev)
+    disp = Dispatcher(hw, device=dev, calibration=False, tree=False,
+                      bcsr_block=CONFIG.bcsr_block)
+    plain = registry.get("csr", "torch")
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    eps = float(torch.finfo(torch.float32).eps)
+    launched = dict.fromkeys(PAPER_KERNELS.values(), 0)
+    cells = []
+    t_host = 0.0
+    log(f"[paper] suite at n = 2**{scale}, d {CONFIG.d_values}, "
+        f"{CONFIG.dtype}, BCSR t = {CONFIG.bcsr_block}, cold = min of "
+        f"{CONFIG.repeats} after a {FLUSH_BYTES >> 20} MB write, warm = "
+        f"{PAPER_WARM} back to back; rooflines on {hw.name} "
+        f"({hw.hbm_bandwidth / 1e12:.2f} TB/s, "
+        f"{hw.peak_flops / 1e12:.0f} TFLOP/s, L2 {hw.vmem_bytes >> 20} MB)")
+    for name, make in paper_suite(scale).items():
+        t0 = time.perf_counter()
+        m = make()
+        # The plan's regime is ``core.classify.classify(m).regime``; its
+        # skips name the formats the dispatcher's policy rejects.
+        plan = disp.plan(m, plan_d, precision="f32i32")
+        fmts = [f for f in PAPER_KERNELS if f not in plan.skips]
+        layouts = {f: registry.get(f, "cuda").prepare(m, ctx) for f in fmts}
+        a_csr = plain.prepare(m, ctx)
+        a_lib = torch_csr(m, dev)
+        torch.cuda.synchronize(dev)
+        t_host += time.perf_counter() - t0
+        log(f"[paper] {name}: n {m.n}, nnz {m.nnz}, regime {plan.regime}, "
+            f"layouts {fmts}, host {time.perf_counter() - t0:.1f}s")
+        for d in CONFIG.d_values:
+            b = torch.randn(m.n, d, generator=gen, device=dev)
+            ref = plain.run(a_csr, b, ctx)
+            absprod = abs_product(m, b)
+
+            def library():
+                return torch.sparse.mm(a_lib, b)
+            try:
+                lib_warm, lib_cold = warm_cold_ms(library, flush,
+                                                  CONFIG.repeats)
+            except (RuntimeError, NotImplementedError) as e:
+                log(f"[paper] torch.sparse.mm: {type(e).__name__}: {e}")
+                lib_warm = lib_cold = None
+            for fmt in fmts:
+                kname = PAPER_KERNELS[fmt]
+                spec, layout = registry.get(fmt, "cuda"), layouts[fmt]
+
+                def launch():
+                    return spec.run(layout, b, ctx)
+                before = kernels.launch_counts()
+                variants = dict(bcsr_module.LAUNCHES_BY_VARIANT)
+                err, _ = check_close(f"[paper] {name} {fmt} d={d}",
+                                     launch(), ref, absprod, eps)
+                warm, cold = warm_cold_ms(launch, flush, CONFIG.repeats)
+                calls = 2 + PAPER_WARM + CONFIG.repeats
+                moved = {k: v - before[k]
+                         for k, v in kernels.launch_counts().items()
+                         if v != before[k]}
+                if moved != {kname: calls}:
+                    raise SmokeFailure(f"[paper] {name} {fmt} d={d}: "
+                                       f"{calls} calls launched {moved}")
+                launched[kname] += calls
+                cell = {"matrix": name, "format": fmt, "kernel": kname,
+                        "d": d, "n": m.n, "nnz": m.nnz,
+                        "regime": plan.regime, "max_abs_err": err,
+                        "cold_ms": cold, "warm_ms": warm,
+                        "lib_cold_ms": lib_cold, "lib_warm_ms": lib_warm}
+                if fmt == "csr":
+                    roofs = {r: registry.csr_kernel_roofline(
+                        a_csr, d, regime=r, hw=hw) for r in PAPER_REGIMES}
+                elif fmt == "bcsr":
+                    want = bcsr_module.bcsr_variant(layout.t, d, b.dtype)
+                    ran = {k: v - variants[k]
+                           for k, v in bcsr_module.LAUNCHES_BY_VARIANT.items()
+                           if v != variants[k]}
+                    if ran != {want: calls}:
+                        raise SmokeFailure(f"[paper] {name} bcsr d={d}: "
+                                           f"launched {ran}, not {want}")
+                    roofs = {"blocked_tpu": registry.bcsr_kernel_roofline(
+                        layout, d, hw=hw)}
+                    cell.update(variant=want, mxu_utilization=roofs[
+                        "blocked_tpu"].mxu_utilization)
+                else:
+                    roofs = {"diagonal": registry.dia_kernel_roofline(
+                        m, d, hw)}
+                cell["roofline"] = {}
+                for model, roof in roofs.items():
+                    ms = roof.useful_flops / roof.attainable_flops_per_s * 1e3
+                    cell["roofline"][model] = {
+                        "ms": ms, "ai": roof.ai, "share_cold": ms / cold,
+                        "share_warm": ms / warm}
+                cell["nearest"] = min(
+                    cell["roofline"], key=lambda k: abs(math.log(
+                        cell["roofline"][k]["ms"] / cold)))
+                log(paper_cell_line(name, fmt, d, cell))
+                for model, p in cell["roofline"].items():
+                    if max(p["share_cold"], p["share_warm"]) > 1.0:
+                        log(f"[paper] above roofline: {name} {fmt} d={d} "
+                            f"{model}: roofline {p['ms']:.5f} ms, cold "
+                            f"{cold:.5f} ms (share {p['share_cold']:.3f}), "
+                            f"warm {warm:.5f} ms (share "
+                            f"{p['share_warm']:.3f})")
+                cells.append(cell)
+            del b, ref, absprod
+        del m, plan, layouts, a_csr, a_lib
+        gc.collect()
+        empty_cache(dev)
+    del flush
+    empty_cache(dev)
+    nearest = {}
+    for c in cells:
+        if c["format"] == "csr":
+            tally = nearest.setdefault(c["regime"], {})
+            tally[c["nearest"]] = tally.get(c["nearest"], 0) + 1
+    above = {"cold": {}, "warm": {}}
+    for c in cells:
+        for model, p in c["roofline"].items():
+            for side in above:
+                if p[f"share_{side}"] > 1.0:
+                    key = f"{c['format']}/{model}"
+                    above[side][key] = above[side].get(key, 0) + 1
+    log(f"[paper] {len(cells)} kernel cells within the plain version's "
+        f"bound; launches {launched}; host (generate, classify, plan, "
+        f"pack) {t_host:.1f}s")
+    log(f"[paper] nearest model of the CSR launches, by classified regime: "
+        f"{nearest}")
+    log(f"[paper] cells above roofline (share > 1.0), by format/model: cold "
+        f"{above['cold']}, warm {above['warm']}")
+    out = ROOT / "chiprun_out" / "paper_suite.json"
+    out.parent.mkdir(exist_ok=True)
+    out.write_text(json.dumps({"scale": scale, "hardware": hw.name,
+                               "cells": cells, "nearest": nearest,
+                               "above": above}, indent=1))
+    return launched
 
 
 def grouped_excess(got, ref, absprod, rows) -> tuple:
@@ -4849,6 +5102,12 @@ def run(quick: bool, n: int) -> int:
     records[-1]["dryrun"] = dryrun
     seconds["kernel"] = time.perf_counter() - t0
     log(f"[kernel] phase took {seconds['kernel']:.1f}s")
+    t0 = time.perf_counter()
+    paper = paper_phase(quick, dev)
+    for rec in records:
+        rec["paper_launches"] = paper.get(rec["name"], 0)
+    seconds["paper"] = time.perf_counter() - t0
+    log(f"[paper] phase took {seconds['paper']:.1f}s")
     t0 = time.perf_counter()
     engine = engine_phase(served, quick, dev)
     for rec in records:

@@ -14,7 +14,9 @@ from repro_torch.kernels import (banded_spmm, bcsr_spmm, binned_spmm,
                                  rowsplit_spmm)
 from repro_torch.kernels.registry import (
     KernelContext, KernelRoofline, KernelSpec, band_to_blocks,
-    choose_b_tile, feature_matrix, formats_for, pad_empty_block_rows,
+    bcsr_kernel_roofline, choose_b_tile, csr_kernel_roofline,
+    dia_kernel_roofline, feature_matrix, formats_for,
+    grouped_matmul_roofline, pad_empty_block_rows,
 )
 
 #: The kernel modules, by the name of their CUDA source (``csrc/<name>.cu``).
@@ -40,6 +42,7 @@ def reset_launch_counts() -> None:
 __all__ = [
     "registry", "KERNEL_MODULES", "launch_counts", "reset_launch_counts",
     "KernelContext", "KernelRoofline", "KernelSpec", "band_to_blocks",
-    "choose_b_tile", "feature_matrix", "formats_for",
-    "pad_empty_block_rows",
+    "bcsr_kernel_roofline", "choose_b_tile", "csr_kernel_roofline",
+    "dia_kernel_roofline", "feature_matrix", "formats_for",
+    "grouped_matmul_roofline", "pad_empty_block_rows",
 ]

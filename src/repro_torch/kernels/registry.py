@@ -321,6 +321,50 @@ class KernelRoofline:
     mxu_utilization: float
 
 
+def csr_kernel_roofline(a, d: int, *, regime: str = "random",
+                        hw: HardwareSpec = H100) -> KernelRoofline:
+    """Place a CSR kernel launch on the roofline under its regime model.
+
+    ``a`` is a CSR container (``n``, ``nnz`` and ``data``, whose element
+    size is the model's ``sizeof_val``); ``regime`` names a model of
+    ``sparsity_models.arithmetic_intensity`` that needs no argument beyond
+    ``sizeof_val`` (``"blocked"`` needs the block shape and raises).  The
+    kernel issues exactly the useful FLOPs (padding slots multiply zeros),
+    so utilization is 1.0; what varies with structure is the B-traffic
+    term of the AI.  The ``mxu_*`` names are kept for parity with the
+    reference: on the card the CSR kernel runs on the CUDA cores.
+    """
+    tb = sm.arithmetic_intensity(regime, a.n, a.nnz, d,
+                                 sizeof_val=a.data.dtype.itemsize)
+    return KernelRoofline(
+        name="csr_spmm", ai=tb.ai, useful_flops=tb.flops,
+        mxu_flops=tb.flops,
+        attainable_flops_per_s=hw.attainable(tb.ai),
+        mxu_utilization=1.0)
+
+
+def bcsr_kernel_roofline(a, d: int,
+                         hw: HardwareSpec = H100) -> KernelRoofline:
+    """Place a BCSR kernel launch on the blocked model
+    (``sparsity_models.ai_blocked_tpu``): each stored t x t block and its
+    t x d B tile moved once, C written once.
+
+    ``mxu_flops`` (2 d t^2 N) are the products the kernel issues over the
+    dense blocks and ``mxu_utilization`` the useful share of them.  The
+    names are kept for parity with the reference: on the card they count
+    the tensor cores' work for the ``wgmma_bf16`` variant and the CUDA
+    cores' otherwise.
+    """
+    tb = sm.ai_blocked_tpu(a.n, a.nnz, d, t=a.t, num_blocks=a.num_blocks,
+                           sizeof_val=a.blocks.dtype.itemsize)
+    util = sm.mxu_utilization(a.nnz, a.t, a.num_blocks)
+    return KernelRoofline(
+        name="bcsr_spmm", ai=tb.ai, useful_flops=tb.flops,
+        mxu_flops=2.0 * d * a.t * a.t * a.num_blocks,
+        attainable_flops_per_s=hw.attainable(tb.ai),
+        mxu_utilization=util)
+
+
 def dia_kernel_roofline(m, d: int, hw: HardwareSpec) -> KernelRoofline:
     """Diagonal-regime placement: B streamed once, k full diagonals issued."""
     k = max(int(np.unique(m.cols.astype(np.int64) - m.rows).shape[0]), 1)

@@ -311,6 +311,7 @@ def test_importing_port_leaves_jax_and_reference_unloaded():
         "import repro_torch.sparse.engine, repro_torch.sparse.shard\n"
         "import repro_torch.launch.mesh\n"
         "import repro_torch.configs, repro_torch.models.model\n"
+        "import repro_torch.configs.paper_spmm\n"
         "import repro_torch.models.decode_check\n"
         "import repro_torch.models.ssm, repro_torch.models.rglru\n"
         "import repro_torch.optim.adamw, repro_torch.optim.schedule\n"
