@@ -1,0 +1,15 @@
+"""``alloc_us.solve``: mean microseconds per request that the synchronous
+request path spends allocating C and the kernel's scratch (the split
+buffers' fill included), the program's ``spmm.alloc`` spans per
+``spmm.execute`` root, in the traced segment."""
+import pathlib
+
+from bench import spec
+
+_check = spec.load_module(pathlib.Path(__file__).resolve().parents[2],
+                          "metrics", "check_us.solve")
+
+
+def read(rec, spans=None):
+    """Mean µs of ``spmm.alloc`` per request."""
+    return _check.per_request_us("spmm.alloc", spans)

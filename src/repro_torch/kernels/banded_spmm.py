@@ -23,6 +23,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import trace
 from repro_torch.kernels import build
 from repro_torch.kernels.csr_spmm import check_operands, value_code
 
@@ -134,6 +135,9 @@ def _kernel():
 def banded_spmm_cuda(layout: BandLayout, b: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel (``csrc/banded_spmm.cu``) on a CUDA operand."""
     global LAUNCHES
+    traced = trace.recording()
+    if traced:
+        t_check = trace.now()
     n = layout.nb * layout.t
     k = int(layout.offsets.shape[0])
     offsets = layout.offsets
@@ -154,11 +158,17 @@ def banded_spmm_cuda(layout: BandLayout, b: torch.Tensor) -> torch.Tensor:
     d = b.shape[1]
     if k == 0:                      # no stored diagonal: A is zero
         return torch.zeros(n, d, dtype=b.dtype, device=b.device)
+    if traced:
+        t_alloc = trace.now()
     c = torch.empty(n, d, dtype=b.dtype, device=b.device)
+    if traced:
+        t_launch = trace.now()
     err = _kernel()(value_code(b.dtype), build.ptr(layout.diags),
                     build.ptr(b), build.ptr(c), n, d, k, build.ptr(offsets),
                     build.stream_ptr(b.device))
     LAUNCHES += 1
+    if traced:
+        trace.record_launch(t_check, t_alloc, t_launch)
     build.check(err, "banded_spmm")
     return c
 

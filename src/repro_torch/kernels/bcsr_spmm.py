@@ -26,6 +26,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core import trace
 from repro_torch.kernels import build
 from repro_torch.kernels.csr_spmm import check_operands, value_code
 from repro_torch.sparse.spmm import bcsr_spmm as _torch_bcsr_spmm
@@ -76,6 +77,9 @@ def _kernel():
 def bcsr_spmm_cuda(a, b: torch.Tensor) -> torch.Tensor:
     """Launch the kernel :func:`bcsr_variant` names on a CUDA operand."""
     global LAUNCHES
+    traced = trace.recording()
+    if traced:
+        t_check = trace.now()
     if not 1 <= a.t <= MAX_T:
         raise ValueError(f"bcsr_spmm: block edge t={a.t} outside "
                          f"[1, {MAX_T}]")
@@ -86,7 +90,11 @@ def bcsr_spmm_cuda(a, b: torch.Tensor) -> torch.Tensor:
                          f"{a.n} in blocks of {a.t}")
     d = b.shape[1]
     variant = bcsr_variant(a.t, d, b.dtype)
+    if traced:
+        t_alloc = trace.now()
     c = torch.empty(a.n, d, dtype=b.dtype, device=b.device)
+    if traced:
+        t_launch = trace.now()
     if variant != "generic" and any(x.data_ptr() % 16
                                     for x in (a.blocks, b, c)):
         raise ValueError(f"bcsr_spmm: the {variant} kernel copies 16-byte "
@@ -97,6 +105,8 @@ def bcsr_spmm_cuda(a, b: torch.Tensor) -> torch.Tensor:
                     a.num_blocks, a.t, d, build.stream_ptr(b.device))
     LAUNCHES += 1
     LAUNCHES_BY_VARIANT[variant] += 1
+    if traced:
+        trace.record_launch(t_check, t_alloc, t_launch)
     build.check(err, f"bcsr_spmm ({variant})")
     return c
 

@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import trace
 from repro_torch.kernels import build
 from repro_torch.kernels.csr_spmm import (
     ROW_TILE, accumulate_chunks, check_operands, check_row_tile_layout,
@@ -200,12 +201,19 @@ def binned_spmm_cuda(layout: SlabBinLayout, b: torch.Tensor) -> torch.Tensor:
     launch then casts into C.
     """
     global LAUNCHES
+    traced = trace.recording()
+    if traced:
+        t_check = trace.now()
     check_row_tile_layout("binned_spmm", layout, b)
     check_operands("binned_spmm", (layout.visit_tiles,), b, layout.vals)
+    if traced:
+        t_alloc = trace.now()
     n, d = b.shape
     acc = torch.zeros(n, d, dtype=torch.float32, device=b.device)
     c = acc if b.dtype == torch.float32 else \
         torch.empty(n, d, dtype=b.dtype, device=b.device)
+    if traced:
+        t_launch = trace.now()
     fn = _kernel()
     err = fn(value_code(b.dtype), index_code(layout.cols.dtype),
              build.ptr(layout.piece_ptr), build.ptr(layout.piece_owner),
@@ -216,6 +224,8 @@ def binned_spmm_cuda(layout: SlabBinLayout, b: torch.Tensor) -> torch.Tensor:
              layout.n if layout.b_tile is None else layout.b_tile,
              layout.cols.shape[1], build.stream_ptr(b.device))
     LAUNCHES += 1
+    if traced:
+        trace.record_launch(t_check, t_alloc, t_launch)
     build.check(err, "binned_spmm")
     return c
 

@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import trace
 from repro_torch.kernels import build
 
 #: Kernel launches made by :func:`csr_spmm` (a plain counter; reset by
@@ -426,14 +427,21 @@ def csr_spmm_cuda(layout: RowTileLayout, b: torch.Tensor) -> torch.Tensor:
     then stores into C.
     """
     global LAUNCHES
+    traced = trace.recording()
+    if traced:
+        t_check = trace.now()
     check_row_tile_layout("csr_spmm", layout, b)
     check_operands("csr_spmm", (layout.piece_split, layout.split_tiles), b,
                    layout.vals)
+    if traced:
+        t_alloc = trace.now()
     n, d = b.shape
     c = torch.empty(n, d, dtype=b.dtype, device=b.device)
     num_split = int(layout.split_tiles.shape[0])
     split_acc = torch.zeros(num_split * ROW_TILE, d, dtype=torch.float32,
                             device=b.device)
+    if traced:
+        t_launch = trace.now()
     fn = _kernel()
     err = fn(value_code(b.dtype), index_code(layout.cols.dtype),
              build.ptr(layout.piece_ptr), build.ptr(layout.piece_owner),
@@ -445,6 +453,8 @@ def csr_spmm_cuda(layout: RowTileLayout, b: torch.Tensor) -> torch.Tensor:
              layout.b_tile or 0, layout.cols.shape[1],
              build.stream_ptr(b.device))
     LAUNCHES += 1
+    if traced:
+        trace.record_launch(t_check, t_alloc, t_launch)
     build.check(err, "csr_spmm")
     return c
 

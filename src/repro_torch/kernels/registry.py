@@ -246,7 +246,7 @@ def pad_empty_block_rows(a):
     Same arrays as the reference's: the padded blocks are appended, then
     every block is stably re-sorted by block row.
     """
-    from repro_torch.sparse.formats import BCSRMatrix
+    from repro_torch.sparse.formats import BCSRMatrix, to_device
     nb = a.nb
     present = np.zeros(nb, dtype=bool)
     rows_np = a.block_rows.cpu().numpy()
@@ -263,10 +263,12 @@ def pad_empty_block_rows(a):
     counts = np.bincount(rows, minlength=nb)
     ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
     return BCSRMatrix(
-        blocks=blocks[torch.from_numpy(order).to(dev)],
-        block_rows=torch.from_numpy(rows[order].astype(np.int32)).to(dev),
-        block_cols=torch.from_numpy(cols[order].astype(np.int32)).to(dev),
-        block_ptr=torch.from_numpy(ptr).to(dev),
+        blocks=blocks[to_device(torch.from_numpy(order), dev)],
+        block_rows=to_device(torch.from_numpy(rows[order].astype(np.int32)),
+                             dev),
+        block_cols=to_device(torch.from_numpy(cols[order].astype(np.int32)),
+                             dev),
+        block_ptr=to_device(torch.from_numpy(ptr), dev),
         n=a.n, t=a.t, nnz=a.nnz)
 
 

@@ -29,6 +29,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import trace
 from repro_torch.kernels import build
 from repro_torch.kernels.csr_spmm import (
     accumulate_chunks, check_operands, index_code, index_extent_check,
@@ -267,6 +268,9 @@ def rowsplit_spmm_cuda(layout: RowSplitLayout,
     """Launch the two CUDA kernels (``csrc/rowsplit_spmm.cu``): C at b's
     dtype, every row written; the carry buffer is scratch."""
     global LAUNCHES
+    traced = trace.recording()
+    if traced:
+        t_check = trace.now()
     check_operands("rowsplit_spmm", (
         layout.row_map, layout.cols, layout.slots, layout.vals,
         layout.last_slot, layout.shared, layout.carry_rows,
@@ -278,12 +282,16 @@ def rowsplit_spmm_cuda(layout: RowSplitLayout,
         raise TypeError("rowsplit_spmm: cols and slots must share a dtype")
     if layout.n >= 2 ** 31:
         raise ValueError(f"rowsplit_spmm: n={layout.n} needs 64-bit row ids")
+    if traced:
+        t_alloc = trace.now()
     d = b.shape[1]
     out = torch.empty(layout.n, d, dtype=b.dtype, device=b.device)
     carry = torch.empty(layout.num_chunks, 2, d, dtype=torch.float32,
                         device=b.device)
     if layout.n == 0:
         return out
+    if traced:
+        t_launch = trace.now()
     num_carry = int(layout.carry_rows.shape[0])
     num_empty = int(layout.empty_rows.shape[0])
     err = _kernel()(value_code(b.dtype), index_code(layout.cols.dtype),
@@ -297,6 +305,8 @@ def rowsplit_spmm_cuda(layout: RowSplitLayout,
                     layout.window, d, layout.cols.shape[1], layout.n,
                     build.stream_ptr(b.device))
     LAUNCHES += 1 if num_carry + num_empty == 0 else 2
+    if traced:
+        trace.record_launch(t_check, t_alloc, t_launch)
     build.check(err, "rowsplit_spmm")
     return out
 

@@ -45,6 +45,7 @@ from repro_torch.core.precision import (DEFAULT_PRECISION, INT16_MAX_EXTENT,
                                         PRECISIONS, Precision, as_precision)
 from repro_torch.core.roofline import ComputeCeiling
 from repro_torch.core import sparsity_models as sm
+from repro_torch.core import trace
 from repro_torch.core.patterns import COOMatrix
 from repro_torch.data.dtree import (DecisionTree, DispatchTreeStore,
                                     features_from_report)
@@ -305,7 +306,8 @@ class Dispatcher:
     def _report(self, m: COOMatrix) -> StructureReport:
         key = self._track(m)
         if key not in self._reports:
-            self._reports[key] = classify(m)
+            with trace.span("spmm.plan.classify"):
+                self._reports[key] = classify(m)
         return self._reports[key]
 
     def _stat(self, m: COOMatrix, name: str, fn):
@@ -313,7 +315,8 @@ class Dispatcher:
         the matrix, evaluated once however many rows need it)."""
         key = (self._track(m), name)
         if key not in self._stats:
-            self._stats[key] = fn()
+            with trace.span("spmm.plan.stat", stat=str(name)):
+                self._stats[key] = fn()
         return self._stats[key]
 
     def convert(self, m: COOMatrix, format: str, precision=None):
@@ -324,8 +327,10 @@ class Dispatcher:
         """
         prec = as_precision(precision)
         key = (self._track(m), format, self.bcsr_block, prec.value_dtype)
-        if key not in self._converted:
-            dtype, dev = prec.value_torch, self.device
+        if key in self._converted:
+            return self._converted[key]
+        dtype, dev = prec.value_torch, self.device
+        with trace.span("spmm.pack.convert", format=format):
             if format == "csr":
                 out = fmt.coo_to_csr(m, dtype=dtype, device=dev)
             elif format == "ell":
@@ -346,8 +351,8 @@ class Dispatcher:
                 out = fmt.coo_to_ell_coo(m, dtype=dtype, device=dev)
             else:
                 raise ValueError(f"unknown format {format!r}")
-            self._converted[key] = out
-        return self._converted[key]
+        self._converted[key] = out
+        return out
 
     # ----------------------------------------------------------------- #
     # Modeling
@@ -422,56 +427,57 @@ class Dispatcher:
     def _policy(self, m: COOMatrix, report: StructureReport,
                 format: str) -> Tuple[bool, Optional[str], dict]:
         """Applicability gate + the structural params the model needs."""
-        avg_deg, max_deg = self._stat(m, "degrees",
-                                      lambda: _degree_stats(m))
-        if format == "csr":
-            return True, None, {}
-        if format == "ell":
-            k = max(max_deg, 1)
-            params = {"k": k}
-            if max_deg > max(64, 16 * max(avg_deg, 1)):
-                return False, (
-                    f"ELL padding explodes: max_deg {max_deg} >> avg "
-                    f"{avg_deg:.1f} (vendor kernels fall back to CSR here)"
-                ), params
-            return True, None, params
-        if format == "bcsr":
-            t = self.bcsr_block
-            if m.n % t != 0:
-                return False, (f"matrix dim {m.n} not divisible by BCSR "
-                               f"block {t}"), {}
-            if report.stats.get("block_t") == t:
-                bstats = {k[len("block_"):]: v for k, v in
-                          report.stats.items() if k.startswith("block_")}
-            else:
-                bstats = self._stat(m, ("block_stats", t),
-                                    lambda: block_stats(m, t))
-            inflation = (t * t) / max(bstats["D"], 1e-9)
-            params = {"t": t, "N": bstats["N"], "D": bstats["D"],
-                      "z": bstats["z_emp"], "inflation": inflation}
-            if inflation > self.bcsr_max_inflation:
-                return False, (
-                    f"dense-block inflation {inflation:.0f}x exceeds "
-                    f"{self.bcsr_max_inflation:.0f}x (ai_blocked_tpu "
-                    f"predicts mxu_util {1 / inflation:.3f})"), params
-            return True, None, params
-        if format == "dia":
-            k = self._stat(m, "diagonals", lambda: _num_diagonals(m))
-            params = {"num_offsets": k}
-            if k > self.max_dia_offsets:
-                return False, (
-                    f"{k} distinct diagonals exceed "
-                    f"{self.max_dia_offsets}; DIA only suits banded "
-                    f"matrices"), params
-            return True, None, params
-        if format in ("binned", "rowsplit"):
-            return True, None, {}
-        if format == "ell_coo":
-            deg = np.bincount(m.rows, minlength=m.n)
-            k_cut = fmt.ell_coo_cutoff(deg)
-            tail = int(np.clip(deg - k_cut, 0, None).sum())
-            return True, None, {"k_cut": k_cut, "tail_nnz": tail}
-        raise ValueError(f"unknown format {format!r}")
+        with trace.span("spmm.plan.policy", format=format):
+            avg_deg, max_deg = self._stat(m, "degrees",
+                                          lambda: _degree_stats(m))
+            if format == "csr":
+                return True, None, {}
+            if format == "ell":
+                k = max(max_deg, 1)
+                params = {"k": k}
+                if max_deg > max(64, 16 * max(avg_deg, 1)):
+                    return False, (
+                        f"ELL padding explodes: max_deg {max_deg} >> avg "
+                        f"{avg_deg:.1f} (vendor kernels fall back to CSR here)"
+                    ), params
+                return True, None, params
+            if format == "bcsr":
+                t = self.bcsr_block
+                if m.n % t != 0:
+                    return False, (f"matrix dim {m.n} not divisible by BCSR "
+                                   f"block {t}"), {}
+                if report.stats.get("block_t") == t:
+                    bstats = {k[len("block_"):]: v for k, v in
+                              report.stats.items() if k.startswith("block_")}
+                else:
+                    bstats = self._stat(m, ("block_stats", t),
+                                        lambda: block_stats(m, t))
+                inflation = (t * t) / max(bstats["D"], 1e-9)
+                params = {"t": t, "N": bstats["N"], "D": bstats["D"],
+                          "z": bstats["z_emp"], "inflation": inflation}
+                if inflation > self.bcsr_max_inflation:
+                    return False, (
+                        f"dense-block inflation {inflation:.0f}x exceeds "
+                        f"{self.bcsr_max_inflation:.0f}x (ai_blocked_tpu "
+                        f"predicts mxu_util {1 / inflation:.3f})"), params
+                return True, None, params
+            if format == "dia":
+                k = self._stat(m, "diagonals", lambda: _num_diagonals(m))
+                params = {"num_offsets": k}
+                if k > self.max_dia_offsets:
+                    return False, (
+                        f"{k} distinct diagonals exceed "
+                        f"{self.max_dia_offsets}; DIA only suits banded "
+                        f"matrices"), params
+                return True, None, params
+            if format in ("binned", "rowsplit"):
+                return True, None, {}
+            if format == "ell_coo":
+                deg = np.bincount(m.rows, minlength=m.n)
+                k_cut = fmt.ell_coo_cutoff(deg)
+                tail = int(np.clip(deg - k_cut, 0, None).sum())
+                return True, None, {"k_cut": k_cut, "tail_nnz": tail}
+            raise ValueError(f"unknown format {format!r}")
 
     def _model(self, m: COOMatrix, report: StructureReport, format: str,
                params: dict, d: int, hw: HardwareSpec, reuse: int,
@@ -603,15 +609,18 @@ class Dispatcher:
                    d, hw, reuse, backend, tolerance, forced_tok
                    ) -> CandidateEval:
         """Gate and model one (format, precision) row."""
-        p_ok, p_reason = self._precision_gate(
-            m, f, prec, d, hw, tolerance, forced=prec.token == forced_tok)
-        source = "default"
-        row_params = dict(params)
-        try:
-            ai, useful, pred, amort, conv, source = self._model(
-                m, report, f, row_params, d, hw, reuse, backend, prec)
-        except (KeyError, ValueError):
-            ai = useful = pred = amort = conv = None
+        with trace.span("spmm.plan.candidate", format=f,
+                        precision=prec.token):
+            p_ok, p_reason = self._precision_gate(
+                m, f, prec, d, hw, tolerance,
+                forced=prec.token == forced_tok)
+            source = "default"
+            row_params = dict(params)
+            try:
+                ai, useful, pred, amort, conv, source = self._model(
+                    m, report, f, row_params, d, hw, reuse, backend, prec)
+            except (KeyError, ValueError):
+                ai = useful = pred = amort = conv = None
         return CandidateEval(
             format=f, eligible=eligible and p_ok,
             skip_reason=reason if not eligible else p_reason,
@@ -647,93 +656,98 @@ class Dispatcher:
                 the policy rejects for this matrix, or a forced precision
                 no eligible kernel can run here.
         """
-        if strategy not in STRATEGIES:
-            raise ValueError(f"unknown strategy {strategy!r}; choose from "
-                             f"{STRATEGIES}")
-        if d < 1:
-            raise ValueError(f"dense width d must be >= 1, got {d}")
-        reuse = self.reuse if reuse is None else reuse
-        tolerance = self.tolerance if tolerance is None else float(tolerance)
-        forced_tok = None if precision is None \
-            else as_precision(precision).token
-        backend = self._resolve_backend()
-        hw = self._resolve_hardware(backend)
-        tree = self._tree(backend) if strategy == "auto" else None
-        tree_token = tree.fingerprint() if tree is not None else "none"
-        key = (self._track(m), d, strategy, reuse, backend, hw.name,
-               tree_token, self.tree_margin, forced_tok, tolerance)
-        if key in self._plans:
-            return self._plans[key]
+        with trace.span("spmm.plan", d=d, strategy=strategy) as root:
+            if strategy not in STRATEGIES:
+                raise ValueError(f"unknown strategy {strategy!r}; choose from "
+                                 f"{STRATEGIES}")
+            if d < 1:
+                raise ValueError(f"dense width d must be >= 1, got {d}")
+            reuse = self.reuse if reuse is None else reuse
+            tolerance = (self.tolerance if tolerance is None
+                         else float(tolerance))
+            forced_tok = None if precision is None \
+                else as_precision(precision).token
+            backend = self._resolve_backend()
+            hw = self._resolve_hardware(backend)
+            tree = self._tree(backend) if strategy == "auto" else None
+            tree_token = tree.fingerprint() if tree is not None else "none"
+            key = (self._track(m), d, strategy, reuse, backend, hw.name,
+                   tree_token, self.tree_margin, forced_tok, tolerance)
+            root.attrs["cached"] = key in self._plans
+            if root.attrs["cached"]:
+                return self._plans[key]
 
-        from repro_torch.kernels import registry as kreg
-        report = self._report(m)
-        cands = []
-        for f in FORMATS:
-            eligible, reason, params = self._policy(m, report, f)
-            spec_tokens = kreg.get(f, backend).supported_precisions
-            for prec in PRECISIONS:
-                if prec.token not in spec_tokens:
-                    continue
-                cands.append(self._candidate(
-                    m, report, f, prec, params, eligible, reason, d, hw,
-                    reuse, backend, tolerance, forced_tok))
+            from repro_torch.kernels import registry as kreg
+            report = self._report(m)
+            cands = []
+            for f in FORMATS:
+                eligible, reason, params = self._policy(m, report, f)
+                spec_tokens = kreg.get(f, backend).supported_precisions
+                for prec in PRECISIONS:
+                    if prec.token not in spec_tokens:
+                        continue
+                    cands.append(self._candidate(
+                        m, report, f, prec, params, eligible, reason, d, hw,
+                        reuse, backend, tolerance, forced_tok))
 
-        pool = cands if forced_tok is None else \
-            [c for c in cands if c.precision == forced_tok]
-        decision_source, decision_path = "analytic", ()
-        if strategy == "auto":
-            viable = [c for c in pool
-                      if c.eligible and c.amortized_gflops is not None]
-            if not viable:
-                if forced_tok is not None:
+            pool = cands if forced_tok is None else \
+                [c for c in cands if c.precision == forced_tok]
+            decision_source, decision_path = "analytic", ()
+            if strategy == "auto":
+                viable = [c for c in pool
+                          if c.eligible and c.amortized_gflops is not None]
+                if not viable:
+                    if forced_tok is not None:
+                        raise ValueError(
+                            f"no eligible kernel on backend {backend!r} can "
+                            f"run precision {forced_tok!r} for this matrix")
+                    viable = [c for c in cands
+                              if c.format == "csr" and c.precision == "f32i32"]
+                ranked = sorted(viable,
+                                key=lambda c: c.amortized_gflops or 0.0,
+                                reverse=True)
+                best_by_fmt: Dict[str, CandidateEval] = {}
+                for c in ranked:
+                    best_by_fmt.setdefault(c.format, c)
+                franked = list(best_by_fmt.values())
+                chosen_c = franked[0]
+                if tree is not None and len(franked) >= 2:
+                    top = franked[0].amortized_gflops or 0.0
+                    gap = (top - (franked[1].amortized_gflops or 0.0)) \
+                        / max(top, 1e-12)
+                    if gap <= self.tree_margin:
+                        x = features_from_report(report, d)
+                        pick = tree.predict(x)
+                        near = {c.format for c in franked
+                                if top - (c.amortized_gflops or 0.0)
+                                <= self.tree_margin * top}
+                        if pick in near:
+                            chosen_c = best_by_fmt[pick]
+                            decision_source = "tree"
+                            decision_path = tree.decision_path(x)
+            else:
+                rows = [c for c in pool if c.format == strategy]
+                if not rows:
                     raise ValueError(
-                        f"no eligible kernel on backend {backend!r} can "
-                        f"run precision {forced_tok!r} for this matrix")
-                viable = [c for c in cands
-                          if c.format == "csr" and c.precision == "f32i32"]
-            ranked = sorted(viable, key=lambda c: c.amortized_gflops or 0.0,
-                            reverse=True)
-            best_by_fmt: Dict[str, CandidateEval] = {}
-            for c in ranked:
-                best_by_fmt.setdefault(c.format, c)
-            franked = list(best_by_fmt.values())
-            chosen_c = franked[0]
-            if tree is not None and len(franked) >= 2:
-                top = franked[0].amortized_gflops or 0.0
-                gap = (top - (franked[1].amortized_gflops or 0.0)) \
-                    / max(top, 1e-12)
-                if gap <= self.tree_margin:
-                    x = features_from_report(report, d)
-                    pick = tree.predict(x)
-                    near = {c.format for c in franked
-                            if top - (c.amortized_gflops or 0.0)
-                            <= self.tree_margin * top}
-                    if pick in near:
-                        chosen_c = best_by_fmt[pick]
-                        decision_source = "tree"
-                        decision_path = tree.decision_path(x)
-        else:
-            rows = [c for c in pool if c.format == strategy]
-            if not rows:
-                raise ValueError(
-                    f"kernel ({strategy!r}, {backend!r}) does not "
-                    f"support precision {forced_tok!r}")
-            eligible_rows = [c for c in rows if c.eligible]
-            if not eligible_rows:
-                raise ValueError(
-                    f"strategy {strategy!r} is policy-ineligible for "
-                    f"this matrix: {rows[0].skip_reason}")
-            chosen_c = max(eligible_rows,
-                           key=lambda c: c.amortized_gflops or 0.0)
-        plan = DispatchPlan(
-            chosen=chosen_c.format, strategy=strategy, regime=report.regime,
-            d=d, reuse=reuse, backend=backend, hardware=hw.name,
-            candidates=tuple(cands), precision=chosen_c.precision,
-            tolerance=tolerance,
-            calibration_note=self._staleness(hw, backend),
-            decision_source=decision_source, decision_path=decision_path)
-        self._plans[key] = plan
-        return plan
+                        f"kernel ({strategy!r}, {backend!r}) does not "
+                        f"support precision {forced_tok!r}")
+                eligible_rows = [c for c in rows if c.eligible]
+                if not eligible_rows:
+                    raise ValueError(
+                        f"strategy {strategy!r} is policy-ineligible for "
+                        f"this matrix: {rows[0].skip_reason}")
+                chosen_c = max(eligible_rows,
+                               key=lambda c: c.amortized_gflops or 0.0)
+            plan = DispatchPlan(
+                chosen=chosen_c.format, strategy=strategy,
+                regime=report.regime, d=d, reuse=reuse, backend=backend,
+                hardware=hw.name,
+                candidates=tuple(cands), precision=chosen_c.precision,
+                tolerance=tolerance,
+                calibration_note=self._staleness(hw, backend),
+                decision_source=decision_source, decision_path=decision_path)
+            self._plans[key] = plan
+            return plan
 
     def spmm(self, m: COOMatrix, b: torch.Tensor, *,
              strategy: str = "auto",
@@ -790,25 +804,28 @@ class Dispatcher:
         Returns:
             ``(spec, layout, ctx)``.
         """
-        from repro_torch.kernels import registry
-        spec = registry.get(plan.chosen, plan.backend)
-        prec = as_precision(plan.precision)
+        with trace.span("spmm.pack", format=plan.chosen,
+                        precision=plan.precision):
+            from repro_torch.kernels import registry
+            spec = registry.get(plan.chosen, plan.backend)
+            prec = as_precision(plan.precision)
 
-        def _convert(mm, format, _prec=prec):
-            return self.convert(mm, format, precision=_prec)
+            def _convert(mm, format, _prec=prec):
+                return self.convert(mm, format, precision=_prec)
 
-        ctx = registry.KernelContext(
-            hardware=self._resolve_hardware(plan.backend),
-            bcsr_block=self.bcsr_block,
-            max_dia_offsets=self.max_dia_offsets,
-            plan_d=plan.d, precision=prec, convert=_convert,
-            device=self.device)
-        ck = (self._track(m), "layout", *spec.layout_cache_key,
-              self.bcsr_block, registry.pallas_block_d(plan.d),
-              prec.token)
-        if ck not in self._converted:
-            self._converted[ck] = spec.prepare(m, ctx)
-        return spec, self._converted[ck], ctx
+            ctx = registry.KernelContext(
+                hardware=self._resolve_hardware(plan.backend),
+                bcsr_block=self.bcsr_block,
+                max_dia_offsets=self.max_dia_offsets,
+                plan_d=plan.d, precision=prec, convert=_convert,
+                device=self.device)
+            ck = (self._track(m), "layout", *spec.layout_cache_key,
+                  self.bcsr_block, registry.pallas_block_d(plan.d),
+                  prec.token)
+            if ck not in self._converted:
+                with trace.span("spmm.pack.layout"):
+                    self._converted[ck] = spec.prepare(m, ctx)
+            return spec, self._converted[ck], ctx
 
 
 def check_device(b: torch.Tensor, device: torch.device) -> None:

@@ -22,6 +22,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import trace
 from repro_torch.core.device import device_of
 from repro_torch.core.precision import (  # noqa: F401  (re-export)
     DEFAULT_PRECISION, INT16_MAX_EXTENT, PRECISION_BF16, PRECISION_BF16_I32,
@@ -43,7 +44,7 @@ class _Tensors:
     def to(self, device):
         """A copy of this container with every tensor on ``device``."""
         return dataclasses.replace(self, **{
-            f.name: getattr(self, f.name).to(device)
+            f.name: to_device(getattr(self, f.name), device)
             for f in dataclasses.fields(self)
             if isinstance(getattr(self, f.name), torch.Tensor)})
 
@@ -183,6 +184,23 @@ class ELLCOOMatrix(_Tensors):
 # Host <-> tensor value plumbing.
 # --------------------------------------------------------------------------
 
+def to_device(t: torch.Tensor, device, dtype=None) -> torch.Tensor:
+    """``t`` on ``device`` (the CPU for None), cast to ``dtype`` if given.
+
+    Every copy of this module to the card goes through here: one that
+    leaves the CPU while a set-up span is open (``spmm.plan`` /
+    ``spmm.pack``) is recorded as a ``spmm.pack.copy`` span with the bytes
+    it wrote.
+    """
+    dev = device_of(device)
+    if dev.type == "cpu" or not trace.in_setup():
+        return t.to(device=dev, dtype=dtype)
+    with trace.span("spmm.pack.copy") as s:
+        out = t.to(device=dev, dtype=dtype)
+        s.attrs["bytes"] = out.numel() * out.element_size()
+    return out
+
+
 def host_values(t: torch.Tensor) -> np.ndarray:
     """A numpy copy of value tensor ``t``; bf16 comes back as uint16 bits."""
     t = t.detach().cpu()
@@ -205,17 +223,17 @@ def tensor_from_host(a: np.ndarray, device=None) -> torch.Tensor:
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)
-    return t.to(device_of(device))
+    return to_device(t, device)
 
 
 def _cast(a32: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
     """Cast a float32 numpy array to a ``dtype`` tensor on ``device``."""
-    return torch.from_numpy(np.ascontiguousarray(a32)).to(
-        device=device_of(device), dtype=dtype)
+    return to_device(torch.from_numpy(np.ascontiguousarray(a32)), device,
+                     dtype)
 
 
 def _idx(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device_of(device))
+    return to_device(torch.from_numpy(np.ascontiguousarray(a)), device)
 
 
 # --------------------------------------------------------------------------

@@ -22,6 +22,7 @@ from typing import Any, Iterable, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch.core import trace
 from repro_torch.core.device import DeviceLike
 from repro_torch.core.patterns import COOMatrix
 from repro_torch.sparse import dispatch as _dispatch
@@ -162,6 +163,35 @@ class StreamPlan:
                 f"use execute_wide for other widths")
         _dispatch.check_device(b, self.device)
 
+    def _replay(self, b: torch.Tensor,
+                width: Optional[int] = None) -> torch.Tensor:
+        """Run the bound kernel on ``b``: one request, traced as a
+        ``spmm.execute`` span while a profiler records.
+
+        ``width`` is the width ``b`` must have, checked here (a
+        ``spmm.check`` span, recorded once the kernel is launched); None
+        where the caller has checked ``b`` already, as :meth:`execute_wide`
+        checks the whole B before it slices it.
+        """
+        if not trace.recording():
+            if width is not None:
+                self._check(b, width=width)
+            out = self._run(b)
+        else:
+            root = trace.begin("spmm.execute", request=True)
+            try:
+                if width is not None:
+                    t_check = trace.now()
+                    self._check(b, width=width)
+                    t_run = trace.now()
+                out = self._run(b)
+                if width is not None:
+                    trace.record("spmm.check", t_check, t_run)
+            finally:
+                trace.end(root)
+        self.executed += 1
+        return out
+
     def execute(self, b: torch.Tensor) -> torch.Tensor:
         """Run ``C = A @ B`` for one planned-width batch.
 
@@ -171,9 +201,7 @@ class StreamPlan:
         Returns:
             ``C`` as a dense ``[n, spec.d]`` tensor.
         """
-        self._check(b, width=self.spec.d)
-        out = self._run(b)
-        self.executed += 1
+        out = self._replay(b, self.spec.d)
         self._audit_reuse()
         return out
 
@@ -209,11 +237,7 @@ class StreamPlan:
         """
         if isinstance(bs, torch.Tensor) and bs.ndim == 3:
             bs = list(bs.unbind(0))
-        outs = []
-        for b in bs:
-            self._check(b, width=self.spec.d)
-            outs.append(self._run(b))
-            self.executed += 1
+        outs = [self._replay(b, self.spec.d) for b in bs]
         self._audit_reuse()
         return outs
 
@@ -303,10 +327,8 @@ class StreamPlan:
         total = b.shape[1]
         if total == 0:
             return torch.zeros((self.n, 0), dtype=b.dtype, device=b.device)
-        outs = []
-        for lo in range(0, total, block_d):
-            outs.append(self._run(b[:, lo:lo + block_d].contiguous()))
-            self.executed += 1
+        outs = [self._replay(b[:, lo:lo + block_d].contiguous())
+                for lo in range(0, total, block_d)]
         self._audit_reuse()
         return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 

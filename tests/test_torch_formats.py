@@ -326,6 +326,7 @@ def test_importing_port_leaves_jax_and_reference_unloaded():
         "import repro_torch.train.pipeline\n"
         "import repro_torch.models.layers, repro_torch.models.attention\n"
         "import repro_torch.models.moe, repro_torch.core.device\n"
+        "import repro_torch.core.trace\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
         "print(bad)\n"
