@@ -173,7 +173,10 @@ The run reads and writes calibrations only in a fresh temporary
    n = 32760, where the slab fits int16 indices); kernel, plain-version
    and ``torch.sparse.mm`` times, the last with A as CSR in B's dtype
    (CUDA events, warm, median); the CSR
-   kernel also on the layout that ``scale-free`` auto packed, the row-tile
+   kernel also on the layout that ``scale-free`` auto packed, and at d = 4
+   on the layout that ``scale-free`` auto plans at that width (the
+   operator and width of ``scalefree.solve-d4``), each CSR row with the
+   walk it launched (checked against ``csr_variant``); the row-tile
    kernels with their work list's size (pieces, the largest piece's real
    entries, split tiles); the banded kernel with the diagonals it walks
    (slots read per nonzero, and the host time to derive them from the
@@ -199,7 +202,8 @@ The run reads and writes calibrations only in a fresh temporary
    ``CONFIG.bcsr_block``) and the banded kernel where the dispatcher's
    policy admits them.  Per (matrix, d), every launch is held against the
    plain CSR version within the SpMM bound below, the kernel's launch
-   counter (BCSR's by variant too) must rise by exactly the calls made,
+   counter (BCSR's by variant, CSR's by walk too) must rise by exactly
+   the calls made,
    and the kernel and ``torch.sparse.mm`` (A as CSR) are timed, after one
    untimed call, warm (10 back to back between one event pair) and cold
    (the least of ``CONFIG.repeats`` single calls, each after a 128 MB
@@ -445,8 +449,16 @@ KERNELS = {
 GROUPED = ("src/repro_torch/csrc/grouped_matmul.cu",
            "src/repro/kernels/grouped_matmul.py:40")
 
-#: Further serving runs whose layout a kernel is also timed on.
-EXTRA_RUNS = {"csr_spmm": (("scale-free", "auto"),)}
+#: Further serving runs whose operator a kernel is also timed on:
+#: (structure, strategy, d).  At d = D the run's own layout; at another d
+#: the layout the strategy plans at that width, with the benchmark's
+#: reuse (``SOLVE_REUSE``): scale-free at d = 4 is ``scalefree.solve-d4``'s
+#: width, where the CSR kernel takes its narrow walk.
+EXTRA_RUNS = {"csr_spmm": (("scale-free", "auto", D),
+                           ("scale-free", "auto", 4))}
+#: Requests a plan is reused for in ``EXTRA_RUNS`` at another d (the
+#: benchmark's solve traffic, ``bench/traffic/solve-d4.json``).
+SOLVE_REUSE = 4096
 
 #: Numbers of an SpMM kernel's row that the record carries.
 RECORD_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -455,7 +467,7 @@ RECORD_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "largest_piece_nnz", "split_tiles", "real_slots",
                "carry_rows", "carries", "carry_bytes", "empty_rows",
                "call_alloc_bytes", "partials_bytes", "variant",
-               "library_bsr_ms")
+               "library_bsr_ms", "walk", "lanes")
 
 #: Every kernel, in the order of the record.
 KERNEL_NAMES = (*KERNELS, "grouped_matmul")
@@ -984,6 +996,24 @@ def bsr_library_row(layout, b, runs: int) -> dict:
     return {"library_bsr_ms": ms}
 
 
+def csr_walk_run(name: str, layout, wrapper, b) -> dict:
+    """The CSR kernel's walk: a call must launch the one ``csr_variant``
+    names for B's width."""
+    if name != "csr_spmm":
+        return {}
+    from repro_torch.kernels import csr_spmm as csr_module
+    walk, lanes = csr_module.csr_variant(b.shape[1])
+    before = dict(csr_module.LAUNCHES_BY_VARIANT)
+    wrapper(layout, b)
+    moved = {k: v - before[k]
+             for k, v in csr_module.LAUNCHES_BY_VARIANT.items()
+             if v != before[k]}
+    if moved != {walk: 1}:
+        raise SmokeFailure(f"csr_spmm (d = {b.shape[1]}): a call launched "
+                           f"{moved}, not the {walk} walk")
+    return {"walk": walk, "lanes": lanes}
+
+
 def kernel_row(name, layout, m, b, index_bytes: int, runs: int,
                plain_runs: int) -> dict:
     """One kernel against its plain version on one layout, with times; the
@@ -1003,6 +1033,7 @@ def kernel_row(name, layout, m, b, index_bytes: int, runs: int,
     del out, ref
     fold = carry_fold_size(layout, wrapper, b)
     variant = bcsr_variant_run(layout, wrapper, b)
+    walk = csr_walk_run(name, layout, wrapper, b)
     ms = median_ms(lambda: wrapper(layout, b), runs)
     plain_ms = median_ms(lambda: plain(layout, b), plain_runs)
     a = torch_csr(m, b.device, b.dtype)
@@ -1034,14 +1065,14 @@ def kernel_row(name, layout, m, b, index_bytes: int, runs: int,
                 "bytes" if t_bytes >= t_ops else "operations")
     bound_ms, bound_by = bound(nbytes)
     empty_cache(b.device)
-    return {"max_abs_err": err, "margin": margin, "ms": ms,
+    return {"max_abs_err": err, "margin": margin, "ms": ms, "d": b.shape[1],
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_layout_ms": bound(layout_nbytes)[0],
             "library_ms": lib_ms, "bytes": nbytes,
             "layout_bytes": layout_nbytes, "flops": flops,
             "stored_per_nnz": stored / max(m.nnz, 1),
             **work_list_size(layout), **diagonal_walk_size(layout, m),
-            **fold, **variant, **bsr}
+            **fold, **variant, **walk, **bsr}
 
 
 def log_row(name: str, structure: str, row: dict) -> None:
@@ -1058,6 +1089,8 @@ def log_row(name: str, structure: str, row: dict) -> None:
         work += (f"; variant {row['variant']} (two calls equal bit for "
                  f"bit), torch.sparse.mm with A as BSR "
                  f"{row['library_bsr_ms']} ms")
+    if "walk" in row:
+        work += f"; {row['walk']} walk, {row['lanes']} lanes an entry"
     if "carry_rows" in row:
         work += (f"; fold: {row['carry_rows']} carry rows summing "
                  f"{row['carries']} carries, carry buffer "
@@ -1066,7 +1099,8 @@ def log_row(name: str, structure: str, row: dict) -> None:
                  f"{row['call_alloc_bytes'] / 1e6:.1f} MB (partials would "
                  f"be {row['partials_bytes'] / 1e6:.1f} MB), two calls "
                  f"equal bit for bit")
-    log(f"[kernel] {name} {row['precision']} n={row['n']} ({structure}, "
+    log(f"[kernel] {name} {row['precision']} n={row['n']} d={row['d']} "
+        f"({structure}, "
         f"layout {row['format']}): max|err| {row['max_abs_err']:.3e} (worst "
         f"err - bound {row['margin']:.3e} <= 0), kernel {row['ms']:.4f} ms, "
         f"plain {row['plain_ms']:.4f} ms, torch.sparse.mm "
@@ -1125,19 +1159,35 @@ def kernel_phase(served: dict, quick: bool, dev) -> list:
             rows.append(row)
             del b
         others = []
-        for extra in EXTRA_RUNS.get(name, ()):
-            erun = served["runs"][extra]
-            if extra == run_key or erun["plan"].chosen not in formats:
+        for ext, strategy, d in EXTRA_RUNS.get(name, ()):
+            eplan = served["runs"][(ext, strategy)]["plan"]
+            mm = served["matrices"][ext]
+            if d != D:
+                # The strategy's plan at width d; where it picks another
+                # kernel's format, the served run's format packed at d.
+                for pick in (strategy, eplan.chosen):
+                    dplan = stream.plan(
+                        mm, stream.BSpec(d=d, reuse=SOLVE_REUSE),
+                        strategy=pick, precision=eplan.precision,
+                        dispatcher=served["dispatchers"][ext])
+                    if dplan.chosen in formats:
+                        break
+                    log(f"[kernel] {ext}/{pick} at d = {d} chose "
+                        f"{dplan.chosen}, not a format of {name}")
+                else:
+                    raise SmokeFailure(f"[kernel] no {name} layout of {ext} "
+                                       f"at d = {d}")
+                eplan = dplan
+            elif (ext, strategy) == run_key or eplan.chosen not in formats:
                 continue
-            mm = served["matrices"][extra[0]]
-            b = torch.from_numpy(rng.normal(size=(mm.n, D))
+            b = torch.from_numpy(rng.normal(size=(mm.n, d))
                                  .astype(np.float32)).to(dev)
-            row = kernel_row(name, erun["plan"].layout, mm, b,
-                             as_precision(erun["plan"].precision).sizeof_idx,
+            row = kernel_row(name, eplan.layout, mm, b,
+                             as_precision(eplan.precision).sizeof_idx,
                              runs, plain_runs)
-            row.update(precision=erun["plan"].precision, n=mm.n,
-                       format=erun["plan"].chosen, structure=extra[0])
-            log_row(name, extra[0], row)
+            row.update(precision=eplan.precision, n=mm.n,
+                       format=eplan.chosen, structure=ext)
+            log_row(name, ext, row)
             others.append(row)
             del b
         main = rows[0]
@@ -1153,7 +1203,7 @@ def kernel_phase(served: dict, quick: bool, dev) -> list:
                 for r in rows[1:]],
             "other_layouts": [
                 {k: r[k] for k in ("structure", "format", "precision", "n",
-                                   *RECORD_KEYS) if k in r}
+                                   "d", *RECORD_KEYS) if k in r}
                 for r in others]})
     # The banded kernel at the smallest block edges (n = t * odd).
     from repro_torch.kernels.banded_spmm import banded_spmm, banded_spmm_plain
@@ -1212,6 +1262,8 @@ def paper_cell_line(name: str, fmt: str, d: int, cell: dict) -> str:
     extra = "" if "variant" not in cell else (
         f" mxu_utilization {cell['mxu_utilization']:.4f} variant "
         f"{cell['variant']}")
+    if "walk" in cell:
+        extra += f" walk {cell['walk']}"
     return (f"[paper] {name} {fmt} d={d} nnz={cell['nnz']} cold "
             f"{ms(cell['cold_ms'])} ms warm {ms(cell['warm_ms'])} ms lib "
             f"cold {ms(cell['lib_cold_ms'])} warm {ms(cell['lib_warm_ms'])}"
@@ -1233,6 +1285,7 @@ def paper_phase(quick: bool, dev, scale: Optional[int] = None) -> dict:
     from repro_torch.core.patterns import paper_suite
     from repro_torch.core.precision import as_precision
     from repro_torch.kernels import bcsr_spmm as bcsr_module
+    from repro_torch.kernels import csr_spmm as csr_module
     from repro_torch.kernels import registry
     from repro_torch.sparse.dispatch import Dispatcher
 
@@ -1297,6 +1350,7 @@ def paper_phase(quick: bool, dev, scale: Optional[int] = None) -> dict:
                     return spec.run(layout, b, ctx)
                 before = kernels.launch_counts()
                 variants = dict(bcsr_module.LAUNCHES_BY_VARIANT)
+                walks = dict(csr_module.LAUNCHES_BY_VARIANT)
                 err, _ = check_close(f"[paper] {name} {fmt} d={d}",
                                      launch(), ref, absprod, eps)
                 warm, cold = warm_cold_ms(launch, flush, CONFIG.repeats)
@@ -1314,6 +1368,14 @@ def paper_phase(quick: bool, dev, scale: Optional[int] = None) -> dict:
                         "cold_ms": cold, "warm_ms": warm,
                         "lib_cold_ms": lib_cold, "lib_warm_ms": lib_warm}
                 if fmt == "csr":
+                    walk = csr_module.csr_variant(d)[0]
+                    ran = {k: v - walks[k]
+                           for k, v in csr_module.LAUNCHES_BY_VARIANT.items()
+                           if v != walks[k]}
+                    if ran != {walk: calls}:
+                        raise SmokeFailure(f"[paper] {name} csr d={d}: "
+                                           f"launched {ran}, not {walk}")
+                    cell["walk"] = walk
                     roofs = {r: registry.csr_kernel_roofline(
                         a_csr, d, regime=r, hw=hw) for r in PAPER_REGIMES}
                 elif fmt == "bcsr":

@@ -15,7 +15,10 @@ entries, so that a hub row's tile is walked by many warps at once).
 :func:`csr_spmm` runs ``C = A @ B`` on a :class:`RowTileLayout`: the
 hand-written kernel ``csrc/csr_spmm.cu`` for a CUDA operand, the plain
 PyTorch version :func:`csr_spmm_plain` for a CPU operand.  Products round
-at the operand dtype, sums run in fp32 and C is cast once.
+at the operand dtype, sums run in fp32 and C is cast once.  The kernel
+walks a piece one of two ways, which :func:`csr_variant` picks from B's
+width: ``"wide"`` (every lane of a warp on each entry, 64-column slices)
+or ``"narrow"`` (d <= 32: a few lanes per entry, several entries a step).
 """
 from __future__ import annotations
 
@@ -32,6 +35,16 @@ from repro_torch.kernels import build
 #: Kernel launches made by :func:`csr_spmm` (a plain counter; reset by
 #: assigning 0).
 LAUNCHES = 0
+
+#: The kernel's walks, in the order of their codes in ``csrc/csr_spmm.cu``.
+VARIANTS = ("wide", "narrow")
+
+#: Launches by walk (the same launches as :data:`LAUNCHES`).
+LAUNCHES_BY_VARIANT = dict.fromkeys(VARIANTS, 0)
+
+#: Lanes of a warp, and the widest B the narrow walk takes (one column
+#: per lane).
+WARP = 32
 
 #: Rows per C tile the kernel is compiled for.
 ROW_TILE = 8
@@ -50,6 +63,19 @@ PIECE_NNZ = 512
 #: Chunks the packed arrays are scanned in when deriving chunk lengths
 #: (bounds the host memory of the scan).
 _SCAN_CHUNKS = 1 << 16
+
+
+def csr_variant(d: int) -> Tuple[str, int]:
+    """The walk a CUDA operand of width ``d`` launches, and its lanes per
+    entry: ``("narrow", L)`` for d <= 32, L the smallest power of two
+    >= d (one column per lane, 32 / L entries of a piece per step);
+    ``("wide", 32)`` otherwise (every lane on each entry, two columns per
+    lane in 64-column slices)."""
+    if d < 1:
+        raise ValueError(f"csr_variant: d must be >= 1, got {d}")
+    if d <= WARP:
+        return "narrow", 1 << (d - 1).bit_length()
+    return "wide", WARP
 
 
 def index_extent_check(extent: int, index_dtype) -> None:
@@ -407,10 +433,10 @@ def check_row_tile_layout(kernel: str, layout, b: torch.Tensor) -> None:
 
 
 _P = ctypes.c_void_p
-_ARGTYPES = (ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P,
-             _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
-             ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-             ctypes.c_int, _P)
+_ARGTYPES = (ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P,
+             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
+             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+             ctypes.c_longlong, ctypes.c_int, _P)
 
 
 def _kernel():
@@ -420,7 +446,8 @@ def _kernel():
 
 
 def csr_spmm_cuda(layout: RowTileLayout, b: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel (``csrc/csr_spmm.cu``) on a CUDA operand.
+    """Launch the CUDA kernel (``csrc/csr_spmm.cu``) on a CUDA operand,
+    with the walk :func:`csr_variant` picks for its width.
 
     A tile walked by one piece is stored once; the pieces of a split tile
     add into an fp32 buffer of the split tiles' rows, which the launch
@@ -442,8 +469,10 @@ def csr_spmm_cuda(layout: RowTileLayout, b: torch.Tensor) -> torch.Tensor:
                             device=b.device)
     if traced:
         t_launch = trace.now()
+    variant, lanes = csr_variant(d)
     fn = _kernel()
-    err = fn(value_code(b.dtype), index_code(layout.cols.dtype),
+    err = fn(VARIANTS.index(variant), lanes, value_code(b.dtype),
+             index_code(layout.cols.dtype),
              build.ptr(layout.piece_ptr), build.ptr(layout.piece_owner),
              build.ptr(layout.piece_split), build.ptr(layout.split_tiles),
              build.ptr(layout.chunk_len), build.ptr(layout.chunk_slabs),
@@ -453,9 +482,10 @@ def csr_spmm_cuda(layout: RowTileLayout, b: torch.Tensor) -> torch.Tensor:
              layout.b_tile or 0, layout.cols.shape[1],
              build.stream_ptr(b.device))
     LAUNCHES += 1
+    LAUNCHES_BY_VARIANT[variant] += 1
     if traced:
         trace.record_launch(t_check, t_alloc, t_launch)
-    build.check(err, "csr_spmm")
+    build.check(err, f"csr_spmm ({variant}, {lanes} lanes)")
     return c
 
 

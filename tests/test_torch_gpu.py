@@ -38,9 +38,10 @@ from repro_torch.kernels.binned_spmm import (binned_spmm,
                                              binned_spmm_plain,
                                              csr_to_slab_bins,
                                              slab_bin_layout)
+from repro_torch.kernels import csr_spmm as csr_module
 from repro_torch.kernels.csr_spmm import (csr_spmm, csr_spmm_plain,
-                                          csr_to_row_tiles, row_tile_layout,
-                                          with_work_list)
+                                          csr_to_row_tiles, csr_variant,
+                                          row_tile_layout, with_work_list)
 from repro_torch.kernels.grouped_matmul import (grouped_matmul,
                                                 grouped_matmul_cuda,
                                                 grouped_matmul_plain)
@@ -118,9 +119,11 @@ def test_banded_kernel_at_small_block_edges(cuda_device, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [1, 31, 33, 200])
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 5, 8, 16, 17, 31, 32, 33, 200])
 def test_row_tile_kernels_at_ragged_widths(cuda_device, d):
-    """Column slices that do not fill a warp or a 128-column block."""
+    """Column slices that do not fill a warp or a 128-column block; at
+    d <= 32 the CSR kernel's narrow walk at every lane count L (1-32),
+    with d < L where d is not a power of two."""
     m = serving_suite(512)["scale-free"]()
     for fmt in ("csr", "binned", "rowsplit", "bcsr"):
         _run(m, fmt, "f32i32", cuda_device, d=d)
@@ -208,23 +211,28 @@ def _row_tile_case(m, fmt, token, device, *, piece_nnz=None, b_tile=None,
     if poison is not None:
         torch.full((m.n, d), poison, dtype=b.dtype, device=device)
     before = kernels.launch_counts()[f"{fmt}_spmm"]
+    walks = dict(csr_module.LAUNCHES_BY_VARIANT)
     got = kernel(layout, b)
     torch.cuda.synchronize()
     assert kernels.launch_counts()[f"{fmt}_spmm"] == before + 1
+    if fmt == "csr":
+        walk = csr_variant(d)[0]
+        assert csr_module.LAUNCHES_BY_VARIANT[walk] == walks[walk] + 1
     _sparse_check(m, got, plain(layout, b), b, prec.eps,
                   f"{fmt}/{token} n={m.n}")
     return layout, got
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [40, 200])
+@pytest.mark.parametrize("d", [4, 40, 200])
 @pytest.mark.parametrize("token", ["f32i32", "bf16i32", "bf16i16"])
 @pytest.mark.parametrize("fmt", ["csr", "binned"])
 def test_row_tile_kernels_split_a_long_hub_row(cuda_device, fmt, token, d):
     """A hub row of 50,000 nonzeros (30,000 at bf16i16, whose layouts
     need n <= 32,767) next to singleton rows, cut into pieces of at most
     256 real entries that run in parallel; at d = 200 four column slices
-    of a split tile add into the same rows."""
+    of a split tile add into the same rows; at d = 4 CSR's narrow walk
+    sums its groups before it adds them."""
     hub = 30_000 if token == "bf16i16" else 50_000
     m = _skewed(hub)
     layout, _ = _row_tile_case(m, fmt, token, cuda_device, piece_nnz=256,
@@ -289,6 +297,20 @@ def _rowsplit_case(m, token, device, d):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d,walk", [(4, "narrow"), (64, "wide")])
+def test_csr_kernel_counts_its_walk(cuda_device, d, walk):
+    """A CUDA operand of width d launches the walk csr_variant names, and
+    LAUNCHES_BY_VARIANT counts it and no other."""
+    m = serving_suite(512)["scale-free"]()
+    before = dict(csr_module.LAUNCHES_BY_VARIANT)
+    _run(m, "csr", "f32i32", cuda_device, d=d)
+    assert csr_variant(d)[0] == walk
+    assert {k: v - before[k]
+            for k, v in csr_module.LAUNCHES_BY_VARIANT.items()} == {
+        k: int(k == walk) for k in csr_module.VARIANTS}
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("token", ["f32i32", "bf16i32", "bf16i16"])
 @pytest.mark.parametrize("d", [1, 40, 64, 130])
 def test_rowsplit_kernel_at_ragged_widths(cuda_device, d, token):
@@ -344,14 +366,15 @@ def test_rowsplit_kernel_is_deterministic_without_partials(cuda_device,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [4, 40])
 @pytest.mark.parametrize("token", ["f32i32", "bf16i32"])
 @pytest.mark.parametrize("fmt", ["csr", "binned"])
 def test_row_tile_kernels_write_every_row_of_a_dirty_buffer(cuda_device, fmt,
-                                                           token):
+                                                           token, d):
     """C comes from torch.empty: with NaN left in the allocator's cache,
     every row must still be written, the empty tiles' rows as zeros."""
     m = _with_empty_tiles()
-    _, got = _row_tile_case(m, fmt, token, cuda_device, b_tile=512,
+    _, got = _row_tile_case(m, fmt, token, cuda_device, b_tile=512, d=d,
                             poison=float("nan"))
     empty = torch.ones(m.n, dtype=torch.bool, device=cuda_device)
     empty[torch.from_numpy(m.rows.astype(np.int64)).to(cuda_device)] = False
@@ -359,23 +382,24 @@ def test_row_tile_kernels_write_every_row_of_a_dirty_buffer(cuda_device, fmt,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [4, 40])
 @pytest.mark.parametrize("token", ["f32i32", "bf16i32"])
 @pytest.mark.parametrize("fmt", ["csr", "binned"])
 def test_row_tile_kernels_keep_explicit_zeros_and_skip_padding(cuda_device,
-                                                               fmt, token):
+                                                               fmt, token, d):
     """Explicit zero values are real entries (0 * inf is NaN, as in the
     plain version); padding slots are never read (NaN there changes
     nothing)."""
     m = _with_empty_tiles(zeros=True)
-    layout, got = _row_tile_case(m, fmt, token, cuda_device, b_tile=512)
+    layout, got = _row_tile_case(m, fmt, token, cuda_device, b_tile=512, d=d)
     pad = (torch.arange(layout.vals.shape[1], device=cuda_device)[None, :]
            >= layout.chunk_len[:, None])
     assert bool(pad.any())
     poisoned = dataclasses.replace(
         layout, vals=layout.vals.masked_fill(pad, float("nan")))
     b = torch.from_numpy(np.random.default_rng(2).normal(
-        size=(m.n, 40)).astype(np.float32)).to(cuda_device,
-                                               layout.vals.dtype)
+        size=(m.n, d)).astype(np.float32)).to(cuda_device,
+                                              layout.vals.dtype)
     kernel = ROW_TILE_KERNELS[fmt][2]
     assert torch.equal(kernel(poisoned, b).isnan(), got.isnan())
     # An infinite B row times an explicit zero is NaN in both versions.

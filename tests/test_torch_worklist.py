@@ -26,13 +26,15 @@ from repro.data.corpus import vendored_entries
 from repro.kernels import registry as ref_registry
 from repro.sparse import formats as ref_fmt
 
-from repro_torch import interop
+from repro_torch import interop, kernels
 from repro_torch.kernels.binned_spmm import (binned_spmm_plain,
                                              slab_bin_layout)
-from repro_torch.kernels.csr_spmm import (PIECE_NNZ, chunk_lengths,
+from repro_torch.kernels import csr_spmm as csr_module
+from repro_torch.kernels.csr_spmm import (PIECE_NNZ, chunk_lengths, csr_spmm,
                                           csr_spmm_plain, csr_to_row_tiles,
-                                          row_tile_layout, split_owners,
-                                          with_work_list, work_pieces)
+                                          csr_variant, row_tile_layout,
+                                          split_owners, with_work_list,
+                                          work_pieces)
 
 RTOL = ATOL = 5e-4
 N = 256
@@ -187,6 +189,39 @@ def test_work_pieces_refuse_a_piece_below_one_chunk():
     with pytest.raises(ValueError, match="below one chunk"):
         work_pieces(np.array([0, 1]), np.array([5]), chunk=128,
                     piece_nnz=64)
+
+
+@pytest.mark.parametrize("d,want", [
+    (1, ("narrow", 1)), (2, ("narrow", 2)), (3, ("narrow", 4)),
+    (4, ("narrow", 4)), (5, ("narrow", 8)), (16, ("narrow", 16)),
+    (17, ("narrow", 32)), (32, ("narrow", 32)), (33, ("wide", 32)),
+    (64, ("wide", 32)), (200, ("wide", 32))])
+def test_csr_variant_gives_narrow_widths_the_fewest_lanes_that_hold_d(d,
+                                                                      want):
+    """d <= 32: L lanes per entry, the smallest power of two >= d;
+    wider B: the wide walk."""
+    assert csr_variant(d) == want
+
+
+def test_csr_variant_refuses_an_empty_width():
+    with pytest.raises(ValueError, match="d must be >= 1"):
+        csr_variant(0)
+
+
+@pytest.mark.parametrize("d", [4, 64])
+def test_a_cpu_operand_takes_the_plain_version_and_counts_no_walk(d):
+    layout = _layout("csr", _skewed(256), "f32i32")
+    b = torch.from_numpy(np.random.default_rng(d).normal(
+        size=(layout.n, d)).astype(np.float32))
+    before = dict(csr_module.LAUNCHES_BY_VARIANT)
+    assert torch.equal(csr_spmm(layout, b), csr_spmm_plain(layout, b))
+    assert csr_module.LAUNCHES_BY_VARIANT == before
+
+
+def test_reset_launch_counts_zeroes_the_walk_counts():
+    csr_module.LAUNCHES_BY_VARIANT["narrow"] += 3
+    kernels.reset_launch_counts()
+    assert set(csr_module.LAUNCHES_BY_VARIANT.values()) == {0}
 
 
 def _walk_pieces(layout, b: torch.Tensor, binned: bool) -> torch.Tensor:
