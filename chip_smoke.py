@@ -179,8 +179,11 @@ The run reads and writes calibrations only in a fresh temporary
    walk it launched (checked against ``csr_variant``); the row-tile
    kernels with their work list's size (pieces, the largest piece's real
    entries, split tiles); the banded kernel with the diagonals it walks
-   (slots read per nonzero, and the host time to derive them from the
-   band), and also at block edges t = 1, 2, 4; the row-split kernels
+   (slots read per nonzero) and the B-window mode its launch reported,
+   also where n is not a multiple of its 128-row tile (n = 1001, 1002,
+   1004), and on HPCG's 27-point stencil at its 104^3 grid (48^3 under
+   ``--quick``) as ``auto`` plans it for ``hpcg.stream-d64``, where every
+   launch must report mode ``none``; the row-split kernels
    with their fold (carry rows, carries, carry-buffer bytes, empty rows),
    a check that a call allocates less than the ``[C * W, d]`` window
    partials the first version wrote, and a check that two calls give C
@@ -366,8 +369,7 @@ without it (``grad_ratio``).
 smaller for a blocked layout), B read once and C written once, against
 2 * nnz * d operations; ``bound_layout_ms`` puts the bytes of the layout
 the kernel reads (padding included) in place of A's: the packed arrays,
-for the banded kernel its diagonals (not the band, which only the plain
-version reads).  The grouped matmul's TFLOP/s count 2 * K * N per padded
+for the banded kernel its diagonals.  The grouped matmul's TFLOP/s count 2 * K * N per padded
 row and per routed row; its tile traffic is what its tiling copies into
 shared memory (each output tile's x rows and w columns), over kernel ms.
 
@@ -459,11 +461,20 @@ EXTRA_RUNS = {"csr_spmm": (("scale-free", "auto", D),
 #: Requests a plan is reused for in ``EXTRA_RUNS`` at another d (the
 #: benchmark's solve traffic, ``bench/traffic/solve-d4.json``).
 SOLVE_REUSE = 4096
+#: HPCG's 27-point stencil, on which the banded kernel is also timed: the
+#: side of its cube grid (HPCG's default ``hpcg.dat`` local grid, as the
+#: benchmark's ``hpcg.stream-d64`` runs it; 48 under ``--quick``), and the
+#: requests its plan is reused for (``bench/traffic/stream-d64.json``).
+#: Its diagonals span 2 * (side**2 + side + 1) rows, so at d = D no
+#: launch stages a B window: each must report mode ``none``.
+HPCG_SIDE = 104
+HPCG_SIDE_QUICK = 48
+STREAM_REUSE = 4096
 
 #: Numbers of an SpMM kernel's row that the record carries.
 RECORD_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms", "bound_layout_ms", "stored_per_nnz",
-               "read_per_nnz", "diagonals", "derive_host_ms", "pieces",
+               "read_per_nnz", "diagonals", "window", "pieces",
                "largest_piece_nnz", "split_tiles", "real_slots",
                "carry_rows", "carries", "carry_bytes", "empty_rows",
                "call_alloc_bytes", "partials_bytes", "variant",
@@ -886,34 +897,54 @@ def empty_cache(dev) -> None:
 
 
 #: Layout fields left out of ``layout_bytes``: the plain versions' owner
-#: ids and band, and the work list and carry lists derived from the
-#: packed arrays.
+#: ids, and the work list and carry lists derived from the packed arrays.
 LAYOUT_SKIP = {"tile_ids", "chunk_visits", "block_rows", "chunk_len",
                "piece_ptr", "piece_owner", "piece_split", "split_tiles",
-               "band", "last_slot", "shared", "carry_rows", "carry_chunks",
+               "last_slot", "shared", "carry_rows", "carry_chunks",
                "empty_rows"}
 
 
 def diagonal_walk_size(layout, m) -> dict:
-    """The banded kernel's walk: diagonals, slots read per nonzero (k * n /
-    nnz), and the host time to derive them from the band (checked equal to
-    the layout's)."""
-    import torch
+    """The banded kernel's walk: diagonals and slots read per nonzero
+    (k * n / nnz)."""
     if not hasattr(layout, "diags"):
         return {}
-    from repro_torch.kernels.banded_spmm import band_diagonals
-    from repro_torch.sparse.formats import host_values
-    band = host_values(layout.band)
-    t0 = time.perf_counter()
-    offsets, diags = band_diagonals(band, layout.w, layout.t)
-    derive_ms = (time.perf_counter() - t0) * 1e3
-    if not (torch.equal(torch.from_numpy(offsets), layout.offsets) and
-            (diags == host_values(layout.diags)).all()):
-        raise SmokeFailure("band_diagonals of the band differ from the "
-                           "layout's diagonals")
-    return {"diagonals": int(offsets.shape[0]),
-            "read_per_nnz": layout.diags.numel() / max(m.nnz, 1),
-            "derive_host_ms": derive_ms}
+    return {"diagonals": int(layout.offsets.shape[0]),
+            "read_per_nnz": layout.diags.numel() / max(m.nnz, 1)}
+
+
+def banded_window_run(layout, wrapper, b) -> dict:
+    """The banded kernel's B window: a call must make one launch, and
+    report the mode it chose."""
+    if not hasattr(layout, "diags"):
+        return {}
+    from repro_torch.kernels import banded_spmm as banded_module
+    before = dict(banded_module.LAUNCHES_BY_WINDOW)
+    wrapper(layout, b)
+    moved = {k: v - before[k]
+             for k, v in banded_module.LAUNCHES_BY_WINDOW.items()
+             if v != before[k]}
+    if sorted(moved.values()) != [1]:
+        raise SmokeFailure(f"banded_spmm (d = {b.shape[1]}): a call "
+                           f"counted {moved}, not one launch in one mode")
+    return {"window": next(iter(moved))}
+
+
+def stencil27_matrix(side: int, rng):
+    """HPCG's 27-point stencil on a ``side``-cube grid, as the benchmark's
+    generator makes it (``bench/gen/stencil27.py``, on the host), with
+    values uniform in [0.5, 1.5), as row-sorted COO."""
+    import torch
+    from bench.gen import stencil27
+    from repro_torch.core.patterns import COOMatrix
+    n = side ** 3
+    rows, cols = stencil27.generate(
+        n, {"nx": side, "ny": side, "nz": side}, torch.Generator())
+    return COOMatrix(n=n, rows=rows.numpy(), cols=cols.numpy(),
+                     vals=rng.uniform(0.5, 1.5, rows.numel()),
+                     pattern="diagonal",
+                     meta={"achieved_nnz": rows.numel(),
+                           "achieved_avg_degree": rows.numel() / n})
 
 
 def carry_fold_size(layout, wrapper, b) -> dict:
@@ -1034,6 +1065,7 @@ def kernel_row(name, layout, m, b, index_bytes: int, runs: int,
     fold = carry_fold_size(layout, wrapper, b)
     variant = bcsr_variant_run(layout, wrapper, b)
     walk = csr_walk_run(name, layout, wrapper, b)
+    window = banded_window_run(layout, wrapper, b)
     ms = median_ms(lambda: wrapper(layout, b), runs)
     plain_ms = median_ms(lambda: plain(layout, b), plain_runs)
     a = torch_csr(m, b.device, b.dtype)
@@ -1054,7 +1086,7 @@ def kernel_row(name, layout, m, b, index_bytes: int, runs: int,
     layout_nbytes = a_bytes + bc_bytes
     # Stored value slots (padding included) per true nonzero.
     stored = next(getattr(layout, f).numel() for f in ("vals", "blocks",
-                                                       "band")
+                                                       "diags")
                   if hasattr(layout, f))
     flops = 2.0 * m.nnz * b.shape[1]
     t_ops = flops / PEAK_FLOPS[str(b.dtype).split(".")[-1]] * 1e3
@@ -1072,7 +1104,7 @@ def kernel_row(name, layout, m, b, index_bytes: int, runs: int,
             "layout_bytes": layout_nbytes, "flops": flops,
             "stored_per_nnz": stored / max(m.nnz, 1),
             **work_list_size(layout), **diagonal_walk_size(layout, m),
-            **fold, **variant, **walk, **bsr}
+            **fold, **variant, **walk, **window, **bsr}
 
 
 def log_row(name: str, structure: str, row: dict) -> None:
@@ -1083,8 +1115,7 @@ def log_row(name: str, structure: str, row: dict) -> None:
         f"{row['real_slots']} of {row['slots']} slots real")
     if "diagonals" in row:
         work += (f"; walks {row['diagonals']} diagonals, read per nonzero "
-                 f"{row['read_per_nnz']:.2f}, derived on the host in "
-                 f"{row['derive_host_ms']:.1f} ms")
+                 f"{row['read_per_nnz']:.2f}, B window {row['window']}")
     if "variant" in row:
         work += (f"; variant {row['variant']} (two calls equal bit for "
                  f"bit), torch.sparse.mm with A as BSR "
@@ -1205,7 +1236,7 @@ def kernel_phase(served: dict, quick: bool, dev) -> list:
                 {k: r[k] for k in ("structure", "format", "precision", "n",
                                    "d", *RECORD_KEYS) if k in r}
                 for r in others]})
-    # The banded kernel at the smallest block edges (n = t * odd).
+    # The banded kernel where n is not a multiple of its 128-row tile.
     from repro_torch.kernels.banded_spmm import banded_spmm, banded_spmm_plain
     for nn in (1001, 1002, 1004):
         mm = serve.build_stream_matrix("banded", nn)
@@ -1215,12 +1246,45 @@ def kernel_phase(served: dict, quick: bool, dev) -> list:
                                  tree=False)).layout
         b = torch.from_numpy(rng.normal(size=(nn, D)).astype(np.float32)
                              ).to(dev)
-        err, _ = check_close(f"banded_spmm t={layout.t}",
+        err, _ = check_close(f"banded_spmm n={nn}",
                              banded_spmm(layout, b),
                              banded_spmm_plain(layout, b),
                              abs_product(mm, b), 2.0 ** -23)
-        log(f"[kernel] banded_spmm t={layout.t} n={nn}: max|err| "
+        log(f"[kernel] banded_spmm n={nn}: max|err| "
             f"{err:.3e} within bound")
+    # The banded kernel on HPCG's stencil, planned as the benchmark's
+    # hpcg.stream-d64 plans it; every launch of the row must read B with
+    # no window.
+    from repro_torch import kernels
+    from repro_torch.kernels import banded_spmm as banded_module
+    side = HPCG_SIDE_QUICK if quick else HPCG_SIDE
+    mm = stencil27_matrix(side, rng)
+    plan = stream.plan(mm, stream.BSpec(d=D, reuse=STREAM_REUSE),
+                       strategy="auto",
+                       dispatcher=Dispatcher(device=dev, calibration=False,
+                                             tree=False))
+    if (plan.chosen, plan.precision) != ("dia", "f32i32"):
+        raise SmokeFailure(f"[kernel] HPCG {side}^3 planned "
+                           f"{plan.chosen} at {plan.precision}, not dia at "
+                           f"f32i32")
+    b = torch.from_numpy(rng.normal(size=(mm.n, D)).astype(np.float32)
+                         ).to(dev)
+    kernels.reset_launch_counts()
+    row = kernel_row("banded_spmm", plan.layout, mm, b, 4, runs, plain_runs)
+    modes = {k: v for k, v in banded_module.LAUNCHES_BY_WINDOW.items() if v}
+    if list(modes) != ["none"]:
+        raise SmokeFailure(f"[kernel] banded_spmm on HPCG {side}^3: "
+                           f"launches counted {modes}, not all none")
+    row.update(precision=plan.precision, n=mm.n, format=plan.chosen,
+               structure=f"hpcg-{side}")
+    log_row("banded_spmm", f"hpcg {side}^3", row)
+    log(f"[kernel] banded_spmm on HPCG {side}^3: launches by window "
+        f"{modes}")
+    del b
+    banded = next(r for r in records if r["name"] == "banded_spmm")
+    banded["other_layouts"].append(
+        {k: row[k] for k in ("structure", "format", "precision", "n", "d",
+                             *RECORD_KEYS) if k in row})
     return records
 
 

@@ -4,9 +4,9 @@
 // Replaces the TPU kernel `banded_spmm_pallas`
 // (src/repro/kernels/banded_spmm.py, body `_banded_kernel`).  The TPU
 // kernel multiplies the dense t x t blocks of the reference's band tensor
-// on the matrix unit; the layout keeps that tensor (the plain version runs
-// on it), and derives from it once the k stored diagonals `diags[k, n]`
-// and their sorted offsets (`band_diagonals` in kernels/banded_spmm.py).
+// on the matrix unit; this one walks DIA storage as the pack builds it,
+// the k stored diagonals `diags[k, n]` and their sorted offsets, and no
+// band is packed.
 //
 // What bounds it on the card: bytes -- B read once, C written once and
 // the k * n diagonal values, 2 * k * n * d FMAs that the CUDA cores finish
@@ -27,6 +27,7 @@
 // product is exact in fp32.  C is written once, cast to the operand dtype,
 // with no atomics.  When the window would not fit the shared-memory budget
 // (a wide offset span), the block reads B through L1 (`__ldg`) instead.
+// The launch reports the mode it chose, so the caller can count them.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -246,7 +247,8 @@ __global__ void __launch_bounds__(THREADS)
 
 template <typename V>
 cudaError_t launch(const void* diags, const void* b, void* c, long long n,
-                   int d, int k, const int* offsets, cudaStream_t stream) {
+                   int d, int k, const int* offsets, cudaStream_t stream,
+                   int* mode_out) {
   Offsets off;
   for (int j = 0; j < k; ++j) off.v[j] = offsets[j];
   const size_t vs = sizeof(V);
@@ -269,6 +271,7 @@ cudaError_t launch(const void* diags, const void* b, void* c, long long n,
     mode = WINDOW_NONE;
     win_bytes = 0;
   }
+  *mode_out = mode;
   const size_t smem = static_cast<size_t>(k) * ROWS * vs + win_bytes;
   cudaError_t err = cudaFuncSetAttribute(
       banded_walk_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -288,18 +291,23 @@ cudaError_t launch(const void* diags, const void* b, void* c, long long n,
 }  // namespace
 
 // offsets: k sorted diagonal offsets, in host memory (passed by value).
+// mode_out: set to the window mode the launch chose (`Window`), -1 when it
+// refuses its arguments.
 extern "C" int banded_spmm_launch(int value_type, const void* diags,
                                   const void* b, void* c, long long n, int d,
-                                  int k, const int* offsets, void* stream) {
+                                  int k, const int* offsets, void* stream,
+                                  int* mode_out) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  *mode_out = -1;
   if (n < 1 || d < 1 || k < 1 || k > MAX_DIAGS || n / ROWS >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int j = 1; j < k; ++j)
     if (offsets[j] <= offsets[j - 1])
       return static_cast<int>(cudaErrorInvalidValue);
   if (value_type == repro::VALUE_F32)
-    return launch<float>(diags, b, c, n, d, k, offsets, s);
+    return launch<float>(diags, b, c, n, d, k, offsets, s, mode_out);
   if (value_type == repro::VALUE_BF16)
-    return launch<__nv_bfloat16>(diags, b, c, n, d, k, offsets, s);
+    return launch<__nv_bfloat16>(diags, b, c, n, d, k, offsets, s,
+                                 mode_out);
   return static_cast<int>(cudaErrorInvalidValue);
 }

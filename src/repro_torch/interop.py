@@ -45,7 +45,8 @@ def layout_from_numpy(format: str, arrays, device=None):
               ``(row_map, cols, slots, vals)``;
             * ``bcsr``: ``blocks``, ``block_rows``, ``block_cols``,
               ``block_ptr``, ``n``, ``t``, ``nnz`` (the padded matrix);
-            * ``dia``: ``band``, ``w``, ``t``.
+            * ``dia``: ``band``, ``w``, ``t`` (the port keeps only the
+              diagonals it derives from them).
         device: where the layout goes (None: the CPU).
 
     Returns:

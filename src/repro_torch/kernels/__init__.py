@@ -6,7 +6,8 @@ matmul, and their registry.
 ``(format, backend)`` pair.  Each kernel module holds the host packer, the
 CUDA wrapper, the plain PyTorch version and a launch counter
 (``<module>.LAUNCHES``; a module with several kernel variants also counts
-them by variant, ``<module>.LAUNCHES_BY_VARIANT``); :func:`launch_counts`
+them by variant, ``<module>.LAUNCHES_BY_VARIANT``, and the banded kernel by
+the way it staged B, ``banded_spmm.LAUNCHES_BY_WINDOW``); :func:`launch_counts`
 reads them all.
 """
 from repro_torch.kernels import (banded_spmm, bcsr_spmm, binned_spmm,
@@ -32,11 +33,14 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch counter to 0, per-variant counters too."""
+    """Set every kernel's launch counter to 0, per-variant and per-window
+    counters too."""
     for mod in KERNEL_MODULES.values():
         mod.LAUNCHES = 0
-        for variant in getattr(mod, "LAUNCHES_BY_VARIANT", {}):
-            mod.LAUNCHES_BY_VARIANT[variant] = 0
+        for name in ("LAUNCHES_BY_VARIANT", "LAUNCHES_BY_WINDOW"):
+            by = getattr(mod, name, {})
+            for key in by:
+                by[key] = 0
 
 
 __all__ = [

@@ -1,15 +1,19 @@
 """Banded (diagonal-regime) SpMM as a walk over the stored diagonals.
 
-The counterpart of the reference's ``banded_spmm_pallas``.  The layout
-keeps the reference's block-band tensor ``band[nb, 2w+1, t, t]``
-(``registry.band_to_blocks``): ``band[i, o]`` is the block at block
-position ``(i, i + o - w)``, zero where out of range.  The plain version
-:func:`banded_spmm_plain` multiplies its blocks.  From the band alone,
-once per layout, :func:`band_diagonals` derives the k stored diagonals
-(``offsets``, ``diags``) that the hand-written kernel
-``csrc/banded_spmm.cu`` walks:
+The counterpart of the reference's ``banded_spmm_pallas``.  The layout is
+DIA storage as ``sparse.formats.coo_to_dia`` builds it: the k sorted
+diagonal offsets and their values ``diags[k, n]``, with
 
     C[r, :] = sum_j diags[j, r] * B[r + offsets[j], :]
+
+(``diags[j, r]`` is 0 where ``r + offsets[j]`` leaves ``[0, n)``).  The
+hand-written kernel ``csrc/banded_spmm.cu`` walks them, and so does the
+plain version :func:`banded_spmm_plain`, with shifted slices.  No block
+band is packed: the reference's ``band[nb, 2w+1, t, t]`` stores ``t *
+(2w+1)`` slots a row, which for diagonals far apart (a 3-D stencil's)
+is hundreds of times the k values the walk reads.  A band that comes from
+the reference (``interop``) gives its diagonals through
+:func:`band_diagonals`.
 
 :func:`banded_spmm` runs the kernel for a CUDA operand and the plain
 version for a CPU one.  Products are exact in fp32 and C is cast once.
@@ -18,7 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,8 +34,25 @@ from repro_torch.kernels.csr_spmm import check_operands, value_code
 #: Kernel launches made by :func:`banded_spmm` (a plain counter).
 LAUNCHES = 0
 
+#: How the kernel staged its B window, by the mode its launch reports
+#: (``csrc/banded_spmm.cu``'s ``Window``, in its order): one bulk copy of
+#: whole rows, 16-byte copies per column slice, plain loads, or none (the
+#: window would pass the shared-memory budget, so B is read through L1).
+WINDOWS = ("bulk", "async16", "scalar", "none")
+
+#: Launches by window mode (the kernel's choice, reported per launch).
+LAUNCHES_BY_WINDOW = dict.fromkeys(WINDOWS, 0)
+
 #: Most diagonals the kernel walks (the DIA conversion's own cap).
 MAX_DIAGONALS = 64
+
+#: Output rows of one block of the kernel (its ``ROWS``): a block stages
+#: ``k * ROWS`` diagonal values.
+ROWS = 128
+
+#: Shared memory a block may give its B window (the kernel's
+#: ``WINDOW_BUDGET``); a wider window is not staged.
+WINDOW_BUDGET = 96 * 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,24 +60,26 @@ class BandLayout:
     """The packed operand of :func:`banded_spmm`, on one device.
 
     ``offsets`` stays on the host: it is launch metadata, passed to the
-    kernel by value.  Build one with :func:`band_layout`.
+    kernel by value.  Build one with :func:`dia_layout`.
     """
 
-    band: torch.Tensor     # [nb, 2w+1, t, t] float32 or bfloat16
-    w: int                 # half-bandwidth in blocks
-    t: int                 # block edge
     offsets: torch.Tensor  # [k] int32 on the CPU, sorted diagonal offsets
-    diags: torch.Tensor    # [k, nb * t] band dtype, A[r, r + offsets[j]]
-
-    @property
-    def nb(self) -> int:
-        """Block rows."""
-        return int(self.band.shape[0])
+    diags: torch.Tensor    # [k, n] float32 or bfloat16, A[r, r + offsets[j]]
+    n: int
 
     @property
     def device(self) -> torch.device:
         """The device the layout lives on."""
-        return self.band.device
+        return self.diags.device
+
+
+def dia_layout(diags: torch.Tensor, offsets: Sequence[int]) -> BandLayout:
+    """The kernel's layout from DIA storage: ``diags[k, n]`` as it is (on
+    its device) and the k sorted offsets as an int32 host tensor (the
+    launch checks both)."""
+    return BandLayout(offsets=torch.tensor([int(o) for o in offsets],
+                                           dtype=torch.int32),
+                      diags=diags, n=int(diags.shape[1]))
 
 
 def band_diagonals(band: np.ndarray, w: int, t: int
@@ -99,31 +122,30 @@ def band_diagonals(band: np.ndarray, w: int, t: int
 
 
 def band_layout(band: np.ndarray, w: int, t: int, device=None) -> BandLayout:
-    """The kernel's layout from a host band: the band and its derived
-    diagonals on ``device`` (None: the CPU), the offsets on the host."""
+    """The kernel's layout from a host band (the reference's): its
+    derived diagonals on ``device`` (None: the CPU); the band itself is
+    not kept."""
     from repro_torch.sparse.formats import tensor_from_host
     offsets, diags = band_diagonals(band, w, t)
-    return BandLayout(band=tensor_from_host(band, device), w=int(w),
-                      t=int(t), offsets=torch.from_numpy(offsets),
-                      diags=tensor_from_host(diags, device))
+    return dia_layout(tensor_from_host(diags, device), offsets.tolist())
 
 
 def banded_spmm_plain(layout: BandLayout, b: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version of the banded kernel on the same layout."""
-    nb, t, w, d = layout.nb, layout.t, layout.w, b.shape[1]
-    b_tiles = b.reshape(nb, t, d)
-    rows = torch.arange(nb, device=b.device)
-    out = torch.zeros(nb, t, d, dtype=torch.float32, device=b.device)
-    for o in range(2 * w + 1):
-        cols = torch.clamp(rows + o - w, 0, nb - 1)
-        out += torch.bmm(layout.band[:, o].to(torch.float32),
-                         b_tiles[cols].to(torch.float32))
-    return out.reshape(nb * t, d).to(b.dtype)
+    """The plain PyTorch version of the banded kernel on the same layout:
+    the same walk, one shifted slice of B per diagonal, summed in fp32."""
+    n, d = layout.n, b.shape[1]
+    out = torch.zeros(n, d, dtype=torch.float32, device=b.device)
+    for j, off in enumerate(layout.offsets.tolist()):
+        lo, hi = max(0, -off), min(n, n - off)
+        if hi > lo:
+            out[lo:hi] += (layout.diags[j, lo:hi, None].to(torch.float32)
+                           * b[lo + off:hi + off].to(torch.float32))
+    return out.to(b.dtype)
 
 
 _P = ctypes.c_void_p
 _ARGTYPES = (ctypes.c_int, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-             ctypes.c_int, _P, _P)
+             ctypes.c_int, _P, _P, ctypes.POINTER(ctypes.c_int))
 
 
 def _kernel():
@@ -138,7 +160,7 @@ def banded_spmm_cuda(layout: BandLayout, b: torch.Tensor) -> torch.Tensor:
     traced = trace.recording()
     if traced:
         t_check = trace.now()
-    n = layout.nb * layout.t
+    n = layout.n
     k = int(layout.offsets.shape[0])
     offsets = layout.offsets
     if k > MAX_DIAGONALS:
@@ -153,8 +175,8 @@ def banded_spmm_cuda(layout: BandLayout, b: torch.Tensor) -> torch.Tensor:
                          f"is not [{k}, {n}]")
     check_operands("banded_spmm", (layout.diags,), b, layout.diags)
     if b.shape[0] != n:
-        raise ValueError(f"banded_spmm: b has {b.shape[0]} rows, the band "
-                         f"{n}")
+        raise ValueError(f"banded_spmm: b has {b.shape[0]} rows, the "
+                         f"layout {n}")
     d = b.shape[1]
     if k == 0:                      # no stored diagonal: A is zero
         return torch.zeros(n, d, dtype=b.dtype, device=b.device)
@@ -163,10 +185,13 @@ def banded_spmm_cuda(layout: BandLayout, b: torch.Tensor) -> torch.Tensor:
     c = torch.empty(n, d, dtype=b.dtype, device=b.device)
     if traced:
         t_launch = trace.now()
+    mode = ctypes.c_int(-1)
     err = _kernel()(value_code(b.dtype), build.ptr(layout.diags),
                     build.ptr(b), build.ptr(c), n, d, k, build.ptr(offsets),
-                    build.stream_ptr(b.device))
+                    build.stream_ptr(b.device), ctypes.byref(mode))
     LAUNCHES += 1
+    if 0 <= mode.value < len(WINDOWS):
+        LAUNCHES_BY_WINDOW[WINDOWS[mode.value]] += 1
     if traced:
         trace.record_launch(t_check, t_alloc, t_launch)
     build.check(err, "banded_spmm")
@@ -178,9 +203,9 @@ def banded_spmm(layout: BandLayout, b: torch.Tensor) -> torch.Tensor:
     :func:`banded_spmm_plain` for a CPU one.
 
     Args:
-        layout: the band and its diagonals (:func:`band_layout`), on
-            ``b``'s device.
-        b: ``[nb * t, d]`` float32 or bfloat16, the band's dtype.
+        layout: the diagonals and their offsets (:func:`dia_layout`),
+            on ``b``'s device.
+        b: ``[n, d]`` float32 or bfloat16, the diagonals' dtype.
 
     Returns:
         ``C`` as ``[n, d]`` in ``b``'s dtype.

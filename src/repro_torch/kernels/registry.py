@@ -3,7 +3,7 @@
 Each ``(format, backend)`` pair registers a :class:`KernelSpec` bundling
 
   * ``prepare(m, ctx)`` — one-time host-side layout prep (format
-    conversion, row-tile chunking, band extraction, empty-row padding),
+    conversion, row-tile chunking, empty-row padding),
     with the result on ``ctx.device``;
   * ``run(layout, b, ctx)`` — the per-call launch;
   * ``estimate(m, d, ctx)`` — the sparsity-aware roofline placement;
@@ -38,7 +38,8 @@ from repro_torch.core import sparsity_models as sm
 from repro_torch.core.device import device_of
 from repro_torch.core.hardware import H100, HOST_CPU, HardwareSpec
 from repro_torch.core.precision import DEFAULT_PRECISION, Precision
-from repro_torch.kernels.banded_spmm import band_layout, banded_spmm
+from repro_torch.kernels import banded_spmm as banded_module
+from repro_torch.kernels.banded_spmm import banded_spmm, dia_layout
 from repro_torch.kernels.bcsr_spmm import bcsr_spmm
 from repro_torch.kernels.binned_spmm import (
     binned_spmm, csr_to_slab_bins, slab_bin_layout)
@@ -746,11 +747,9 @@ register(KernelSpec(
 
 
 def _dia_cuda_prepare(m, ctx: KernelContext):
-    from repro_torch.sparse.formats import host_values
+    # The kernel walks DIA storage as converted (on ctx.device): no band.
     dia = _convert(ctx, m, "dia")
-    t = pallas_band_tile(m.n)
-    band, w = band_to_blocks(host_values(dia.data), dia.offsets, n=m.n, t=t)
-    return band_layout(band, w, t, ctx.device)
+    return dia_layout(dia.data, dia.offsets)
 
 
 def _dia_cuda_run(layout, b, ctx: KernelContext):
@@ -762,15 +761,17 @@ def _dia_cuda_estimate(m, d, ctx: KernelContext) -> KernelRoofline:
 
 
 def _dia_cuda_footprint(n: int, d: int, ctx: KernelContext) -> int:
-    t, bd = pallas_band_tile(n), min(512, pallas_block_d(d))
+    # What one block of the walk stages: the k diagonal rows of its tile
+    # (k at the conversion's cap) and at most the window's budget of B.
     sv = ctx.precision.sizeof_val
-    return sv * (t * t + t * bd) + 4 * t * bd
+    return (sv * ctx.max_dia_offsets * banded_module.ROWS
+            + banded_module.WINDOW_BUDGET)
 
 
 register(KernelSpec(
     format="dia", backend="cuda",
-    description="diagonal walk over the band's stored diagonals, B window "
-                "staged in shared memory",
+    description="diagonal walk over the DIA storage's diagonals, B window "
+                "staged in shared memory (read through L1 past its budget)",
     prepare=_dia_cuda_prepare, run=_dia_cuda_run,
     estimate=_dia_cuda_estimate, footprint=_dia_cuda_footprint,
     # DIA stores no per-nonzero indices, so only the value axis applies.

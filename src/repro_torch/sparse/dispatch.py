@@ -197,10 +197,7 @@ def _degree_stats(m: COOMatrix) -> Tuple[float, int]:
 
 
 def _num_diagonals(m: COOMatrix) -> int:
-    # Offsets c - r lie in (-n, n): count them with a bitmap, not a sort.
-    seen = np.zeros(2 * m.n + 1, dtype=bool)
-    seen[m.cols.astype(np.int64) - m.rows + m.n] = True
-    return int(np.count_nonzero(seen))
+    return int(fmt.diagonal_offsets(m).shape[0])
 
 
 def _num_nonempty_rows(m: COOMatrix) -> int:

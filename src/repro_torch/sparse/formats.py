@@ -312,18 +312,64 @@ def coo_to_bcsr(m, t: int, dtype=torch.float32, device=None) -> BCSRMatrix:
                       n=m.n, t=t, nnz=m.nnz)
 
 
+#: Nonzeros the DIA conversion handles at once: its temporaries stay a
+#: few tens of MB at any nnz.
+DIA_CHUNK = 1 << 22
+
+
+def _offsets_of(m, s0: int) -> np.ndarray:
+    """``c - r`` (int64) of the nonzeros ``[s0, s0 + DIA_CHUNK)``."""
+    s1 = s0 + DIA_CHUNK
+    return m.cols[s0:s1].astype(np.int64) - m.rows[s0:s1]
+
+
+def diagonal_offsets(m) -> np.ndarray:
+    """The sorted distinct diagonal offsets ``c - r`` of ``m`` (int64).
+
+    Offsets lie in ``(-n, n)``: they are read off a bitmap of that range,
+    not sorted out of every nonzero.
+    """
+    seen = np.zeros(2 * m.n + 1, dtype=bool)
+    for s0 in range(0, m.nnz, DIA_CHUNK):
+        seen[_offsets_of(m, s0) + m.n] = True
+    return np.flatnonzero(seen) - m.n
+
+
+def _dia_host(m, max_offsets: int) -> Tuple[np.ndarray, np.ndarray]:
+    """``(offsets, data)``: the sorted offsets and float32 ``[k, n]``."""
+    offs = diagonal_offsets(m)
+    k = offs.shape[0]
+    if k > max_offsets:
+        raise ValueError(
+            f"{k} distinct diagonals exceeds max_offsets={max_offsets}; DIA "
+            f"only suits banded matrices")
+    slot = np.zeros(2 * m.n + 1, dtype=np.int32)
+    slot[offs + m.n] = np.arange(k, dtype=np.int32)
+    data = np.zeros((k, m.n), dtype=np.float32)
+    for s0 in range(0, m.nnz, DIA_CHUNK):
+        data[slot[_offsets_of(m, s0) + m.n], m.rows[s0:s0 + DIA_CHUNK]] = \
+            m.vals[s0:s0 + DIA_CHUNK]
+    return offs, data
+
+
 def coo_to_dia(m, dtype=torch.float32, max_offsets: int = 64,
                device=None) -> DIAMatrix:
     """Convert a COO pattern to diagonal storage (refuses more than
-    ``max_offsets`` distinct diagonals with ``ValueError``)."""
-    diag = m.cols.astype(np.int64) - m.rows
-    offs = np.unique(diag)
-    if offs.shape[0] > max_offsets:
-        raise ValueError(
-            f"{offs.shape[0]} distinct diagonals exceeds max_offsets="
-            f"{max_offsets}; DIA only suits banded matrices")
-    data = np.zeros((offs.shape[0], m.n), dtype=np.float32)
-    data[np.searchsorted(offs, diag), m.rows] = m.vals
+    ``max_offsets`` distinct diagonals with ``ValueError``).
+
+    Under a set-up root (the pack), the host work (the offsets and the
+    ``[k, n]`` scatter) is the span ``spmm.pack.diagonals``, with the count
+    of diagonals, their span (last offset less the first) and the host
+    array's bytes.
+    """
+    if not trace.in_setup():
+        offs, data = _dia_host(m, max_offsets)
+    else:
+        with trace.span("spmm.pack.diagonals") as span:
+            offs, data = _dia_host(m, max_offsets)
+            span.attrs.update(
+                diagonals=int(offs.shape[0]), bytes=int(data.nbytes),
+                span=int(offs[-1] - offs[0]) if offs.shape[0] else 0)
     return DIAMatrix(data=_cast(data, dtype, device),
                      offsets=tuple(int(o) for o in offs), n=m.n)
 

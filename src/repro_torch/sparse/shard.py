@@ -530,19 +530,14 @@ class ShardedPlan(_stream.StreamPlan):
         """``(layout, wrapper)``: shard layout ``local`` packed for its
         kernel on ``dev``, as the ``cuda`` specs pack a whole matrix (a
         CSR shard as row tiles over ``n`` rows, a BCSR shard with its
-        empty block rows padded, a band of diagonals as the banded
-        kernel's layout)."""
-        from repro_torch.kernels import (band_to_blocks, banded_spmm,
-                                         bcsr_spmm, csr_spmm,
+        empty block rows padded, a shard of diagonals as the banded
+        kernel's layout, its DIA storage as it is)."""
+        from repro_torch.kernels import (banded_spmm, bcsr_spmm, csr_spmm,
                                          pad_empty_block_rows)
-        from repro_torch.kernels.registry import pallas_band_tile
         n = self.n
         if fmt_name == "dia":
-            t = pallas_band_tile(n)
-            band, w = band_to_blocks(fmt.host_values(local.data),
-                                     [int(o) for o in local.offsets],
-                                     n=n, t=t)
-            return banded_spmm.band_layout(band, w, t, dev), \
+            return banded_spmm.dia_layout(
+                fmt.to_device(local.data, dev), local.offsets), \
                 banded_spmm.banded_spmm
         if fmt_name == "bcsr":
             return pad_empty_block_rows(local.to(dev)), bcsr_spmm.bcsr_spmm

@@ -8,7 +8,8 @@ through the port's ``("csr" | "ell" | "ell_coo" | "binned" | "rowsplit" |
 "dia", "cuda")`` prepare on the CPU:
 
 * the layout must equal the reference's ``pallas`` prepare of the same
-  matrix, bridged with ``repro_torch.interop``, byte for byte;
+  matrix, bridged with ``repro_torch.interop``, byte for byte (the banded
+  pair's diagonals also re-expand to the reference's band);
 * the pair's run (the kernel's plain version, on a CPU operand) must agree
   with the reference's oracle (``repro.kernels.ref``) within ``4 * eps *
   (|A| @ |B|) + ATOL + RTOL * |C|`` per side, at d in {1, 8};
@@ -93,6 +94,16 @@ def test_adversarial_layout_equals_reference(fmt_name, case, token):
         r, p = _bits(getattr(bridged, f)), _bits(getattr(port, f))
         assert r.dtype == p.dtype and r.shape == p.shape, f
         assert np.array_equal(r, p), f"{fmt_name} {case} {token}: {f}"
+        seen += 1
+    if fmt_name == "dia":
+        # The port packs no band: its diagonals, re-expanded at the
+        # reference's block edge, are the reference's band.
+        band, w = port_registry.band_to_blocks(
+            host_values(port.diags), port.offsets.tolist(), n=port.n,
+            t=int(ref["t"]))
+        assert w == int(ref["w"])
+        assert np.array_equal(_bits(band), _bits(ref["band"])), \
+            f"{fmt_name} {case} {token}: band"
         seen += 1
     assert seen >= 3
     for f in STATICS:

@@ -1,13 +1,15 @@
-"""The banded kernel's derived diagonals against the reference's band.
+"""The banded kernel's diagonals against the reference's band.
 
-``band_diagonals`` derives the k stored diagonals that the CUDA kernel
-walks from the reference's block-band tensor alone.  Held here on the CPU:
-re-expanding them with ``band_to_blocks`` gives the band back byte for byte
-(bf16 compared as its 16-bit patterns), zero and ``-0.0`` entries come out
-as the band stores them, k stays within the kernel's 64, the walk
-``C[r] = sum_j diags[j, r] * B[r + offsets[j]]`` equals the plain version
-within ``4 * eps * (|A| @ |B|) + 5e-4 + 5e-4 * |C|``, and a layout bridged
-from the reference carries the same diagonals as the one the port prepares.
+The port packs the k stored diagonals that the CUDA kernel walks straight
+from DIA storage; a layout bridged from the reference derives them from
+its block-band tensor with ``band_diagonals``.  Held here on the CPU:
+re-expanding derived diagonals with ``band_to_blocks`` gives the band back
+byte for byte (bf16 compared as its 16-bit patterns), zero and ``-0.0``
+entries come out as the band stores them, k stays within the kernel's 64,
+the walk ``C[r] = sum_j diags[j, r] * B[r + offsets[j]]`` in numpy equals
+the plain version and A @ B within ``4 * eps * (|A| @ |B|) + 5e-4 + 5e-4 *
+|C|``, and a layout bridged from the reference carries the same diagonals
+as the one the port prepares, which re-expand to the reference's band.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from repro_torch import interop
 from repro_torch.core.precision import as_precision
 from repro_torch.kernels import registry as port_registry
 from repro_torch.kernels.banded_spmm import (MAX_DIAGONALS, band_diagonals,
-                                             band_layout, banded_spmm_plain)
+                                             banded_spmm_plain)
 from repro_torch.sparse import formats as port_fmt
 
 N = 256
@@ -151,8 +153,8 @@ def test_band_diagonals_stay_within_the_kernels_limit(n, offsets):
 @pytest.mark.parametrize("value", ["f32", "bf16"])
 @pytest.mark.parametrize("name,m", MATRICES, ids=IDS)
 def test_diagonal_walk_equals_plain_version(name, m, value):
-    """The kernel's arithmetic, in numpy over the derived diagonals,
-    against the plain version on the band."""
+    """The kernel's arithmetic, in numpy over the packed diagonals,
+    against the plain version's shifted slices and against A @ B."""
     pm = interop.coo_from_numpy(m.n, m.rows, m.cols, m.vals, m.pattern,
                                 m.meta)
     prec = "f32i32" if value == "f32" else "bf16i32"
@@ -162,7 +164,7 @@ def test_diagonal_walk_equals_plain_version(name, m, value):
         layout = port_registry.get("dia", "cuda").prepare(pm, ctx)
     except ValueError:
         return
-    dtype = layout.band.dtype
+    dtype = layout.diags.dtype
     b = torch.from_numpy(np.random.default_rng(1).normal(
         size=(m.n, 8)).astype(np.float32)).to(dtype)
     plain = banded_spmm_plain(layout, b).double().numpy()
@@ -181,6 +183,14 @@ def test_diagonal_walk_equals_plain_version(name, m, value):
     bound = 2 * (4 * eps * (dense @ np.abs(bd)) + ATOL) + RTOL * (
         np.abs(walk) + np.abs(plain))
     assert np.all(np.abs(walk - plain) <= bound), name
+    signed = np.zeros((m.n, m.n))
+    np.add.at(signed, (m.rows, m.cols), m.vals.astype(np.float32)
+              if value == "f32" else
+              torch.from_numpy(m.vals).to(dtype).double().numpy())
+    exact = signed @ bd
+    bound = 2 * (4 * eps * (dense @ np.abs(bd)) + ATOL) + RTOL * (
+        np.abs(exact) + np.abs(plain))
+    assert np.all(np.abs(exact - plain) <= bound), name
 
 
 @pytest.mark.parametrize("value", ["f32", "bf16"])
@@ -202,12 +212,15 @@ def test_bridged_and_prepared_layouts_carry_the_same_diagonals(n, value):
                                         precision=as_precision(prec)))
     assert own.offsets.device.type == "cpu"
     assert own.offsets.dtype == torch.int32
-    for field in ("band", "offsets", "diags"):
+    assert bridged.n == own.n == m.n
+    for field in ("offsets", "diags"):
         a, b = getattr(bridged, field), getattr(own, field)
         assert a.dtype == b.dtype and a.shape == b.shape, field
         assert np.array_equal(port_fmt.host_values(a),
                               port_fmt.host_values(b)), field
-    rebuilt = band_layout(port_fmt.host_values(own.band), own.w, own.t)
-    assert torch.equal(rebuilt.offsets, own.offsets)
-    assert np.array_equal(port_fmt.host_values(rebuilt.diags),
-                          port_fmt.host_values(own.diags))
+    # The port packs no band; its diagonals re-expand to the reference's.
+    band, w = port_registry.band_to_blocks(
+        port_fmt.host_values(own.diags), own.offsets.tolist(), n=m.n,
+        t=int(ref_layout["t"]))
+    assert w == int(ref_layout["w"])
+    assert np.array_equal(_bits(band), _bits(ref_layout["band"]))

@@ -114,7 +114,8 @@ def test_cuda_kernel_matches_plain_version(cuda_device, fmt, token):
 @pytest.mark.gpu
 @pytest.mark.parametrize("n", [1001, 1002, 1004, 1024])
 def test_banded_kernel_at_small_block_edges(cuda_device, n):
-    """t = pallas_band_tile(n) is 1, 2, 4 and 128 here."""
+    """n that is not a multiple of the kernel's 128-row tile (and one that
+    is): the last tile is partial."""
     _run(banded(n, 3, fill=0.9, seed=n), "dia", "f32i32", cuda_device, d=40)
 
 
@@ -162,6 +163,71 @@ def test_banded_kernel_reads_b_through_l1_for_a_wide_span(cuda_device, d,
     so each block reads B through L1 (edge tiles included)."""
     _run(_far_diagonals(8192, (-3000, 0, 3000)), "dia", token, cuda_device,
          d=d)
+
+
+def _stencil_reference():
+    """``bench/stencil27_reference.py`` (plain torch), loaded by path."""
+    import importlib.util
+    import pathlib
+    path = (pathlib.Path(__file__).resolve().parents[1] / "bench"
+            / "stencil27_reference.py")
+    spec = importlib.util.spec_from_file_location("stencil27_reference",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 4, 64, 65, 100])
+@pytest.mark.parametrize("grid", [(24, 24, 24), (48, 48, 48)],
+                         ids=["24^3", "48^3"])
+def test_banded_kernel_on_the_hpcg_stencil(cuda_device, grid, d):
+    """HPCG's 27-point operator packed as the plan packs it (DIA, no band)
+    against the plain float64 stencil reference, within ``28 * 2**-24 *
+    (|A| @ |B|)`` (a float32 sum of 27 products).  Offsets span 1,202 rows
+    (24^3) and 4,706 (48^3): the window of 128 + span rows passes the 96 KB
+    budget at every width but d = 4 (1,330 and 4,834 rows of 16 B, one
+    bulk copy), so the launch reads B through L1 (mode ``none``)."""
+    ref = _stencil_reference()
+    nx, ny, nz = grid
+    coef = ref.random_coefficients(nx, ny, nz, d)
+    rows, cols, vals = ref.coo(coef)
+    m = COOMatrix(n=nx * ny * nz, rows=rows.to(torch.int32).numpy(),
+                  cols=cols.to(torch.int32).numpy(), vals=vals.numpy(),
+                  pattern="diagonal")
+    spec = registry.get("dia", "cuda")
+    ctx = registry.KernelContext(plan_d=d, device=cuda_device)
+    layout = spec.prepare(m, ctx)
+    assert layout.diags.numel() == 27 * m.n
+    b = torch.from_numpy(np.random.default_rng(d).normal(
+        size=(m.n, d)).astype(np.float32)).to(cuda_device)
+    from repro_torch.kernels import banded_spmm as banded_module
+    before = dict(banded_module.LAUNCHES_BY_WINDOW)
+    got = spec.run(layout, b, ctx)
+    torch.cuda.synchronize()
+    mode = "bulk" if d == 4 else "none"
+    assert {k: v - before[k] for k, v in
+            banded_module.LAUNCHES_BY_WINDOW.items()} == \
+        {k: int(k == mode) for k in banded_module.WINDOWS}
+    want = ref.apply(coef, b)
+    mag = ref.apply(coef.abs(), b.abs())
+    err = (got.double() - want).abs()
+    assert bool((err <= 28 * 2.0 ** -24 * mag).all()), \
+        float((err / mag).max())
+
+
+@pytest.mark.gpu
+def test_banded_kernel_counts_a_bulk_window_on_a_narrow_band(cuda_device):
+    """A band of 5 at d = 64 (offsets -4 to 4): the window, 136 rows of
+    256 B, is one bulk copy."""
+    from repro_torch.kernels import banded_spmm as banded_module
+    before = dict(banded_module.LAUNCHES_BY_WINDOW)
+    _run(banded(4096, 5, fill=0.9, seed=5), "dia", "f32i32", cuda_device,
+         d=64)
+    assert {k: v - before[k] for k, v in
+            banded_module.LAUNCHES_BY_WINDOW.items()} == \
+        {k: int(k == "bulk") for k in banded_module.WINDOWS}
 
 
 def _skewed(n: int = 1024) -> COOMatrix:

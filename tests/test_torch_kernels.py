@@ -174,7 +174,7 @@ def test_banded_plain_version_at_every_block_edge(n):
     layout = interop.layout_from_numpy("dia", _as_numpy(ref_layout), "cpu")
     port_c = banded_spmm(layout, torch.from_numpy(b))
     _assert_within(_to_numpy(port_c), ref_c, _bound(m, b, 2.0 ** -23),
-                   f"banded t={layout.t}")
+                   f"banded n={n}")
 
 
 @pytest.mark.parametrize("fmt", sorted(KERNEL_OF) + ["grouped"])
