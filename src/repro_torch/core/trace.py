@@ -37,7 +37,7 @@ it.  The names are a contract with the benchmark's readers
 * plan: ``spmm.plan`` (root), ``spmm.plan.classify``, ``spmm.plan.stat``,
   ``spmm.plan.policy``, ``spmm.plan.candidate``;
 * pack: ``spmm.pack`` (root), ``spmm.pack.convert``, ``spmm.pack.layout``,
-  ``spmm.pack.copy``;
+  ``spmm.pack.diagonals``, ``spmm.pack.quadrants``, ``spmm.pack.copy``;
 * request: ``spmm.execute`` (root), ``spmm.check``, ``spmm.alloc``,
   ``spmm.launch``.
 """

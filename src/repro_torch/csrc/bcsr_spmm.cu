@@ -8,14 +8,24 @@
 // sums run in fp32 (the reference's preferred_element_type = float32); C is
 // cast once to B's dtype.
 //
-// What bounds it on the card: bytes, at both dtypes.  At t = 64, d = 64 a
-// stored block is 16 KB of fp32 (8 KB of bf16) and carries 2 * 64^3 FLOPs;
-// on `moe-block` (one dense block per block row, B read once) that is
-// 8.6 GFLOP against 268 MB of A plus B and C, 0.240 ms at 3.35 TB/s
-// (0.120 ms at bf16).  At fp32 the same FLOPs take 0.128 ms at the 67
-// TFLOP/s CUDA-core FMA peak, so the FMAs must run at over half of peak
-// and overlap the copies; at bf16 CUDA-core FMA alone would exceed the
-// bytes bound, so bf16 runs on the tensor cores.
+// What bounds it on the card depends on how full the stored blocks are.
+// At t = 64, d = 64 a full block is 16 KB of fp32 (8 KB of bf16) and
+// carries 2 * 64^3 FLOPs; on `moe-block` (one dense block per block row, B
+// read once) that is 8.6 GFLOP against 268 MB of A plus B and C, 0.240 ms
+// at 3.35 TB/s (0.120 ms at bf16).  At fp32 the same FLOPs take 0.128 ms at
+// the 67 TFLOP/s CUDA-core FMA peak, so the FMAs must run at over half of
+// peak and overlap the copies; at bf16 CUDA-core FMA alone would exceed the
+// bytes bound, so bf16 runs on the tensor cores.  An operator of smaller
+// blocks packed at t = 64 fills few of a tile's four 32 x 32 quadrants
+// (`fem-n20`'s 32 x 32 blocks: 28 % of the quadrants of its stored tiles
+// hold an entry), and a full tile's copies and 64^3 FMAs a pair, whatever
+// d, are then mostly spent on zeros.  So at fp32 the kernel reads a mask of
+// the quadrants each block holds, made once at pack time
+// (kernels/bcsr_spmm.py, `quadrant_mask`), and copies and multiplies only
+// those: its work follows the quadrants held, and a full block (mask 0xF)
+// or a layout without a mask does the whole tile's.  Every quadrant it
+// skips is zero, and fmaf(0, b, acc) == acc for finite b, so C is bitwise
+// the same.
 //
 // What the design does about it: three variants, named by the wrapper's
 // shape rule (kernels/bcsr_spmm.py, `bcsr_variant`) and checked here.
@@ -37,7 +47,14 @@
 //   was chosen over a thread layout that shares A rows across a warp
 //   because the strided-row ownership keeps B reads conflict-free too.
 //   At a block-row change the tile stores its accumulators to C (float4,
-//   columns past d masked) and zeroes them.
+//   columns past d masked) and zeroes them.  The quadrant mask (bit
+//   2 rh + kh: row half rh, column half kh) is read with the pair's block
+//   column, a pair ahead: a pair copies its present quadrants of A (32
+//   rows x 128 B each) and the 32 B rows of each k half a present quadrant
+//   reads, and runs the k loop over those halves only, each for the row
+//   pairs (r < 2: the top half, r >= 2: the bottom) whose quadrant is
+//   present.  The mask is the same for the whole block, so no branch
+//   diverges; a padded zero block (mask 0) copies and multiplies nothing.
 // * wgmma_bf16 (t = 64, bf16, d % 8 == 0): the same persistent walk, with
 //   a producer warp that issues two TMA loads per pair (the A block through
 //   a 2-D map over blocks viewed as [N * 64, 64], K-major; the B tile
@@ -143,29 +160,32 @@ __device__ __forceinline__ bool next_row(const int* __restrict__ block_ptr,
 }
 
 // The same walk as one flat sequence of (block row, block) pairs, empty
-// rows skipped; the pair's block column is loaded a pair ahead of its use.
+// rows skipped; the pair's block column and quadrant mask are loaded a pair
+// ahead of their use.
 struct Pairs {
   Rows row;
   int i;     // current block
   int col;   // its block column
+  int mask;  // its quadrants held (0xF without a mask)
 };
 
 __device__ __forceinline__ Pairs first_pairs(const int* __restrict__ block_ptr,
                                              long long step) {
-  return Pairs{first_rows(block_ptr, step), -1, 0};
+  return Pairs{first_rows(block_ptr, step), -1, 0, 0xF};
 }
 
-// Step to the next pair; false past the last.
-__device__ __forceinline__ bool next_pair(const int* __restrict__ block_ptr,
-                                          const int* __restrict__ block_cols,
-                                          long long nb, long long step,
-                                          Pairs& p) {
+// Step to the next pair; false past the last.  `quadrants` may be null.
+__device__ __forceinline__ bool next_pair(
+    const int* __restrict__ block_ptr, const int* __restrict__ block_cols,
+    const unsigned char* __restrict__ quadrants, long long nb,
+    long long step, Pairs& p) {
   ++p.i;
   while (p.i >= p.row.i1) {
     if (!next_row(block_ptr, nb, step, p.row)) return false;
     p.i = p.row.i0;
   }
   p.col = block_cols[p.i];
+  p.mask = quadrants ? quadrants[p.i] : 0xF;
   return true;
 }
 
@@ -195,6 +215,7 @@ dim3 ring_grid(int resident, long long nb, int slices) {
 // ---- tile64_f32: register-tiled fp32 FMA over a cp.async ring --------------
 constexpr int F_THREADS = 128;
 constexpr int F_STAGES = 2;
+constexpr int F_HALF = T64 / 2;                  // quadrant edge
 constexpr int F_A_LD = T64 + 4;                  // padded A row (floats)
 constexpr int F_A_FLOATS = T64 * F_A_LD;
 constexpr int F_STAGE_FLOATS = F_A_FLOATS + T64 * T64;
@@ -204,24 +225,82 @@ __device__ __forceinline__ float lane_of(const float4& v, int k) {
   return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
 }
 
-// Issue the copies of block i (A, 64 x 64 contiguous) and its B tile (rows
-// col * 64 .. + 64, columns c0 .. c0 + 64, zero past d) into `stage`.
+// The row halves of k half kh that `mask` holds: bit 0 the top, bit 2 the
+// bottom (0 when no present quadrant reads k half kh).
+__device__ __forceinline__ int halves_of(int mask, int kh) {
+  return (mask >> kh) & 5;
+}
+
+// Issue the copies of block i's quadrants that `mask` holds (A, 64 x 64
+// contiguous; quadrant (rh, kh) is rows 32 rh .. + 32, columns 32 kh .. +
+// 32) and of the rows of its B tile (rows col * 64 .. + 64, columns c0 ..
+// c0 + 64, zero past d) that those quadrants read, into `stage`.
 __device__ __forceinline__ void issue_f32(float* stage,
                                           const float* __restrict__ blocks,
                                           const float* __restrict__ b,
-                                          int i, int col, int c0, int d) {
+                                          int i, int col, int mask, int c0,
+                                          int d) {
   const float* a = blocks + static_cast<long long>(i) * T64 * T64;
   const float* bt = b + static_cast<long long>(col) * T64 * d + c0;
   float* As = stage;
   float* Bs = stage + F_A_FLOATS;
 #pragma unroll
-  for (int m = 0; m < T64 * T64 / 4 / F_THREADS; ++m) {
-    const int j = threadIdx.x + F_THREADS * m;   // 16-byte chunk
-    const int r = j / 16, q = j % 16;
-    cp_async16(As + r * F_A_LD + 4 * q, a + 4 * j);
-    const bool in = c0 + 4 * q < d;
-    cp_async16_fill(Bs + r * T64 + 4 * q, in ? bt + r * d + 4 * q : bt,
-                    in ? 16u : 0u);
+  for (int h = 0; h < 4; ++h) {
+    if (!((mask >> h) & 1)) continue;
+    const int r0 = F_HALF * (h >> 1), k0 = F_HALF * (h & 1);
+#pragma unroll
+    for (int m = 0; m < F_HALF * F_HALF / 4 / F_THREADS; ++m) {
+      const int j = threadIdx.x + F_THREADS * m;   // 16-byte chunk
+      const int r = r0 + j / 8, k = k0 + 4 * (j % 8);
+      cp_async16(As + r * F_A_LD + k, a + r * T64 + k);
+    }
+  }
+#pragma unroll
+  for (int kh = 0; kh < 2; ++kh) {
+    if (!halves_of(mask, kh)) continue;
+#pragma unroll
+    for (int m = 0; m < F_HALF * T64 / 4 / F_THREADS; ++m) {
+      const int j = threadIdx.x + F_THREADS * m;   // 16-byte chunk
+      const int r = F_HALF * kh + j / 16, q = j % 16;
+      const bool in = c0 + 4 * q < d;
+      cp_async16_fill(Bs + r * T64 + 4 * q, in ? bt + r * d + 4 * q : bt,
+                      in ? 16u : 0u);
+    }
+  }
+}
+
+// acc[r] += A[ty + 16 r, k0 .. k0 + 32) @ B[k0 .. k0 + 32, the thread's
+// columns) for the row pairs r in [R0, R1): one k half of a pair.
+template <int R0, int R1>
+__device__ __forceinline__ void fma_half(const float* As, const float* Bs,
+                                         int k0, int tx, int ty,
+                                         float (&acc)[4][8]) {
+#pragma unroll 4
+  for (int kq = 0; kq < F_HALF; kq += 4) {
+    const int k = k0 + kq;
+    float4 a[4];
+#pragma unroll
+    for (int r = R0; r < R1; ++r)
+      a[r] = *reinterpret_cast<const float4*>(As + (ty + 16 * r) * F_A_LD + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 b0 =
+          *reinterpret_cast<const float4*>(Bs + (k + kk) * T64 + 4 * tx);
+      const float4 b1 = *reinterpret_cast<const float4*>(
+          Bs + (k + kk) * T64 + 32 + 4 * tx);
+#pragma unroll
+      for (int r = R0; r < R1; ++r) {
+        const float av = lane_of(a[r], kk);
+        acc[r][0] = fmaf(av, b0.x, acc[r][0]);
+        acc[r][1] = fmaf(av, b0.y, acc[r][1]);
+        acc[r][2] = fmaf(av, b0.z, acc[r][2]);
+        acc[r][3] = fmaf(av, b0.w, acc[r][3]);
+        acc[r][4] = fmaf(av, b1.x, acc[r][4]);
+        acc[r][5] = fmaf(av, b1.y, acc[r][5]);
+        acc[r][6] = fmaf(av, b1.z, acc[r][6]);
+        acc[r][7] = fmaf(av, b1.w, acc[r][7]);
+      }
+    }
   }
 }
 
@@ -230,7 +309,8 @@ __global__ void __launch_bounds__(F_THREADS, 3)
                     const int* __restrict__ block_cols,
                     const float* __restrict__ blocks,
                     const float* __restrict__ b, float* __restrict__ c,
-                    long long nb, int d) {
+                    long long nb, int d,
+                    const unsigned char* __restrict__ quadrants) {
   extern __shared__ __align__(16) float smem_f[];
   const int lane = threadIdx.x % 32;
   const int tx = lane % 8;
@@ -238,18 +318,18 @@ __global__ void __launch_bounds__(F_THREADS, 3)
   const int c0 = blockIdx.y * T64;
   const long long step = gridDim.x;
 
-  // The copy cursor runs F_STAGES - 1 pairs ahead of the multiply.
+  // The copy cursor runs one pair ahead of the multiply; `ahead` holds the
+  // quadrant mask of the pair in flight.
+  static_assert(F_STAGES == 2, "one pair in flight");
   Pairs copy = first_pairs(block_ptr, step);
-  bool more = next_pair(block_ptr, block_cols, nb, step, copy);
-#pragma unroll
-  for (int s = 0; s < F_STAGES - 1; ++s) {
-    if (more) {
-      issue_f32(smem_f + s * F_STAGE_FLOATS, blocks, b, copy.i, copy.col, c0,
-                d);
-      more = next_pair(block_ptr, block_cols, nb, step, copy);
-    }
-    cp_async_commit();
+  bool more = next_pair(block_ptr, block_cols, quadrants, nb, step, copy);
+  int ahead = 0;
+  if (more) {
+    issue_f32(smem_f, blocks, b, copy.i, copy.col, copy.mask, c0, d);
+    ahead = copy.mask;
+    more = next_pair(block_ptr, block_cols, quadrants, nb, step, copy);
   }
+  cp_async_commit();
 
   int q = 0;  // pairs multiplied so far
   Rows row = first_rows(block_ptr, step);
@@ -263,40 +343,25 @@ __global__ void __launch_bounds__(F_THREADS, 3)
       // Pair q has landed, and every thread is done with pair q - 1's stage.
       cp_async_wait<F_STAGES - 2>();
       __syncthreads();
+      const int mask = ahead;
       if (more) {
         issue_f32(smem_f + ((q + F_STAGES - 1) % F_STAGES) * F_STAGE_FLOATS,
-                  blocks, b, copy.i, copy.col, c0, d);
-        more = next_pair(block_ptr, block_cols, nb, step, copy);
+                  blocks, b, copy.i, copy.col, copy.mask, c0, d);
+        ahead = copy.mask;
+        more = next_pair(block_ptr, block_cols, quadrants, nb, step, copy);
       }
       cp_async_commit();
       const float* As = smem_f + (q % F_STAGES) * F_STAGE_FLOATS;
       const float* Bs = As + F_A_FLOATS;
-#pragma unroll 4
-      for (int k = 0; k < T64; k += 4) {
-        float4 a[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          a[r] = *reinterpret_cast<const float4*>(As + (ty + 16 * r) * F_A_LD +
-                                                  k);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const float4 b0 =
-              *reinterpret_cast<const float4*>(Bs + (k + kk) * T64 + 4 * tx);
-          const float4 b1 = *reinterpret_cast<const float4*>(
-              Bs + (k + kk) * T64 + 32 + 4 * tx);
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const float av = lane_of(a[r], kk);
-            acc[r][0] = fmaf(av, b0.x, acc[r][0]);
-            acc[r][1] = fmaf(av, b0.y, acc[r][1]);
-            acc[r][2] = fmaf(av, b0.z, acc[r][2]);
-            acc[r][3] = fmaf(av, b0.w, acc[r][3]);
-            acc[r][4] = fmaf(av, b1.x, acc[r][4]);
-            acc[r][5] = fmaf(av, b1.y, acc[r][5]);
-            acc[r][6] = fmaf(av, b1.z, acc[r][6]);
-            acc[r][7] = fmaf(av, b1.w, acc[r][7]);
-          }
-        }
+#pragma unroll 1
+      for (int kh = 0; kh < 2; ++kh) {
+        const int halves = halves_of(mask, kh);
+        if (halves == 5)
+          fma_half<0, 4>(As, Bs, F_HALF * kh, tx, ty, acc);
+        else if (halves == 1)
+          fma_half<0, 2>(As, Bs, F_HALF * kh, tx, ty, acc);
+        else if (halves == 4)
+          fma_half<2, 4>(As, Bs, F_HALF * kh, tx, ty, acc);
       }
     }
 #pragma unroll
@@ -313,8 +378,9 @@ __global__ void __launch_bounds__(F_THREADS, 3)
 }
 
 cudaError_t launch_tile64_f32(const void* block_ptr, const void* block_cols,
-                              const void* blocks, const void* b, void* c,
-                              long long nb, int d, cudaStream_t stream) {
+                              const void* quadrants, const void* blocks,
+                              const void* b, void* c, long long nb, int d,
+                              cudaStream_t stream) {
   cudaError_t err = allow_smem(bcsr_tile64_f32, F_SMEM);
   int resident = 0;
   if (err == cudaSuccess)
@@ -324,7 +390,8 @@ cudaError_t launch_tile64_f32(const void* block_ptr, const void* block_cols,
   bcsr_tile64_f32<<<grid, F_THREADS, F_SMEM, stream>>>(
       static_cast<const int*>(block_ptr), static_cast<const int*>(block_cols),
       static_cast<const float*>(blocks), static_cast<const float*>(b),
-      static_cast<float*>(c), nb, d);
+      static_cast<float*>(c), nb, d,
+      static_cast<const unsigned char*>(quadrants));
   return cudaGetLastError();
 }
 
@@ -367,7 +434,8 @@ __global__ void __launch_bounds__(W_THREADS, 3)
     // Producer warp: one thread keeps the ring full, across block rows.
     if (threadIdx.x == 128) {
       Pairs p = first_pairs(block_ptr, step);
-      for (int q = 0; next_pair(block_ptr, block_cols, nb, step, p); ++q) {
+      for (int q = 0; next_pair(block_ptr, block_cols, nullptr, nb, step, p);
+           ++q) {
         const int s = q % W_STAGES;
         mbar_wait(&empty[s], ((q / W_STAGES) & 1) ^ 1);
         mbar_expect_tx(&full[s], 2 * W_TILE_BYTES);
@@ -469,11 +537,14 @@ cudaError_t launch_wgmma_bf16(const void* block_ptr, const void* block_cols,
 
 }  // namespace
 
+// `quadrants` (uint8 [num_blocks], or null: every quadrant present) is
+// read by tile64_f32 alone.
 extern "C" int bcsr_spmm_launch(int variant, int value_type,
                                 const void* block_ptr, const void* block_cols,
-                                const void* blocks, const void* b, void* c,
-                                long long nb, long long num_blocks, int t,
-                                int d, void* stream) {
+                                const void* quadrants, const void* blocks,
+                                const void* b, void* c, long long nb,
+                                long long num_blocks, int t, int d,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (nb < 1 || d < 1) return bad;
@@ -481,8 +552,9 @@ extern "C" int bcsr_spmm_launch(int variant, int value_type,
   if (variant == VARIANT_TILE64_F32) {
     if (value_type != VALUE_F32 || t != T64 || d % 4 || slices > 65535)
       return bad;
-    return static_cast<int>(launch_tile64_f32(block_ptr, block_cols, blocks,
-                                              b, c, nb, d, s));
+    return static_cast<int>(launch_tile64_f32(block_ptr, block_cols,
+                                              quadrants, blocks, b, c, nb, d,
+                                              s));
   }
   if (variant == VARIANT_WGMMA_BF16) {
     // TMA coordinates are int32: block rows of A and of B.

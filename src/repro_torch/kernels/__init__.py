@@ -6,9 +6,10 @@ matmul, and their registry.
 ``(format, backend)`` pair.  Each kernel module holds the host packer, the
 CUDA wrapper, the plain PyTorch version and a launch counter
 (``<module>.LAUNCHES``; a module with several kernel variants also counts
-them by variant, ``<module>.LAUNCHES_BY_VARIANT``, and the banded kernel by
-the way it staged B, ``banded_spmm.LAUNCHES_BY_WINDOW``); :func:`launch_counts`
-reads them all.
+them by variant, ``<module>.LAUNCHES_BY_VARIANT``, the banded kernel by
+the way it staged B, ``banded_spmm.LAUNCHES_BY_WINDOW``, and the BCSR kernel
+the launches given a quadrant mask, ``bcsr_spmm.LAUNCHES_MASKED``);
+:func:`launch_counts` reads the totals.
 """
 from repro_torch.kernels import (banded_spmm, bcsr_spmm, binned_spmm,
                                  csr_spmm, grouped_matmul, registry,
@@ -33,10 +34,12 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch counter to 0, per-variant and per-window
-    counters too."""
+    """Set every kernel's launch counter to 0, per-variant, per-window and
+    masked counters too."""
     for mod in KERNEL_MODULES.values():
         mod.LAUNCHES = 0
+        if hasattr(mod, "LAUNCHES_MASKED"):
+            mod.LAUNCHES_MASKED = 0
         for name in ("LAUNCHES_BY_VARIANT", "LAUNCHES_BY_WINDOW"):
             by = getattr(mod, name, {})
             for key in by:

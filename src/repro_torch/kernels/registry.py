@@ -40,7 +40,7 @@ from repro_torch.core.hardware import H100, HOST_CPU, HardwareSpec
 from repro_torch.core.precision import DEFAULT_PRECISION, Precision
 from repro_torch.kernels import banded_spmm as banded_module
 from repro_torch.kernels.banded_spmm import banded_spmm, dia_layout
-from repro_torch.kernels.bcsr_spmm import bcsr_spmm
+from repro_torch.kernels.bcsr_spmm import bcsr_spmm, with_quadrants
 from repro_torch.kernels.binned_spmm import (
     binned_spmm, csr_to_slab_bins, slab_bin_layout)
 from repro_torch.kernels.csr_spmm import (
@@ -707,7 +707,7 @@ register(KernelSpec(
 
 
 def _bcsr_cuda_prepare(m, ctx: KernelContext):
-    return pad_empty_block_rows(_convert(ctx, m, "bcsr"))
+    return with_quadrants(pad_empty_block_rows(_convert(ctx, m, "bcsr")))
 
 
 def _bcsr_cuda_run(layout, b, ctx: KernelContext):
@@ -737,8 +737,9 @@ register(KernelSpec(
     format="bcsr", backend="cuda",
     description="dense-block kernel: at t = 64 persistent blocks walk a "
                 "ring of (A block, B tile) pairs across block rows "
-                "(register-tiled fp32 FMA; TMA + wgmma at bf16), else one "
-                "block per block row",
+                "(register-tiled fp32 FMA over the quadrants a pack-time "
+                "mask holds; TMA + wgmma at bf16), else one block per "
+                "block row",
     prepare=_bcsr_cuda_prepare, run=_bcsr_cuda_run,
     estimate=_bcsr_estimate, footprint=_bcsr_cuda_footprint,
     # Block coordinates are per-block metadata, not per-nonzero traffic,

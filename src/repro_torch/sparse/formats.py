@@ -17,7 +17,7 @@ bfloat16.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -90,6 +90,10 @@ class BCSRMatrix(_Tensors):
     n: int
     t: int
     nnz: int                  # true nonzeros (for FLOP accounting)
+    #: [N] uint8, bit 2 * rh + kh set where the t/2 x t/2 quadrant of row
+    #: half rh and column half kh holds a nonzero (``bcsr_spmm.
+    #: with_quadrants``, at t = 64); None: every quadrant counts as present.
+    quadrants: Optional[torch.Tensor] = None
 
     @property
     def num_blocks(self) -> int:

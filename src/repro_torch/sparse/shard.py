@@ -530,8 +530,9 @@ class ShardedPlan(_stream.StreamPlan):
         """``(layout, wrapper)``: shard layout ``local`` packed for its
         kernel on ``dev``, as the ``cuda`` specs pack a whole matrix (a
         CSR shard as row tiles over ``n`` rows, a BCSR shard with its
-        empty block rows padded, a shard of diagonals as the banded
-        kernel's layout, its DIA storage as it is)."""
+        empty block rows padded and its quadrant mask, a shard of
+        diagonals as the banded kernel's layout, its DIA storage as it
+        is)."""
         from repro_torch.kernels import (banded_spmm, bcsr_spmm, csr_spmm,
                                          pad_empty_block_rows)
         n = self.n
@@ -540,7 +541,8 @@ class ShardedPlan(_stream.StreamPlan):
                 fmt.to_device(local.data, dev), local.offsets), \
                 banded_spmm.banded_spmm
         if fmt_name == "bcsr":
-            return pad_empty_block_rows(local.to(dev)), bcsr_spmm.bcsr_spmm
+            return bcsr_spmm.with_quadrants(pad_empty_block_rows(
+                local.to(dev))), bcsr_spmm.bcsr_spmm
         ctx = self._kernel_ctx()
         indptr = local.indptr.cpu().numpy().astype(np.int64)
         indptr = np.concatenate(

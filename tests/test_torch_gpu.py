@@ -28,7 +28,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.core.patterns import (COOMatrix, banded, blocked,
-                                       serving_suite)
+                                       paper_suite, serving_suite)
 from repro_torch.core.precision import as_precision
 from repro_torch.kernels import bcsr_spmm as bcsr_module
 from repro_torch.kernels import registry
@@ -715,6 +715,102 @@ def test_bcsr_fast_variants_on_the_main_path_shape(cuda_device, token,
     _bcsr_check(layout, first, b, f"moe-block {token}")
     bits = torch.int32 if b.dtype == torch.float32 else torch.int16
     assert torch.equal(first.view(bits), _bcsr_call(layout, b).view(bits))
+
+
+def _quadrant_layout(nb: int, device, seed: int) -> BCSRMatrix:
+    """t = 64 blocks whose quadrants held follow every one of the 16
+    masks (0 a stored all-zero block), 0-6 blocks per block row (empty
+    rows padded), one row of 48: masks mixed within rows and across the
+    ring.  Carries its quadrant mask as the cuda prepare packs it."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 7, size=nb)
+    counts[nb // 3] = 48
+    assert (counts == 0).any()
+    rows = np.repeat(np.arange(nb), counts).astype(np.int32)
+    cols = np.concatenate([np.sort(rng.choice(nb, size=k, replace=False))
+                           for k in counts]).astype(np.int32)
+    num = rows.shape[0]
+    masks = rng.permutation(np.arange(num) % 16)
+    held = (masks[:, None] >> np.arange(4)) & 1             # bit 2 rh + kh
+    keep = np.repeat(np.repeat(held.reshape(num, 2, 2), 32, 1), 32, 2)
+    blocks = (rng.normal(size=(num, 64, 64)) * keep).astype(np.float32)
+    ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    a = BCSRMatrix(blocks=torch.from_numpy(blocks).to(device),
+                   block_rows=torch.from_numpy(rows).to(device),
+                   block_cols=torch.from_numpy(cols).to(device),
+                   block_ptr=torch.from_numpy(ptr).to(device),
+                   n=nb * 64, t=64, nnz=int(np.count_nonzero(blocks)))
+    return bcsr_module.with_quadrants(registry.pad_empty_block_rows(a))
+
+
+def _masked_against_bare(layout, b, what):
+    """The masked kernel's C: counted as masked, within the plain
+    version's bound, and bitwise equal to the same layout run without its
+    mask (which does every quadrant's work)."""
+    masked = bcsr_module.LAUNCHES_MASKED
+    got = _bcsr_call(layout, b)
+    assert bcsr_module.LAUNCHES_MASKED == masked + 1, what
+    _bcsr_check(layout, got, b, what)
+    full = _bcsr_call(dataclasses.replace(layout, quadrants=None), b)
+    assert bcsr_module.LAUNCHES_MASKED == masked + 1, what
+    assert torch.equal(got.view(torch.int32), full.view(torch.int32)), what
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [4, 8, 60, 64, 68, 128])
+def test_bcsr_tile64_skips_the_quadrants_the_mask_leaves_out(cuda_device,
+                                                             d):
+    """Every one of the 16 masks, 2048 block rows (more than the resident
+    thread blocks), padded rows among them."""
+    layout = _quadrant_layout(2048, cuda_device, seed=d)
+    assert set(layout.quadrants.tolist()) == set(range(16))
+    b = _bcsr_b(layout.n, d, "f32i32", cuda_device, seed=d)
+    _masked_against_bare(layout, b, f"16 masks d={d}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [4, 64])
+def test_bcsr_tile64_mask_on_the_fem_operator(cuda_device, d):
+    """``paper_suite``'s 32 x 32-block FEM operator packed at t = 64, as
+    the plan packs ``fem-n20``."""
+    m = paper_suite(14)["fem_14_t32"]()
+    layout = _bcsr_prepare(m, "f32i32", cuda_device, 64)
+    assert layout.quadrants is not None
+    b = _bcsr_b(m.n, d, "f32i32", cuda_device, seed=d)
+    got = _masked_against_bare(layout, b, f"fem d={d}")
+    _check(m, got, bcsr_spmm_plain(layout, b), b,
+           as_precision("f32i32").eps, f"fem d={d} vs dense")
+
+
+#: The adversarial set placed in a 128 x 128 matrix at t = 64, so that its
+#: entries fall in every quadrant and across blocks (as on the CPU in
+#: ``tests/test_torch_bcsr.py``).
+SHIFTS = ((0, 0), (32, 0), (0, 32), (40, 80), (96, 96))
+
+T64_CASES = [(case, dr, dc) for case in sorted(ADVERSARIAL)
+             for dr, dc in SHIFTS]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [4, 64])
+@pytest.mark.parametrize("token", ["f32i32", "bf16i32"])
+@pytest.mark.parametrize("case,dr,dc", T64_CASES,
+                         ids=[f"{c}-at{r}x{k}" for c, r, k in T64_CASES])
+def test_bcsr_t64_kernels_on_shifted_adversarial(cuda_device, case, dr, dc,
+                                                 token, d):
+    m = ADVERSARIAL[case]
+    m = dataclasses.replace(m, n=128, rows=m.rows + dr, cols=m.cols + dc)
+    layout = _bcsr_prepare(m, token, cuda_device, 64)
+    b = _bcsr_b(m.n, d, token, cuda_device, seed=d)
+    what = f"{case} at ({dr}, {dc}) {token} d={d}"
+    if token == "f32i32":
+        got = _masked_against_bare(layout, b, what)
+    else:
+        got = _bcsr_call(layout, b)
+        _bcsr_check(layout, got, b, what)
+    _check(m, got, bcsr_spmm_plain(layout, b), b, as_precision(token).eps,
+           f"{what} vs dense")
 
 
 # ---------------------------------------------------------------------- #
